@@ -1,0 +1,132 @@
+"""Whole-cloud 4× upsampling through batched patches (counterpart of
+``inference.py``, single device).
+
+normalize the cloud → FPS seeds → kNN patches (k = patch size; the kNN
+kernel on the card) → per-patch normalization → the generator in chunks
+of ``patch_batch`` patches (the count padded with copies of the first
+patch) → un-normalize the patches → merge FPS down to n·4 points →
+un-normalize the cloud.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dispu_tpu_torch.config import (GeneratorConfig, InferenceConfig,
+                                    check_supported)
+from dispu_tpu_torch.convert import from_flax_variables
+from dispu_tpu_torch.models.generator import DisPUGenerator
+from dispu_tpu_torch.ops.geometry import normalize_point_cloud
+from dispu_tpu_torch.ops.knn import knn
+from dispu_tpu_torch.ops.sampling import farthest_point_sample
+
+
+def pin_f32() -> None:
+    """Keep f32 products in f32 on the card.
+
+    PyTorch may run f32 matmuls and convolutions in TF32 (about three
+    decimal digits); the distances behind kNN selection and the network's
+    f32 compute need full f32, as the JAX package asks for with
+    ``precision=HIGHEST``.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device; a CUDA request without a card raises rather
+    than running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def plan_counts(n: int, inf_cfg: InferenceConfig):
+    """(seed_num, out_num) for an ``n``-point input cloud: seeds = n /
+    patch size · oversampling ratio, at least 1."""
+    seed_num = max(
+        int(n / inf_cfg.patch_num_point * inf_cfg.patch_num_ratio), 1
+    )
+    return seed_num, n * inf_cfg.final_ratio
+
+
+class PatchUpsampler:
+    """Upsample whole clouds with the Dis-PU generator.
+
+    variables: a flax ``{'params', 'batch_stats'}`` tree (nested dicts of
+    arrays) to load, or None for the port's own init from ``seed``.
+    device: 'cuda' by default; 'cpu' runs the kernels' plain versions.
+    impl: 'auto', 'cuda' or 'torch' for the kNN, FPS and attention
+    kernels (see ``dispu_tpu_torch.kernels``).
+    """
+
+    def __init__(self, variables=None,
+                 gen_cfg: GeneratorConfig = GeneratorConfig(),
+                 inf_cfg: InferenceConfig = InferenceConfig(),
+                 device="cuda", impl: str = "auto", seed: int = 0,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device inference is not ported yet (ROADMAP.md, "
+                "queue 1: multi-GPU runs)"
+            )
+        check_supported(gen_cfg, inf_cfg)
+        self.device = resolve_device(device)
+        pin_f32()
+        self.gen_cfg, self.inf_cfg, self.impl = gen_cfg, inf_cfg, impl
+        model = DisPUGenerator(gen_cfg, impl=impl, seed=seed)
+        if variables is not None:
+            from_flax_variables(model, variables)
+        self.model = model.to(self.device).eval()
+
+    # ---------------------------------------------------------------- stages
+
+    def prepare(self, pc_n: torch.Tensor, seed_num: int):
+        """FPS seeds, kNN patches and per-patch normalization of a
+        normalized (n, 3) cloud → (patches (s, p, 3), centroid (s, 1, 3),
+        furthest (s, 1, 1), seed indices (s,))."""
+        seeds_idx = farthest_point_sample(seed_num, pc_n[None],
+                                          impl=self.impl)[0].long()
+        _, idx = knn(self.inf_cfg.patch_num_point, pc_n[None],
+                     pc_n[seeds_idx][None], impl=self.impl)
+        patches = pc_n[idx[0].long()]
+        patches, centroid, furthest = normalize_point_cloud(patches)
+        return patches, centroid, furthest, seeds_idx
+
+    def chunks(self, patches: torch.Tensor):
+        """The patches padded to a multiple of ``patch_batch`` with copies
+        of the first patch, as a list of (patch_batch, p, 3) chunks."""
+        bs = self.inf_cfg.patch_batch
+        pad = (-patches.shape[0]) % bs
+        if pad:
+            filler = patches[:1].expand((pad,) + patches.shape[1:])
+            patches = torch.cat([patches, filler], dim=0)
+        return list(torch.split(patches, bs, dim=0))
+
+    def generate(self, patches: torch.Tensor) -> torch.Tensor:
+        """(s, p, 3) normalized patches → (s, 4p, 3) fine points."""
+        preds = [self.model(chunk)[1] for chunk in self.chunks(patches)]
+        return torch.cat(preds, dim=0)[: patches.shape[0]]
+
+    def merge(self, points: torch.Tensor, out_num: int) -> torch.Tensor:
+        """Merge FPS: (N, 3) → (out_num, 3)."""
+        idx = farthest_point_sample(out_num, points[None], impl=self.impl)[0]
+        return points[idx.long()]
+
+    # ------------------------------------------------------------------- API
+
+    @torch.inference_mode()
+    def upsample(self, pc) -> np.ndarray:
+        """(n, 3) cloud → (n·final_ratio, 3) upsampled cloud (numpy)."""
+        pc = np.asarray(pc, np.float32)[:, :3]
+        seed_num, out_num = plan_counts(pc.shape[0], self.inf_cfg)
+        pc_n, centroid, furthest = normalize_point_cloud(
+            torch.from_numpy(pc).to(self.device))
+        patches, p_centroid, p_furthest, _ = self.prepare(pc_n, seed_num)
+        pred = self.generate(patches) * p_furthest + p_centroid
+        out = self.merge(pred.reshape(-1, 3), out_num)
+        return (out * furthest + centroid).cpu().numpy()

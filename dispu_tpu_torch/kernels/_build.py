@@ -1,0 +1,103 @@
+"""Build the CUDA sources under ``csrc/`` into shared libraries, at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
+by ``nvcc`` for ``sm_90a`` into ``dispu_tpu_torch/_build/<name>-<hash>.so``,
+where the hash covers the source and the flags, and is loaded with
+``ctypes``.  Importing this module needs no ``nvcc``: nothing is built until
+a kernel is first launched (or :func:`build` is called), so the CPU tests
+import every module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+NAMES = ("knn", "fps", "attention")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=NAMES) -> dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` process per source, all started together.  Returns the wall
+    seconds of each compile (0.0 when it was already built).  Raises with
+    the compiler's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, seconds = {}, {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, target, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, target, t0) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        target.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``: registers, spills, shared
+    memory) from the build of ``name``, when it was built here."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

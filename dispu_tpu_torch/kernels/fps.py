@@ -1,0 +1,80 @@
+"""Farthest-point-sampling kernel (``csrc/fps.cu``) and its plain version.
+
+Replaces ``fps_pallas`` (``dispu_tpu/ops/pallas_kernels.py``).  On an H100
+the kernel is bound by the latency of its serial argmax chain: one block
+per cloud, two block barriers a round; see the note at the top of the
+source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def fps_torch(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
+    """Plain version, one round at a time: seed index 0, min-distances
+    start at 1e38, first-occurrence argmax, distance
+    ``((x−px)² + (y−py)²) + (z−pz)²``.  When npoint exceeds the number of
+    distinct points, every min-distance reaches 0 and each later round
+    takes index 0, as ``_fps_xla`` does.  Returns (b, npoint) int32."""
+    b, n, _ = xyz.shape
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    mindist = torch.full((b, n), 1e38, dtype=torch.float32, device=xyz.device)
+    out = torch.zeros((b, npoint), dtype=torch.int64, device=xyz.device)
+    last = torch.zeros((b, 1), dtype=torch.int64, device=xyz.device)
+    for j in range(1, npoint):
+        dx = x - torch.gather(x, 1, last)
+        dy = y - torch.gather(y, 1, last)
+        dz = z - torch.gather(z, 1, last)
+        mindist = torch.minimum(mindist, (dx * dx + dy * dy) + dz * dz)
+        last = torch.argmax(mindist, dim=1, keepdim=True)  # first maximum
+        out[:, j:j + 1] = last
+    return out.to(torch.int32)
+
+
+def fps_cuda(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel.  Same contract as :func:`fps_torch`."""
+    from dispu_tpu_torch.kernels import _build
+
+    if xyz.dim() != 3 or xyz.shape[-1] != 3:
+        raise ValueError(f"fps kernel takes (b, n, 3), got {tuple(xyz.shape)}")
+    if xyz.dtype != torch.float32 or not xyz.is_cuda or not xyz.is_contiguous():
+        raise ValueError("fps kernel takes a contiguous float32 CUDA tensor")
+    b, n, _ = xyz.shape
+    if b < 1 or n < 1 or npoint < 1:
+        raise ValueError(f"fps kernel needs b, n, npoint >= 1, got "
+                         f"{(b, n, npoint)}")
+    lib = _build.load("fps")
+    lib.dispu_fps_in_registers.argtypes = [_I]
+    lib.dispu_fps_in_registers.restype = _I
+    fn = lib.dispu_fps
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    fn.restype = _I
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    if not lib.dispu_fps_in_registers(n):
+        scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
+        scratch_ptr = scratch.data_ptr()
+    else:
+        scratch_ptr = None
+    with torch.cuda.device(xyz.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(xyz.data_ptr(), out.data_ptr(), scratch_ptr, b, n,
+                    npoint, stream)
+    _build.check(status, "fps kernel launch")
+    LAUNCHES["fps"] += 1
+    return out
+
+
+def fps(npoint: int, xyz: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """(b, n, 3) → (b, npoint) int32 FPS indices; the kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if use_kernel(impl, xyz):
+        return fps_cuda(npoint, xyz)
+    return fps_torch(npoint, xyz)

@@ -1,0 +1,62 @@
+"""Basic point-cloud geometry helpers (counterpart of ``ops/geometry.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distance matrix ``max(|x|² − 2x·y + |y|², 0)``.
+
+    x: (..., n, c) queries, y: (..., m, c) dataset → (..., n, m).  The
+    expansion and its association, ``(x2 − 2·xy) + y2``, are the JAX
+    package's, so selections tie the same way.  The product runs in full
+    f32: callers on the card pin ``allow_tf32 = False`` (see
+    ``inference.pin_f32``).
+    """
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)            # (..., n, 1)
+    y2 = torch.sum(y * y, dim=-1, keepdim=True)            # (..., m, 1)
+    xy = torch.matmul(x, y.transpose(-1, -2))              # (..., n, m)
+    return torch.clamp_min(x2 - 2.0 * xy + y2.transpose(-1, -2), 0.0)
+
+
+def normalize_point_cloud(pc: torch.Tensor):
+    """Center on the centroid and scale by the furthest point distance.
+
+    pc: (b, n, 3) or (n, 3) → (normalized, centroid, furthest) with
+    broadcastable shapes.  A degenerate cloud (every point identical) is
+    guarded by a 1e-12 floor on the scale.
+    """
+    squeeze = pc.dim() == 2
+    if squeeze:
+        pc = pc[None]
+    centroid = torch.mean(pc, dim=1, keepdim=True)
+    centered = pc - centroid
+    furthest = torch.amax(
+        torch.sqrt(torch.sum(centered ** 2, dim=-1, keepdim=True)),
+        dim=1, keepdim=True,
+    )
+    out = centered / torch.clamp_min(furthest, 1e-12)
+    if squeeze:
+        return out[0], centroid[0], furthest[0]
+    return out, centroid, furthest
+
+
+def _grid_hw(up_ratio: int) -> tuple[int, int]:
+    """Factor ``up_ratio`` into the most-square (num_x, num_y) grid."""
+    sqrted = int(math.sqrt(up_ratio)) + 1
+    for i in reversed(range(1, sqrted + 1)):
+        if up_ratio % i == 0:
+            return i, up_ratio // i
+    return 1, up_ratio
+
+
+def gen_grid(up_ratio: int) -> torch.Tensor:
+    """(up_ratio, 2) float32 code grid in [-0.2, 0.2]², 'xy' meshgrid order."""
+    num_x, num_y = _grid_hw(up_ratio)
+    grid_x = torch.linspace(-0.2, 0.2, num_x, dtype=torch.float32)
+    grid_y = torch.linspace(-0.2, 0.2, num_y, dtype=torch.float32)
+    x, y = torch.meshgrid(grid_x, grid_y, indexing="xy")
+    return torch.stack([x, y], dim=-1).reshape(-1, 2)
