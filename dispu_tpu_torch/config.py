@@ -100,8 +100,5 @@ def check_supported(gen_cfg: GeneratorConfig,
         return
     if inf_cfg.compute_dtype != "float32":
         _unsupported(f"compute_dtype={inf_cfg.compute_dtype!r}", turbo)
-    if inf_cfg.final_ratio != inf_cfg.step_ratio:
-        _unsupported(f"final_ratio={inf_cfg.final_ratio}",
-                     "16x and streaming inference")
     if inf_cfg.merge_fps != "exact":
         _unsupported(f"merge_fps={inf_cfg.merge_fps!r}", turbo)

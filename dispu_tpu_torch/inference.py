@@ -1,14 +1,18 @@
-"""Whole-cloud 4× upsampling through batched patches (counterpart of
+"""Whole-cloud upsampling through batched patches (counterpart of
 ``inference.py``, single device).
 
-normalize the cloud → FPS seeds → kNN patches (k = patch size; the kNN
+normalize each cloud → FPS seeds → kNN patches (k = patch size; the kNN
 kernel on the card) → per-patch normalization → the generator in chunks
 of ``patch_batch`` patches (the count padded with copies of the first
-patch) → un-normalize the patches → merge FPS down to n·4 points →
-un-normalize the cloud.
+patch), ``num_passes`` chained passes a chunk (1 at 4×, 2 at 16×) →
+un-normalize the patches → merge FPS down to n·final_ratio points a cloud
+→ un-normalize the clouds.  ``upsample_many`` runs B same-size clouds
+through each stage at once; ``upsample`` is its one-cloud case.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -54,6 +58,12 @@ def plan_counts(n: int, inf_cfg: InferenceConfig):
     return seed_num, n * inf_cfg.final_ratio
 
 
+def _take(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of (b, n, c) ``points`` at (b, m) indices → (b, m, c)."""
+    idx = idx.long()[..., None].expand(-1, -1, points.shape[-1])
+    return torch.gather(points, 1, idx)
+
+
 class PatchUpsampler:
     """Upsample whole clouds with the Dis-PU generator.
 
@@ -78,6 +88,9 @@ class PatchUpsampler:
         self.device = resolve_device(device)
         pin_f32()
         self.gen_cfg, self.inf_cfg, self.impl = gen_cfg, inf_cfg, impl
+        # chained passes of the generator: 4× → 1, 16× → 2
+        self.num_passes = max(
+            1, round(math.log(inf_cfg.final_ratio, inf_cfg.step_ratio)))
         model = DisPUGenerator(gen_cfg, impl=impl, seed=seed)
         if variables is not None:
             from_flax_variables(model, variables)
@@ -85,15 +98,16 @@ class PatchUpsampler:
 
     # ---------------------------------------------------------------- stages
 
-    def prepare(self, pc_n: torch.Tensor, seed_num: int):
-        """FPS seeds, kNN patches and per-patch normalization of a
-        normalized (n, 3) cloud → (patches (s, p, 3), centroid (s, 1, 3),
-        furthest (s, 1, 1), seed indices (s,))."""
-        seeds_idx = farthest_point_sample(seed_num, pc_n[None],
-                                          impl=self.impl)[0].long()
-        _, idx = knn(self.inf_cfg.patch_num_point, pc_n[None],
-                     pc_n[seeds_idx][None], impl=self.impl)
-        patches = pc_n[idx[0].long()]
+    def prepare(self, pcs_n: torch.Tensor, seed_num: int):
+        """FPS seeds, kNN patches and per-patch normalization of B
+        normalized (B, n, 3) clouds → (patches (B·s, p, 3), centroid
+        (B·s, 1, 3), furthest (B·s, 1, 1), seed indices (B, s)); the
+        patches of cloud v are rows v·s to v·s + s − 1."""
+        b = pcs_n.shape[0]
+        p = self.inf_cfg.patch_num_point
+        seeds_idx = farthest_point_sample(seed_num, pcs_n, impl=self.impl)
+        _, idx = knn(p, pcs_n, _take(pcs_n, seeds_idx), impl=self.impl)
+        patches = _take(pcs_n, idx.reshape(b, -1)).reshape(b * seed_num, p, 3)
         patches, centroid, furthest = normalize_point_cloud(patches)
         return patches, centroid, furthest, seeds_idx
 
@@ -108,25 +122,42 @@ class PatchUpsampler:
         return list(torch.split(patches, bs, dim=0))
 
     def generate(self, patches: torch.Tensor) -> torch.Tensor:
-        """(s, p, 3) normalized patches → (s, 4p, 3) fine points."""
-        preds = [self.model(chunk)[1] for chunk in self.chunks(patches)]
+        """(s, p, 3) normalized patches → (s, p·r^num_passes, 3) fine
+        points: each chunk goes through the generator ``num_passes`` times,
+        each pass taking the previous pass's fine points."""
+        preds = []
+        for pred in self.chunks(patches):
+            for _ in range(self.num_passes):
+                pred = self.model(pred)[1]
+            preds.append(pred)
         return torch.cat(preds, dim=0)[: patches.shape[0]]
 
     def merge(self, points: torch.Tensor, out_num: int) -> torch.Tensor:
-        """Merge FPS: (N, 3) → (out_num, 3)."""
-        idx = farthest_point_sample(out_num, points[None], impl=self.impl)[0]
-        return points[idx.long()]
+        """Merge FPS of B clouds' candidates, one FPS call for all B (the
+        JAX package's ``impl='batch'``): (B, N, 3) → (B, out_num, 3)."""
+        impl = "batch" if self.impl == "auto" else self.impl
+        return _take(points, farthest_point_sample(out_num, points, impl=impl))
 
     # ------------------------------------------------------------------- API
 
     @torch.inference_mode()
+    def upsample_many(self, pcs) -> np.ndarray:
+        """(B, n, 3) same-size clouds → (B, n·final_ratio, 3) (numpy).
+
+        As in the JAX package, cloud v's output is not bit-identical to
+        ``upsample(pcs[v])`` for B > 1: its patches share generator chunks
+        with the other clouds' and the padding differs, which moves the
+        f32 round-off of each chunk's products."""
+        pcs = np.asarray(pcs, np.float32)[:, :, :3]
+        b, n, _ = pcs.shape
+        seed_num, out_num = plan_counts(n, self.inf_cfg)
+        pcs_n, centroid, furthest = normalize_point_cloud(
+            torch.from_numpy(pcs).to(self.device))
+        patches, p_centroid, p_furthest, _ = self.prepare(pcs_n, seed_num)
+        pred = self.generate(patches) * p_furthest + p_centroid
+        out = self.merge(pred.reshape(b, -1, 3), out_num)
+        return (out * furthest + centroid).cpu().numpy()
+
     def upsample(self, pc) -> np.ndarray:
         """(n, 3) cloud → (n·final_ratio, 3) upsampled cloud (numpy)."""
-        pc = np.asarray(pc, np.float32)[:, :3]
-        seed_num, out_num = plan_counts(pc.shape[0], self.inf_cfg)
-        pc_n, centroid, furthest = normalize_point_cloud(
-            torch.from_numpy(pc).to(self.device))
-        patches, p_centroid, p_furthest, _ = self.prepare(pc_n, seed_num)
-        pred = self.generate(patches) * p_furthest + p_centroid
-        out = self.merge(pred.reshape(-1, 3), out_num)
-        return (out * furthest + centroid).cpu().numpy()
+        return self.upsample_many(np.asarray(pc, np.float32)[None, :, :3])[0]

@@ -13,11 +13,11 @@
 // 2048-point cloud (24,576 points -> 8,192 samples) is 8,191 dependent
 // rounds of one block-wide reduction each.  Design: one block of 1024
 // threads per cloud; each thread owns a strided share of the points and
-// keeps their running min-distances in registers (up to 32 per thread,
-// n <= 32,768), or in a scratch buffer in device memory beyond that; each
-// round is one pass over the thread's points, a warp shuffle reduction of
-// (max value, lowest index), and a second one across the 32 warps through
-// shared memory: two block barriers a round.
+// keeps their running min-distances in registers (up to 32 per thread, so
+// n <= 32,768; larger clouds go to fps_chunked.cu, one cluster per cloud);
+// each round is one pass over the thread's points, a warp shuffle
+// reduction of (max value, lowest index), and a second one across the 32
+// warps through shared memory: two block barriers a round.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -40,13 +40,12 @@ __device__ __forceinline__ void take_max(float& bv, int& bi, float ov, int oi) {
   if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
 }
 
-// R > 0: min-distances of points tid + r*1024 (r < R) in registers; the
-// i < n guard skips the slots past the cloud, so one R serves every n up
-// to R * 1024.  R == 0: min-distances in `scratch` (b x n floats).
-template <int R>
+// Min-distances of points tid + r*1024 (r < kRegs) in registers; the
+// i < n guard skips the slots past the cloud, so one instantiation serves
+// every n up to kRegs * 1024.
 __global__ void __launch_bounds__(kThreads)
-fps_kernel(const float* __restrict__ xyz, int* __restrict__ out,
-           float* __restrict__ scratch, int n, int npoint) {
+fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
+           int npoint) {
   __shared__ float s_v[32];
   __shared__ int s_i[32];
   __shared__ int s_last;
@@ -54,15 +53,10 @@ fps_kernel(const float* __restrict__ xyz, int* __restrict__ out,
   const long long cloud = blockIdx.x;
   const float* pts = xyz + cloud * n * 3;
   int* o = out + cloud * npoint;
-  float* mdg = scratch + cloud * n;
 
-  float md[R > 0 ? R : 1];
-  if constexpr (R > 0) {
+  float md[kRegs];
 #pragma unroll
-    for (int r = 0; r < R; ++r) md[r] = 1e38f;
-  } else {
-    for (int i = tid; i < n; i += kThreads) mdg[i] = 1e38f;
-  }
+  for (int r = 0; r < kRegs; ++r) md[r] = 1e38f;
   if (tid == 0) o[0] = 0;
   int last = 0;
   for (int j = 1; j < npoint; ++j) {
@@ -70,21 +64,13 @@ fps_kernel(const float* __restrict__ xyz, int* __restrict__ out,
                 pz = pts[3 * last + 2];
     float bv = -1.f;  // below every min-distance (all are >= 0)
     int bi = INT_MAX;
-    if constexpr (R > 0) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = tid + r * kThreads;
-        if (i < n) {
-          const float v = fminf(md[r], sq_dist(pts + 3 * i, px, py, pz));
-          md[r] = v;
-          if (v > bv) { bv = v; bi = i; }  // ascending i: keeps the first
-        }
-      }
-    } else {
-      for (int i = tid; i < n; i += kThreads) {
-        const float v = fminf(mdg[i], sq_dist(pts + 3 * i, px, py, pz));
-        mdg[i] = v;
-        if (v > bv) { bv = v; bi = i; }
+    for (int r = 0; r < kRegs; ++r) {
+      const int i = tid + r * kThreads;
+      if (i < n) {
+        const float v = fminf(md[r], sq_dist(pts + 3 * i, px, py, pz));
+        md[r] = v;
+        if (v > bv) { bv = v; bi = i; }  // ascending i: keeps the first
       }
     }
 #pragma unroll
@@ -107,27 +93,13 @@ fps_kernel(const float* __restrict__ xyz, int* __restrict__ out,
   }
 }
 
-template <int R>
-int launch(const float* xyz, int* out, float* scratch, int b, int n,
-           int npoint, cudaStream_t stream) {
-  fps_kernel<R><<<b, kThreads, 0, stream>>>(xyz, out, scratch, n, npoint);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// 1 when the min-distances fit registers (n <= 32,768), 0 when the kernel
-// keeps them in the wrapper's scratch.
-extern "C" int dispu_fps_in_registers(int n) {
-  return n <= kRegs * kThreads;
-}
-
-// scratch: b x n floats, used only when dispu_fps_in_registers(n) == 0.
-extern "C" int dispu_fps(const float* xyz, int* out, float* scratch, int b,
-                         int n, int npoint, void* stream) {
-  if (b < 1 || n < 1 || npoint < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dispu_fps_in_registers(n))
-    return launch<kRegs>(xyz, out, scratch, b, n, npoint, s);
-  return launch<0>(xyz, out, scratch, b, n, npoint, s);
+// n <= 32,768 (kernels/fps.py: FPS_MAX_N); larger clouds are refused.
+extern "C" int dispu_fps(const float* xyz, int* out, int b, int n, int npoint,
+                         void* stream) {
+  if (b < 1 || n < 1 || npoint < 1 || n > kRegs * kThreads)
+    return (int)cudaErrorInvalidValue;
+  fps_kernel<<<b, kThreads, 0, (cudaStream_t)stream>>>(xyz, out, n, npoint);
+  return (int)cudaGetLastError();
 }

@@ -2,8 +2,11 @@
 
 Replaces ``fps_pallas`` (``dispu_tpu/ops/pallas_kernels.py``).  On an H100
 the kernel is bound by the latency of its serial argmax chain: one block
-per cloud, two block barriers a round; see the note at the top of the
-source.
+per cloud, min-distances in registers, two block barriers a round; see the
+note at the top of the source.  It takes clouds of up to
+:data:`FPS_MAX_N` points: the seed FPS and the 4× merge of the serving
+path.  Larger clouds (the 16× merge) go to the cluster kernel in
+``fps_chunked.py``, which :func:`fps_torch` is the plain version of too.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+#: the largest cloud ``fps.cu`` takes: 32 min-distances in registers for
+#: each of a block's 1024 threads
+FPS_MAX_N = 32 * 1024
 
 
 def fps_torch(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
@@ -40,33 +47,28 @@ def fps_torch(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
 
 
 def fps_cuda(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel.  Same contract as :func:`fps_torch`."""
+    """Launch the kernel.  Same contract as :func:`fps_torch`, for clouds of
+    at most :data:`FPS_MAX_N` points."""
     from dispu_tpu_torch.kernels import _build
 
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"fps kernel takes (b, n, 3), got {tuple(xyz.shape)}")
+    b, n, _ = xyz.shape
+    if n > FPS_MAX_N:
+        raise ValueError(f"fps kernel takes n <= {FPS_MAX_N} points, got {n}; "
+                         "larger clouds go to the fps_chunked kernel")
     if xyz.dtype != torch.float32 or not xyz.is_cuda or not xyz.is_contiguous():
         raise ValueError("fps kernel takes a contiguous float32 CUDA tensor")
-    b, n, _ = xyz.shape
     if b < 1 or n < 1 or npoint < 1:
         raise ValueError(f"fps kernel needs b, n, npoint >= 1, got "
                          f"{(b, n, npoint)}")
-    lib = _build.load("fps")
-    lib.dispu_fps_in_registers.argtypes = [_I]
-    lib.dispu_fps_in_registers.restype = _I
-    fn = lib.dispu_fps
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    fn = _build.load("fps").dispu_fps
+    fn.argtypes = [_P, _P, _I, _I, _I, _P]
     fn.restype = _I
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    if not lib.dispu_fps_in_registers(n):
-        scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
-        scratch_ptr = scratch.data_ptr()
-    else:
-        scratch_ptr = None
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(xyz.data_ptr(), out.data_ptr(), scratch_ptr, b, n,
-                    npoint, stream)
+        status = fn(xyz.data_ptr(), out.data_ptr(), b, n, npoint, stream)
     _build.check(status, "fps kernel launch")
     LAUNCHES["fps"] += 1
     return out

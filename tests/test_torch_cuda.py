@@ -14,7 +14,8 @@ import torch
 from dispu_tpu_torch import GeneratorConfig, InferenceConfig, kernels
 from dispu_tpu_torch.inference import PatchUpsampler, pin_f32
 from dispu_tpu_torch.kernels.attention import attention_cuda, attention_torch
-from dispu_tpu_torch.kernels.fps import fps_cuda, fps_torch
+from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps_cuda, fps_torch
+from dispu_tpu_torch.kernels.fps_chunked import fps_chunked_cuda
 from dispu_tpu_torch.kernels.knn import MAX_ROW_FLOATS, knn_cuda, knn_torch
 from dispu_tpu_torch.ops.knn import mask_duplicate_rows
 
@@ -63,12 +64,46 @@ def test_knn_kernel_refuses_rows_beyond_shared_memory(dev):
 
 
 @pytest.mark.parametrize("b,n,npoint", [
-    (1, 2048, 24), (2, 5000, 700), (1, 40000, 64), (1, 10, 16),
+    (1, 2048, 24), (2, 5000, 700), (1, FPS_MAX_N, 64), (1, 10, 16),
 ])
 def test_fps_kernel_bit_equal_to_plain(dev, b, n, npoint):
     xyz = _randn(n, b, n, 3).to(dev)
     xyz[:, n // 2:n // 2 + 3] = xyz[:, :3]
     assert torch.equal(fps_cuda(npoint, xyz), fps_torch(npoint, xyz))
+
+
+def test_fps_kernel_refuses_clouds_past_its_limit(dev):
+    with pytest.raises(ValueError, match=str(FPS_MAX_N)):
+        fps_cuda(8, torch.zeros((1, FPS_MAX_N + 1, 3), device=dev))
+
+
+# n across the kernel's forms: 8 blocks of ceil(n / 8) points, with 6, 12
+# or 18 min-distances a thread in registers up to 49,152, 98,304 and
+# 147,456 points (the cluster's on-chip capacity), device memory beyond
+@pytest.mark.parametrize("b,n,npoint", [
+    (1, 40000, 64), (3, 49152, 50), (1, 49153, 50), (3, 98309, 100),
+    (1, 147456, 64), (3, 147457, 40), (1, 100, 100),
+])
+def test_fps_chunked_kernel_bit_equal_to_plain(dev, b, n, npoint):
+    xyz = _randn(n, b, n, 3).to(dev)
+    xyz[:, n // 2:n // 2 + 3] = xyz[:, :3]
+    assert torch.equal(fps_chunked_cuda(npoint, xyz), fps_torch(npoint, xyz))
+
+
+def test_fps_chunked_kernel_more_samples_than_distinct_points(dev):
+    # 37 distinct points tiled over 40,003 (blocks of 5,001): exact ties
+    # within and across blocks, then every min-distance 0 and index 0
+    xyz = _randn(37, 1, 37, 3).repeat(1, 1082, 1)[:, :40003].to(dev)
+    got = fps_chunked_cuda(64, xyz.contiguous())
+    assert torch.equal(got, fps_torch(64, xyz))
+    assert sorted(got[0, :37].tolist()) == list(range(37))
+    assert (got[0, 37:] == 0).all()
+
+
+def _chamfer(a, b):
+    a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    d = torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    return float(d.min(1).values.mean() + d.min(0).values.mean())
 
 
 def test_attention_kernel_matches_plain_bf16(dev):
@@ -103,7 +138,8 @@ def test_upsampler_goes_through_the_kernels(dev):
     # 14 seeds → 2 chunks of 8 patches: kNN 1 + (4 backbone + 1 refiner)
     # per chunk; attention once per chunk (its 512 × 512 map reaches the
     # kernel's threshold); FPS for the seeds and the merge
-    assert kernels.launch_counts() == {"knn": 11, "fps": 2, "attention": 2}
+    assert kernels.launch_counts() == {"knn": 11, "fps": 2, "fps_chunked": 0,
+                                       "attention": 2}
     assert out.shape == (2400, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
                          device="cpu").upsample(pc)
@@ -122,5 +158,48 @@ def test_upsampler_fine_extractor_attention_reaches_the_kernel(dev):
     kernels.reset_launch_counts()
     out = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf).upsample(pc)
     # 2 chunks: kNN 1 + (4 coarse + 2 fine backbone + 1 refiner) per chunk
-    assert kernels.launch_counts() == {"knn": 15, "fps": 2, "attention": 2}
+    assert kernels.launch_counts() == {"knn": 15, "fps": 2, "fps_chunked": 0,
+                                       "attention": 2}
     assert out.shape == (2400, 3) and np.isfinite(out).all()
+
+
+def test_upsampler_16x_goes_through_the_kernels(dev):
+    inf = InferenceConfig(patch_num_point=128, patch_batch=8, final_ratio=16)
+    up = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf)
+    pc = _randn(1, 1200, 3).numpy()
+    kernels.reset_launch_counts()
+    out = up.upsample(pc)
+    # 28 seeds → 4 chunks of 8, two passes each: kNN 1 + 5 · 4 · 2,
+    # attention 4 · 2 (maps of 512² and 2048²); the merge of 28 · 2048 =
+    # 57,344 candidates goes to the cluster kernel
+    assert kernels.launch_counts() == {"knn": 41, "fps": 1, "fps_chunked": 1,
+                                       "attention": 8}
+    assert out.shape == (19200, 3) and np.isfinite(out).all()
+    ref = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
+                         impl="torch").upsample(pc)
+    # against the plain versions on the card, in the kernels' numerics:
+    # kNN near-tie swaps only (chip_smoke.py reads ~5e-9 at full width)
+    assert _chamfer(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("final_ratio,counts", [
+    # 2 · 28 seeds → 7 chunks of 8: kNN 1 + 5 · 7 per pass, attention 7 per
+    # pass; merges of 28 · 512 = 14,336 (fps) or 28 · 2048 = 57,344
+    # (fps_chunked, one cluster a cloud) candidates for both clouds at once
+    (4, {"knn": 36, "fps": 2, "fps_chunked": 0, "attention": 7}),
+    (16, {"knn": 71, "fps": 1, "fps_chunked": 1, "attention": 14}),
+])
+def test_upsample_many_goes_through_the_kernels(dev, final_ratio, counts):
+    inf = InferenceConfig(patch_num_point=128, patch_batch=8,
+                          final_ratio=final_ratio)
+    up = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf)
+    pcs = _randn(2, 2, 1200, 3).numpy()
+    kernels.reset_launch_counts()
+    out = up.upsample_many(pcs)
+    assert kernels.launch_counts() == counts
+    assert out.shape == (2, 1200 * final_ratio, 3)
+    assert np.isfinite(out).all()
+    ref = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
+                         impl="torch").upsample_many(pcs)
+    for v in range(2):
+        assert _chamfer(out[v], ref[v]) <= 1e-6

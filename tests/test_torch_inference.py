@@ -51,8 +51,8 @@ def test_seeds_and_patches_match(pair):
     pc_n, _, _ = normalize_point_cloud(torch.from_numpy(pc))
     # normalization: f32 round-off of a mean and a max
     np.testing.assert_allclose(pc_n.numpy(), np.asarray(jpc_n), atol=1e-6)
-    patches, _, _, seeds = tup.prepare(pc_n, seed_num)
-    np.testing.assert_array_equal(seeds.numpy(), jseeds)
+    patches, _, _, seeds = tup.prepare(pc_n[None], seed_num)
+    np.testing.assert_array_equal(seeds[0].numpy(), jseeds)
     np.testing.assert_allclose(patches.numpy(), np.asarray(jpatches),
                                atol=1e-5)
 
@@ -88,7 +88,8 @@ def test_merge_fps_on_jax_candidates_is_bit_equal(pair):
     merged = jup._chunked_generator(patches, 4) * furthest + centroid
     merged = merged.reshape(-1, 3)
     want = np.asarray(jup._merge(merged, out_num=out_num))
-    got = tup.merge(torch.from_numpy(np.array(merged)), out_num).numpy()
+    got = tup.merge(torch.from_numpy(np.array(merged))[None], out_num)[0]
+    got = got.numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -100,7 +101,7 @@ def test_plan_counts_match(n, inf_kw):
 
 
 @pytest.mark.parametrize("inf_kw", [
-    dict(final_ratio=16), dict(merge_fps="bucketed"),
+    dict(final_ratio=16, merge_fps="bucketed"), dict(merge_fps="bucketed"),
     dict(compute_dtype="bfloat16"),
 ])
 def test_unported_inference_settings_raise(inf_kw):

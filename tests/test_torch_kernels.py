@@ -14,15 +14,18 @@ import pytest
 import torch
 
 from dispu_tpu.ops.pallas_kernels import (attention_pallas, attention_xla,
-                                          fps_pallas, knn_pallas)
+                                          fps_pallas, fps_pallas_chunked,
+                                          fps_pallas_chunked_batch,
+                                          knn_pallas)
 from dispu_tpu.ops.sampling import _fps_xla
 from dispu_tpu_torch import kernels
 from dispu_tpu_torch.kernels.attention import attention, attention_torch
-from dispu_tpu_torch.kernels.fps import fps
+from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps, fps_cuda
+from dispu_tpu_torch.kernels.fps_chunked import fps_chunked, fps_chunked_cuda
 from dispu_tpu_torch.kernels.knn import knn as knn_kernel
 from dispu_tpu_torch.nn.attention import global_attention
 from dispu_tpu_torch.ops import knn as tknn
-from dispu_tpu_torch.ops.sampling import farthest_point_sample
+from dispu_tpu_torch.ops.sampling import farthest_point_sample, fps_kernel_for
 
 # the package's ``knn`` function shadows its module of that name
 jknn = importlib.import_module("dispu_tpu.ops.knn")
@@ -162,6 +165,68 @@ def test_fps_more_samples_than_points():
     assert got[5:] == [0, 0, 0, 0]
 
 
+@pytest.mark.parametrize("b,n,npoint,n_dup", [
+    (1, 2500, 64, 30),    # three chunks of 1024 at width 128, the last ragged
+    (2, 2500, 48, 0),     # two chunks of 2048 at the batch kernel's 256
+    (3, 1030, 64, 20),    # one full chunk and a ragged one
+])
+def test_fps_bit_equal_to_chunked_kernels(b, n, npoint, n_dup):
+    """The plain FPS, which the cluster kernel is held to, against the
+    chunked TPU kernels it replaces, run in interpret mode."""
+    x = _cloud(n + b, (b, n, 3), n_dup=n_dup)
+    got = farthest_point_sample(npoint, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        fps_pallas_chunked(npoint, jnp.asarray(x), interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(
+        fps_pallas_chunked_batch(npoint, jnp.asarray(x), interpret=True)))
+    np.testing.assert_array_equal(
+        got, fps_chunked(npoint, torch.from_numpy(x)).numpy())
+
+
+def test_fps_chunked_ties_across_chunks():
+    """40 points tiled over 2080 slots: exact ties across every chunk
+    boundary go to the first occurrence, in both chunked TPU kernels."""
+    base = np.random.RandomState(3).randn(40, 3).astype(np.float32)
+    x = np.stack([np.tile(base, (52, 1)), np.tile(base[::-1], (52, 1))])
+    got = farthest_point_sample(64, torch.from_numpy(x)).numpy()
+    assert sorted(got[0, :40]) == list(range(40)) and (got[:, 40:] == 0).all()
+    np.testing.assert_array_equal(got, np.asarray(
+        fps_pallas_chunked(64, jnp.asarray(x), interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(
+        fps_pallas_chunked_batch(64, jnp.asarray(x), interpret=True)))
+
+
+@pytest.mark.parametrize("n,kernel", [
+    (1, "fps"), (24576, "fps"), (FPS_MAX_N, "fps"),
+    (FPS_MAX_N + 1, "fps_chunked"), (98304, "fps_chunked"),
+    (479232, "fps_chunked"),
+])
+def test_fps_routes_by_cloud_size(n, kernel):
+    assert FPS_MAX_N == 32768
+    assert fps_kernel_for(n) == kernel
+
+
+def test_fps_batch_impl_routes_as_auto():
+    """'batch', the JAX package's streaming-merge name, is 'auto' here:
+    every cloud already gets its own block or cluster."""
+    x = torch.from_numpy(_cloud(4, (3, 300, 3), n_dup=10))
+    kernels.reset_launch_counts()
+    got = farthest_point_sample(40, x, impl="batch")
+    assert torch.equal(got, farthest_point_sample(40, x))
+    big = torch.zeros((1, FPS_MAX_N + 1, 3))  # past fps.cu: the other wrapper
+    assert farthest_point_sample(4, big, impl="batch").tolist() == [[0] * 4]
+    assert sum(kernels.launch_counts().values()) == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        farthest_point_sample(4, x, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        farthest_point_sample(4, big, impl="cuda")
+
+
+def test_fps_kernel_refuses_clouds_past_its_limit():
+    with pytest.raises(ValueError, match=f"n <= {FPS_MAX_N}"):
+        fps_cuda(8, torch.zeros((1, FPS_MAX_N + 1, 3)))
+
+
 # ----------------------------------------------------------------- attention
 
 def test_attention_plain_f32_matches_xla():
@@ -203,13 +268,17 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     x = torch.from_numpy(_cloud(0, (1, 64, 3)))
     knn_kernel(4, x, x)
     fps(8, x)
+    fps_chunked(8, x)
     attention(x, x, x, 1.0)
-    assert kernels.launch_counts() == {"knn": 0, "fps": 0, "attention": 0}
+    assert kernels.launch_counts() == {"knn": 0, "fps": 0, "fps_chunked": 0,
+                                       "attention": 0}
 
 
 @pytest.mark.parametrize("call", [
     lambda x: knn_kernel(4, x, x, impl="cuda"),
     lambda x: fps(8, x, impl="cuda"),
+    lambda x: fps_chunked(8, x, impl="cuda"),
+    lambda x: fps_chunked_cuda(8, x),
     lambda x: attention(x, x, x, 1.0, impl="cuda"),
 ])
 def test_wrappers_refuse_cuda_impl_on_cpu_tensors(call):
@@ -220,6 +289,7 @@ def test_wrappers_refuse_cuda_impl_on_cpu_tensors(call):
 @pytest.mark.parametrize("call", [
     lambda x: knn_kernel(4, x, x, impl="pallas"),
     lambda x: farthest_point_sample(8, x, impl="pallas"),
+    lambda x: fps_chunked(8, x, impl="chunked"),
     lambda x: attention(x, x, x, 1.0, impl="pallas"),
     lambda x: global_attention(x, x, x, 1.0, impl="pallas"),
 ])
