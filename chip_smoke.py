@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py            # the whole run, one card
-    python3 chip_smoke.py --profile  # and where one request's time goes
+    python3 chip_smoke.py --profile  # and where a request's and a train
+                                     # step's time goes
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card's name and power limit (nvidia-smi) and the CUDA version;
@@ -11,9 +12,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   3. hold each kernel against its plain PyTorch version on the card, at
      the shapes the serving paths give it for 2048-point clouds (the 4×
      request, pass 2 of the 16× request, the 16× merge of one cloud and of
-     two), and time the kernel, the plain version and one PyTorch library
-     call for the same function where there is one; the cluster FPS kernel
-     also past its on-chip capacity and at a ragged n with ties across its
+     two) and the train step gives it at batch 28 (backbone, refiner and
+     chamfer kNN; the attention forward and its backward rule; the ball
+     query in all three output modes, and at the critic's ball grouping),
+     and time the kernel, the plain version and one PyTorch library call
+     for the same function where there is one; the cluster FPS kernel also
+     past its on-chip capacity and at a ragged n with ties across its
      blocks;
   4. drive each serving path at full GeneratorConfig() width from the
      port's own seeded init, on demo/gt/Icosahedron.xyz and
@@ -21,7 +25,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      path and read just after: 6 whole-cloud 4× requests, 4 whole-cloud 16×
      requests, and ``upsample_many`` of both clouds at 4× and at 16× (twice
      each); compare each path's output with the same path run through the
-     plain versions (impl='torch') on the card;
+     plain versions (impl='torch') on the card.  Then CD training at the
+     same width with the training defaults (batch 28, random input,
+     augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
+     steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
+     on one batch (the loss falls; ms per step), one step through the
+     kernels against one through the plain versions (metrics, and a
+     gradient at every parameter), and two 5-step runs that must agree
+     bit for bit; each run with exact launch counts;
   5. print one JSON line listing every kernel with its numbers;
   6. print {"ok": true, "device": {...}} as the last line.
 
@@ -51,6 +62,27 @@ KNN_DIST_RTOL = 1e-5       # kernel distances vs plain distances
 KNN_SWAP_RTOL = 1e-6       # index differences only between such near-ties
 ATTN_MAX_ABS = 1e-3        # kernel vs plain(bf16_operands=True), max
 ATTN_MEAN_ABS = 1e-5       # ... and mean over all outputs
+# kernel ms of each checked kNN shape, by label (the train step's shapes
+# feed the training phase's per-step kernel time)
+TRAIN_KNN_MS: dict = {}
+# ball query vs plain: count, slot and selection differences only where a
+# point's plain distance lies within this of r² (hit test) or of a
+# competing slot's distance (ranking), relative to d + |q|² + |p|²; the
+# slots' distances within QB_DIST_RTOL of the plain ones on that scale
+QB_TIE_RTOL = 1e-6
+QB_DIST_RTOL = 1e-5
+# attention backward through the Function (kernel forward, f32 torch
+# backward) vs autograd of the plain bf16 version (bf16-rounded operands
+# and map): max |d| over max |grad| of each of dq, dk, dv
+ATTN_BWD_REL = 2e-2
+# one train step through the kernels vs through the plain versions on the
+# card: each metric (relative) and each gradient (max |d| over the leaf's
+# max |g|, floored at 1e-3 of the largest leaf's); the two differ by f32
+# sum orders and the attention kernel's sums (kNN near-ties could move
+# more).  Readings on an H100 at 700 W: 6.0e-8 and 1.3e-6; each limit
+# leaves one to two orders of headroom.
+TRAIN_METRIC_REL = 3e-6
+TRAIN_GRAD_REL = 1e-4
 # the whole path through the kernels vs through the plain versions
 # generator 'fine' output per chunk, in patch units: rows agree to f32
 # round-off except where a kNN near-tie (distances within ~1e-6) falls on
@@ -169,8 +201,10 @@ def check_knn(dev):
         return x
 
     # (label, points, queries, k, duplicate bias, launches per 4x request);
-    # the last three are the shapes of a 16x request's second pass, checked
-    # and timed but not counted in the 4x request's aggregate
+    # the rest are the shapes of a 16x request's second pass and of a train
+    # step at batch 28 (backbone, refiner, and the chamfer argmin at k = 1,
+    # whose library call is cdist + argmin), checked and timed but not
+    # counted in the 4x request's aggregate
     cases = [
         ("patch k256", cloud[None], cloud[None, ::85][:, :24], 256, False, 1),
         ("backbone c24", feats(32, 256, 24, 8), None, 17, True, 1),
@@ -179,6 +213,11 @@ def check_knn(dev):
         ("p2 bbone c24", feats(32, 1024, 24, 8), None, 17, True, 0),
         ("p2 bbone c48", feats(32, 1024, 48, 8), None, 17, True, 0),
         ("p2 refiner", feats(32, 4096, 3, 0), None, 16, False, 0),
+        ("train bb c24", feats(28, 256, 24, 8), None, 17, True, 0),
+        ("train bb c48", feats(28, 256, 48, 8), None, 17, True, 0),
+        ("train refiner", feats(28, 1024, 3, 0), None, 16, False, 0),
+        ("chamfer k1", feats(28, 1024, 3, 0), feats(28, 1024, 3, 0), 1,
+         False, 0),
     ]
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
@@ -219,6 +258,8 @@ def check_knn(dev):
             d = torch.cdist(qs, pts) ** 2
             if bias is not None:
                 d = d + bias[:, None, :]
+            if k == 1:
+                return torch.argmin(d, dim=-1)
             return torch.topk(d, k, dim=-1, largest=False)
 
         library_ms = timed_ms(library, reps=5)
@@ -226,10 +267,12 @@ def check_knn(dev):
             + 8 * b * m * k
         ops = b * m * n * (2 * c + 4)
         bms, by = bound(nbytes, ops, F32_FLOPS)
+        TRAIN_KNN_MS[label] = ms
         log(f"knn {label:13s} (b={b} n={n} m={m} c={c} k={k}): "
             f"max|d|err {max_abs:.3e} rel {float(dist_err.max()):.2e}, "
             f"swaps {n_swaps}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"cdist+topk {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"cdist+{'argmin' if k == 1 else 'topk'} {library_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
         agg["ms"] += per_req * ms
         agg["plain_ms"] += per_req * plain_ms
         agg["library_ms"] += per_req * library_ms
@@ -384,6 +427,37 @@ def check_attention(dev):
             agg = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
                        t_ops=ops / BF16_FLOPS, max_abs_err=max_abs)
+    # the backward at the train step's shape: the Function (kernel forward,
+    # the JAX package's rule in f32 torch ops) against autograd of the
+    # plain bf16 version
+    from dispu_tpu_torch.kernels.attention import AttentionFunction
+
+    bt = 28
+    q, k, v, do = (torch.randn(bt, 1024, c, generator=gen).to(dev)
+                   for _ in range(4))
+    grads = []
+    for fn in (lambda a, b_, v_: AttentionFunction.apply(a, b_, v_, scale,
+                                                         True),
+               lambda a, b_, v_: attention_torch(a, b_, v_, scale,
+                                                 bf16_operands=True)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves).backward(do)
+        grads.append([t.grad for t in leaves])
+    rels = [float(torch.abs(a - b_).max() / torch.abs(b_).max())
+            for a, b_ in zip(*grads)]
+    require(max(rels) <= ATTN_BWD_REL,
+            f"attention backward rel deviation {rels}")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = AttentionFunction.apply(*leaves, scale, True)
+    bwd_ms = timed_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                  retain_graph=True), reps=5)
+    fwd_ms = timed_ms(lambda: attention_cuda(q, k, v, scale), reps=10)
+    agg["train_fwd_ms"], agg["train_bwd_ms"] = fwd_ms, bwd_ms
+    log(f"attention train shape (b={bt} nq=nk=1024 c=cv={c}): kernel "
+        f"forward {fwd_ms:.4f} ms; backward (f32 torch ops, map "
+        f"recomputed) {bwd_ms:.4f} ms; dq, dk, dv vs autograd of the bf16 "
+        f"plain version: max|d|/max|g| {['%.2e' % r for r in rels]} (bound "
+        f"{ATTN_BWD_REL})")
     # the widest instantiation (cv > 128), which fine_extractor=True reaches
     # at c = cv = 184; checked here, timed nowhere
     n = 1024
@@ -395,6 +469,91 @@ def check_attention(dev):
     require(wide <= ATTN_MAX_ABS, f"attention c=cv=184: max|d| {wide}")
     log(f"attention (b=4 nq=nk={n} c=cv=184): max|d| {wide:.3e} "
         f"(bound {ATTN_MAX_ABS})")
+    return agg
+
+
+def check_query_ball(dev):
+    """Kernel vs plain in all three output modes at the repulsion loss's
+    shape (28 clouds of 1024 points, every point a query, r = 0.07,
+    nsample 20, select 5) and at the critic's ``knn=False`` grouping
+    (28 × 1024 points, 128 queries, r = 0.2, nsample 64), under the
+    near-tie contract.  Times the select mode (what the repulsion loss
+    runs); the aggregate is the repulsion shape, one launch a train
+    step."""
+    import torch
+
+    from dispu_tpu_torch.data.dataset import synthetic_patches
+    from dispu_tpu_torch.kernels.query_ball import (query_ball_cuda,
+                                                    query_ball_torch)
+    from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
+
+    pts = torch.from_numpy(synthetic_patches(28, 1024, seed=7)[1]).to(dev)
+    pts[:, 900:950] = pts[:, 100:150]  # duplicates: tied distances
+    cases = [("repulsion", pts, pts, 0.07, 20, 5),
+             ("critic ball", pts, pts[:, ::8].contiguous(), 0.2, 64, 5)]
+    agg = None
+    for label, xyz, qs, r, ns, s in cases:
+        b, n, c = xyz.shape
+        m = qs.shape[1]
+        d = pairwise_sq_dist(qs, xyz)                       # (b, m, n)
+        scale = (torch.sum(qs * qs, -1)[..., None]
+                 + torch.sum(xyz * xyz, -1)[:, None, :])
+        r2 = torch.tensor(r, dtype=torch.float32) ** 2
+        boundary = torch.any(torch.abs(d - float(r2))
+                             <= QB_TIE_RTOL * (float(r2) + scale), dim=-1)
+        got = query_ball_cuda(r, ns, xyz, qs, True, s)
+        want = query_ball_torch(r, ns, xyz, qs, True, s)
+        torch.cuda.synchronize()
+        slots_ok = (torch.all(got[0] == want[0], dim=-1)
+                    & (got[1] == want[1]))
+        n_boundary = int((~slots_ok).sum())
+        require(bool(torch.all(slots_ok | boundary)),
+                f"ball {label}: slots differ away from the hit boundary")
+        same = slots_ok[..., None]
+        dscale = torch.gather(scale, -1, want[0].long())
+        derr = torch.abs(got[2] - want[2]) / (torch.abs(want[2]) + dscale)
+        max_derr = float(torch.where(same, derr, 0.0).max())
+        require(max_derr <= QB_DIST_RTOL,
+                f"ball {label}: distance error {max_derr}")
+        # a selection may differ only between slots whose plain distances
+        # tie to QB_TIE_RTOL: rank by rank, the plain distance of the
+        # kernel's choice equals that of the plain version's choice
+        dk = torch.gather(d, -1, got[3].long())
+        dp = torch.gather(d, -1, want[3].long())
+        sel_scale = torch.gather(scale, -1, want[3].long())
+        tie = torch.abs(dk - dp) <= QB_TIE_RTOL * (dp + sel_scale)
+        sel_diff = (got[3] != want[3]) & same
+        n_sel = int(sel_diff.sum())
+        require(bool(torch.all(tie | ~sel_diff)),
+                f"ball {label}: selection differs beyond a near-tie")
+        # the two narrower modes return the same slots as the widest
+        plain_only = query_ball_cuda(r, ns, xyz, qs)
+        dists_only = query_ball_cuda(r, ns, xyz, qs, True)
+        require(all(torch.equal(a, b_) for a, b_ in
+                    zip(plain_only + dists_only, got[:2] + got[:3])),
+                f"ball {label}: modes disagree")
+        ms = timed_ms(lambda: query_ball_cuda(r, ns, xyz, qs, False, s),
+                      reps=20)
+        plain_ms = timed_ms(lambda: query_ball_torch(r, ns, xyz, qs, False,
+                                                     s), reps=5)
+        # the points each query must scan: up to its nsample-th hit
+        full = want[1] == ns
+        scanned = torch.where(full, want[0][..., -1].long() + 1, n)
+        ops = float(scanned.sum()) * (3 * c + 3)
+        nbytes = 4 * (b * n * c + b * m * c + b * m * ns + b * m + b * m * s)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        log(f"query_ball {label} (b={b} n={n} m={m} c={c} r={r} ns={ns} "
+            f"s={s}): hit-boundary rows {n_boundary}, selection near-tie "
+            f"swaps {n_sel}, dists rel err {max_derr:.2e} (bound "
+            f"{QB_DIST_RTOL}), mean hits {float(want[1].float().mean()):.2f};"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bms:.5f} ms ({by})")
+        if agg is None:
+            agg = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                       t_ops=ops / F32_FLOPS,
+                       max_abs_err=float(torch.where(
+                           same, torch.abs(got[2] - want[2]), 0.0).max()))
     return agg
 
 
@@ -414,7 +573,7 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
     candidates = (seed_num * up.inf_cfg.patch_num_point
                   * up.gen_cfg.up_ratio ** up.num_passes)
     counts = dict(knn=1 + 5 * chunks * up.num_passes, fps=1, fps_chunked=0,
-                  attention=chunks * up.num_passes)
+                  attention=chunks * up.num_passes, query_ball=0)
     counts[fps_kernel_for(candidates)] += 1
     return counts
 
@@ -604,6 +763,240 @@ def serve_stream(card: str):
     return total
 
 
+# ------------------------------------------------------ phase 4: training
+
+
+def expected_train_counts(cfg) -> dict:
+    """Kernel launches of one train step, from the configuration: a
+    feature-space kNN in each dense block and the refiner's xyz kNN; the
+    chamfer argmin of both directions of the four Chamfer/Hausdorff terms
+    (kNN at k = 1: 64 ≤ points ≤ 4096); the NL cell's attention (maps of
+    at least 512²); one ball query for the repulsion loss."""
+    g, n_out = cfg.generator, cfg.generator.num_out_points
+    argmin = 8 if 64 <= n_out <= 4096 else 0
+    nl = g.refine and g.use_nonlocal and n_out * n_out >= 512 * 512
+    return dict(knn=g.dense_block + int(g.refine) + argmin, fps=0,
+                fps_chunked=0, attention=int(nl),
+                query_ball=int(cfg.loss.use_repulsion))
+
+
+def _grads(model) -> dict:
+    import torch
+
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)
+                ).detach().clone() for n, p in model.named_parameters()}
+
+
+def train_phase(card: str, profile: bool):
+    """CD training at full GeneratorConfig() width with the TrainConfig,
+    LossConfig and DataConfig defaults (batch 28, random input, augment
+    on) on synthetic_patches, from the port's seeded init."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import kernels
+    from dispu_tpu_torch.config import ExperimentConfig, TrainConfig
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+    from dispu_tpu_torch.train.trainer import Trainer
+    from dispu_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                  restore_checkpoint)
+
+    t_phase = time.perf_counter()
+    log_dir = os.path.join(REPO, "chiprun_out", "train_smoke")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cfg = ExperimentConfig(
+        train=dataclasses.replace(TrainConfig(), epoch_per_save=1,
+                                  steps_per_print=2),
+        log_dir=log_dir)
+    bs = cfg.train.batch_size
+    per_step = expected_train_counts(cfg)
+    dataset = PatchDataset(h5_path=os.path.join(log_dir, "absent.h5"),
+                           synthetic_patches_count=3 * bs, seed=0)
+
+    # (a) Trainer: 2 epochs of 3 steps, logs and checkpoints
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = Trainer(cfg, dataset=dataset).train(epochs=2)
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = add_counts({}, per_step, 6)
+    log(f"training: Trainer.train(epochs=2), 6 steps of batch {bs}, "
+        f"{trainer_s:.2f} s with set-up; launches {counts} (expected "
+        f"{expected})")
+    require(counts == expected, f"train launch counts {counts}")
+    total_counts = counts
+    names = set(os.listdir(log_dir))
+    require({"args.txt", "scalars.jsonl", "log_train.txt"} <= names,
+            f"training logs missing: {sorted(names)}")
+    epoch, path = latest_checkpoint(log_dir)
+    require(epoch == 2, f"no checkpoint of epoch 2 in {sorted(names)}")
+    back = restore_checkpoint(path, create_generator_state(
+        cfg.generator, seed=11, device="cuda"))
+    mine, theirs = state.model.state_dict(), back.model.state_dict()
+    require(all(torch.equal(mine[k], theirs[k]) for k in mine)
+            and all(torch.equal(state.mu[k], back.mu[k])
+                    and torch.equal(state.nu[k], back.nu[k])
+                    for k in state.mu)
+            and (back.count, back.step) == (state.count, state.step),
+            "restored checkpoint differs")
+    for line in open(os.path.join(log_dir, "log_train.txt")):
+        log("  " + line.rstrip())
+
+    # (b) ~20 steps on one fixed batch: the loss falls; ms per warm step
+    gt = torch.from_numpy(dataset.gt[:bs]).cuda()
+    radius = torch.from_numpy(dataset.radius[:bs]).cuda()
+
+    def run(impl, steps, seed=0, times=None):
+        st = create_generator_state(cfg.generator, seed=0, impl=impl,
+                                    device="cuda")
+        step = make_train_step(cfg, impl=impl)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        totals = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step(st, gt, radius, gen)
+            totals.append(float(m["total"]))  # a host fetch: synchronized
+            if times is not None:
+                times.append((time.perf_counter() - t) * 1e3)
+        return st, totals, m
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _, totals, _ = run("auto", 20, times=times)
+    counts = kernels.launch_counts()
+    require(counts == add_counts({}, per_step, 20),
+            f"launch counts over 20 steps {counts}")
+    total_counts = add_counts(total_counts, counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm = times[1:]
+    log(f"training: 20 steps on one batch: total {totals[0]:.4f} -> "
+        f"{totals[-1]:.4f}; launches {counts}; ms per warm step: median "
+        f"{statistics.median(warm):.3f} (min {min(warm):.3f}, max "
+        f"{max(warm):.3f}, first step {times[0]:.1f}); peak memory "
+        f"{peak_gb:.2f} GB; on {card}")
+    require(np.isfinite(totals).all() and totals[-1] < totals[0],
+            f"loss did not fall: {totals}")
+
+    # (c) one step through the kernels and through the plain versions
+    st_k, _, m_k = run("cuda", 1)
+    g_k = _grads(st_k.model)
+    st_p, _, m_p = run("torch", 1)
+    g_p = _grads(st_p.model)
+    metric_rel = max(abs(float(m_k[k]) - float(m_p[k]))
+                     / max(abs(float(m_p[k])), 1e-12) for k in m_p)
+    top = max(float(g.abs().max()) for g in g_p.values())
+    grad_rel = max(float((g_k[n] - g_p[n]).abs().max())
+                   / max(float(g_p[n].abs().max()), 1e-3 * top)
+                   for n in g_p)
+    dead = sorted(n for n in g_p if bool(g_p[n].abs().max() > 0)
+                  and not bool(g_k[n].abs().max() > 0))
+    log(f"training: one step, kernels vs plain versions on the card: "
+        f"metrics max rel {metric_rel:.3e} (bound {TRAIN_METRIC_REL}), "
+        f"gradients max |d| / leaf max {grad_rel:.3e} (bound "
+        f"{TRAIN_GRAD_REL}); {len(g_p)} parameters, gradient zero through "
+        f"the kernels only at {dead}; NL cell conv_kv / conv_query max|g| "
+        + ", ".join("%.3e" % float(g_k[n].abs().max()) for n in g_k
+                    if "nonlocal.conv_kv.dense.weight" in n
+                    or "nonlocal.conv_query.dense.weight" in n))
+    require(not dead, f"no gradient through the kernels at {dead}")
+    require(metric_rel <= TRAIN_METRIC_REL, f"metrics differ {metric_rel}")
+    require(grad_rel <= TRAIN_GRAD_REL, f"gradients differ {grad_rel}")
+
+    # (d) two runs of 5 steps from the same state and seed: bit-equal
+    runs = [run("auto", 5, seed=3)[0] for _ in range(2)]
+    sd = [r.model.state_dict() for r in runs]
+    n_diff = sum(not torch.equal(sd[0][k], sd[1][k]) for k in sd[0])
+    log(f"training: two runs of 5 steps, tensors that differ: {n_diff} of "
+        f"{len(sd[0])}")
+    require(n_diff == 0, f"repeated training differs in {n_diff} tensors")
+
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    if profile:
+        profile_train_step(cfg, gt, radius)
+    return total_counts
+
+
+def profile_train_step(cfg, gt, radius):
+    """One warm train step split into forward, losses, backward and Adam
+    (synchronized stages), then device time by kernel and the idle share
+    of one unsplit step under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dispu_tpu_torch import losses as L
+    from dispu_tpu_torch.data.augment import (augment_batch,
+                                              sample_training_inputs)
+    from dispu_tpu_torch.train.state import (adam_update,
+                                             create_generator_state)
+    from dispu_tpu_torch.train.steps import deterministic, make_train_step
+
+    st = create_generator_state(cfg.generator, device="cuda")
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(2):
+        step(st, gt, radius, gen)
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    dev = torch.device("cuda")
+    with deterministic(dev):
+        inputs = stage("draw + augment", lambda: augment_batch(
+            sample_training_inputs(gt, cfg.generator.num_points, gen), gt,
+            gen))
+        model = st.model.train()
+        model.zero_grad(set_to_none=True)
+        coarse, fine = stage("forward", lambda: model(inputs[0]))
+        total, _ = stage("losses", lambda: L.pu_losses(
+            coarse, fine, inputs[1], radius, 0.01, cfg.loss))
+        stage("backward", lambda: total.backward())
+        stage("adam", lambda: adam_update(st, 1e-3, cfg.train))
+    log("train step stage ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; sum {sum(stages.values()):.3f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(st, gt, radius, gen)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(st, gt, radius, gen)
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(evt.name, (0.0, 0))
+            by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3,
+                                 n + 1)
+    if not by_name:
+        log("profiler: no device time traced")
+        return
+    busy = sum(ms for ms, _ in by_name.values())
+    log(f"profiled train step: device busy {busy:.3f} ms of {wall_ms:.3f} "
+        f"ms wall (unprofiled), idle share {1 - busy / wall_ms:.3f}; "
+        f"{sum(n for _, n in by_name.values())} device kernels")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:20]:
+        log(f"  {ms:9.3f} ms  x{n:4d}  {name[:110]}")
+
+
 def profile_request(up, pc):
     """Where one warm request's time goes: host-clock stage times around
     synchronized stages (each generator pass on its own), then a
@@ -677,10 +1070,13 @@ def profile_request(up, pc):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after phase 4, break one request down by "
-                             "stage and by device kernel")
+                        help="in phase 4, break one request and one train "
+                             "step down by stage and by device kernel")
     args = parser.parse_args()
 
+    # cuBLAS is deterministic only with a fixed workspace, which it reads
+    # when it starts; the train step runs under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -716,10 +1112,21 @@ def main() -> int:
     # phase 3
     aggs = {"knn": check_knn(dev), "fps": check_fps(dev),
             "fps_chunked": check_fps_chunked(dev),
-            "attention": check_attention(dev)}
+            "attention": check_attention(dev),
+            "query_ball": check_query_ball(dev)}
+    train_knn = [TRAIN_KNN_MS[k] for k in ("train bb c24", "train bb c48",
+                                           "train refiner", "chamfer k1")]
+    log(f"kernel ms per train step, by the phase-3 timings: knn "
+        f"{train_knn[0] + 3 * train_knn[1] + train_knn[2] + 8 * train_knn[3]:.4f}"
+        f" (backbone 1 x {train_knn[0]:.4f} + 3 x {train_knn[1]:.4f}, "
+        f"refiner {train_knn[2]:.4f}, chamfer 8 x {train_knn[3]:.4f}), "
+        f"attention forward {aggs['attention']['train_fwd_ms']:.4f} + "
+        f"backward {aggs['attention']['train_bwd_ms']:.4f}, query_ball "
+        f"{aggs['query_ball']['ms']:.4f}")
     # phase 4: each path with its own counts; the JSON line sums them
     counts = add_counts(serve(card), serve_16x(card))
     counts = add_counts(counts, serve_stream(card))
+    counts = add_counts(counts, train_phase(card, args.profile))
     if args.profile:
         from dispu_tpu_torch import InferenceConfig
         from dispu_tpu_torch.inference import PatchUpsampler
@@ -732,7 +1139,7 @@ def main() -> int:
 
     # phase 5: ms, plain_ms, bound_ms and library_ms are per 2048-point
     # request: a 4x request for knn, fps and attention, a 16x request for
-    # fps_chunked (its one launch there)
+    # fps_chunked (its one launch there); per train step for query_ball
     meta = {
         "knn": ("dispu_tpu_torch/kernels/csrc/knn.cu",
                 "dispu_tpu/ops/pallas_kernels.py:867"),
@@ -743,6 +1150,8 @@ def main() -> int:
                         "dispu_tpu/ops/pallas_kernels.py:471"),
         "attention": ("dispu_tpu_torch/kernels/csrc/attention.cu",
                       "dispu_tpu/ops/pallas_kernels.py:2221"),
+        "query_ball": ("dispu_tpu_torch/kernels/csrc/query_ball.cu",
+                       "dispu_tpu/ops/pallas_kernels.py:1098"),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -1,10 +1,10 @@
-"""Typed configuration of the generator and of whole-cloud inference.
+"""Typed configuration of the generator, training and whole-cloud inference.
 
-A copy of ``GeneratorConfig`` and ``InferenceConfig`` from the JAX
-package's ``config.py`` (same fields, same defaults), kept here so that the
-port imports nothing of that package.  Field comments that describe TPU
-measurements stay with the JAX copy; settings that this port does not run
-yet raise ``NotImplementedError`` through :func:`check_supported`.
+A copy of the JAX package's ``config.py`` dataclasses (same fields, same
+defaults), kept here so that the port imports nothing of that package.
+Field comments that describe TPU measurements stay with the JAX copy;
+settings that this port does not run yet raise ``NotImplementedError``
+through :func:`check_supported` and :func:`check_train_supported`.
 """
 
 from __future__ import annotations
@@ -68,6 +68,137 @@ class InferenceConfig:
     compute_dtype: str = "float32"
 
 
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """PointNet++-MSG patch critic (the GAN slice; carried for the
+    experiment config's shape)."""
+
+    divide_ratio: int = 2
+    knn: bool = True
+    downsample_ratio: int = 8
+    radius_list: Tuple[float, ...] = (0.1, 0.2, 0.4)
+    fused_grouping: bool = False
+
+    @property
+    def nsample_list(self) -> Tuple[int, ...]:
+        return (8, 16, 24) if self.knn else (16, 32, 64)
+
+    @property
+    def mlp_lists(self) -> Tuple[Tuple[int, ...], ...]:
+        d = self.divide_ratio
+        return (
+            (32 // d, 32 // d, 64 // d),
+            (64 // d, 64 // d, 128 // d),
+            (64 // d, 96 // d, 128 // d),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss weights and schedules."""
+
+    coarse_cd_w: float = 1000.0
+    fine_cd_w: float = 1000.0
+    hd_w: float = 100.0          # tracked metric, not in the total
+    use_repulsion: bool = True
+    repulsion_w: float = 1.0
+    repulsion_nsample: int = 20
+    repulsion_radius: float = 0.07
+    repulsion_h: float = 0.001
+    uniform_w: float = 0.0
+    fidelity_w: float = 100.0
+    gan_w: float = 1.0
+    # weight_fine piecewise schedule: epochs [10,20,30] → [0.01,0.1,0.5,1.0]
+    weight_fine_boundaries: Tuple[float, ...] = (10.0, 20.0, 30.0)
+    weight_fine_values: Tuple[float, ...] = (0.01, 0.1, 0.5, 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule.
+
+    ``donate_state``, ``device_data``, ``device_data_max_bytes`` and
+    ``scan_steps`` say how the JAX package dispatches steps to its device;
+    they are accepted here and change nothing: the port always runs one
+    step at a time with the whole patch set resident on the step's device.
+    """
+
+    batch_size: int = 28
+    training_epoch: int = 401
+    base_lr_g: float = 1e-3
+    base_lr_d: float = 1e-4
+    d_clip: float = 0.01
+    fake_pool_size: int = 0
+    beta1: float = 0.9
+    lr_decay: bool = True
+    decay_step_epochs: int = 30
+    lr_decay_rate: float = 0.7
+    lr_clip: float = 1e-6
+    epoch_per_save: int = 20
+    steps_per_print: int = 50
+    visualize: bool = False
+    steps_per_visu: int = 100
+    profile: bool = False
+    backup_sources: bool = True
+    gen_update: int = 2
+    seed: int = 0
+    donate_state: bool = True
+    compute_dtype: str = "float32"
+    remat: bool = False
+    device_data: bool = True
+    device_data_max_bytes: int = 2_000_000_000
+    scan_steps: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset and augmentation."""
+
+    data_dir: str = "data"
+    num_point: int = 256
+    up_ratio: int = 4
+    random_input: bool = True    # nonuniform re-sample of the input from gt
+    cluster_prob: float = 0.0    # share of examples drawn as seed clusters
+    cluster_size: int = 4
+    augment: bool = True
+    jitter: bool = False
+    jitter_sigma: float = 0.01
+    jitter_max: float = 0.03
+    scale_low: float = 0.8
+    scale_high: float = 1.2
+
+    @property
+    def h5_path(self) -> str:
+        import os
+
+        return os.path.join(
+            self.data_dir,
+            "PUGAN_poisson_%d_poisson_%d.h5"
+            % (self.num_point, self.num_point * self.up_ratio),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (multi-device runs are not ported)."""
+
+    data_axis: str = "data"
+    num_devices: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    generator: GeneratorConfig = GeneratorConfig()
+    discriminator: DiscriminatorConfig = DiscriminatorConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
+    data: DataConfig = DataConfig()
+    inference: InferenceConfig = InferenceConfig()
+    mesh: MeshConfig = MeshConfig()
+    use_gan: bool = False
+    log_dir: str = "log"
+
+
 EXACT_GATHERS = ("gather", "onehot_hp", "onehot3", "pallas")
 
 
@@ -102,3 +233,27 @@ def check_supported(gen_cfg: GeneratorConfig,
         _unsupported(f"compute_dtype={inf_cfg.compute_dtype!r}", turbo)
     if inf_cfg.merge_fps != "exact":
         _unsupported(f"merge_fps={inf_cfg.merge_fps!r}", turbo)
+
+
+def check_train_supported(cfg: ExperimentConfig) -> None:
+    """Raise ``NotImplementedError`` for training settings outside the
+    ported slice (CD training, one device, f32), naming the ROADMAP.md
+    queue item that will bring each."""
+    check_supported(cfg.generator)
+    gan = "the GAN stack"
+    if cfg.use_gan:
+        _unsupported("use_gan (adversarial training)", gan)
+    if cfg.train.fake_pool_size > 0:
+        _unsupported("fake_pool_size > 0 (the critic's history pool)", gan)
+    turbo = "turbo and opt-in paths"
+    if cfg.train.remat:
+        _unsupported("remat", turbo)
+    if cfg.train.compute_dtype != "float32":
+        _unsupported(f"compute_dtype={cfg.train.compute_dtype!r}", turbo)
+    host = "host-side utilities"
+    if cfg.train.visualize:
+        _unsupported("visualize (training renders)", host)
+    if cfg.train.profile:
+        _unsupported("profile (the trainer's trace of its first epoch)", host)
+    if cfg.mesh.num_devices > 1:
+        _unsupported("a device mesh", "multi-GPU runs")

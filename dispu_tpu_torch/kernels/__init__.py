@@ -12,7 +12,8 @@ from __future__ import annotations
 
 #: launches of each kernel since the last :func:`reset_launch_counts`;
 #: a wrapper adds one exactly where it launches its kernel
-LAUNCHES = {"knn": 0, "fps": 0, "fps_chunked": 0, "attention": 0}
+LAUNCHES = {"knn": 0, "fps": 0, "fps_chunked": 0, "attention": 0,
+            "query_ball": 0}
 
 IMPLS = ("auto", "cuda", "torch")
 

@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-NAMES = ("knn", "fps", "fps_chunked", "attention")
+NAMES = ("knn", "fps", "fps_chunked", "attention", "query_ball")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,9 +1,11 @@
 """Softmax-attention kernel (``csrc/attention.cu``) and its plain version.
 
-Replaces ``attention_pallas`` (``dispu_tpu/ops/pallas_kernels.py``),
-forward only.  On an H100 the function is bound by its bytes (the map must
-never reach device memory); the first kernel runs its products on the CUDA
-cores and is far from that bound.  See the note at the top of the source.
+Replaces ``attention_pallas`` (``dispu_tpu/ops/pallas_kernels.py``).  On
+an H100 the function is bound by its bytes (the map must never reach
+device memory); the first kernel runs its products on the CUDA cores and
+is far from that bound.  See the note at the top of the source.
+:func:`attention` is differentiable through :class:`AttentionFunction`,
+which carries ``attention_pallas_diff``'s backward rule in torch ops.
 """
 
 from __future__ import annotations
@@ -81,10 +83,49 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, do: torch.Tensor):
+    """``_attention_bwd`` of the JAX package: the map recomputed in f32,
+    then the softmax-attention VJP (dV = pᵀ·do, ds = p ∘ (do·vᵀ −
+    Σ(do·vᵀ ∘ p)), dQ = scale·ds·k, dK = scale·dsᵀ·q).
+
+    The TPU ran these einsums at DEFAULT precision (one bf16 pass); here
+    they run in f32, the numerics of the reference on the CPU, which
+    needs ``allow_tf32 = False`` on the card (``inference.pin_f32``; the
+    train step sets it).  At the training shape the recomputed map is
+    (b, nq, nk) f32: 117 MB at (28, 1024, 1024).  Returns (dq, dk, dv)."""
+    s = torch.einsum("bqc,bnc->bqn", q, k) * scale
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bqn,bqc->bnc", p, do)
+    dp = torch.einsum("bqc,bnc->bqn", do, v)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = scale * torch.einsum("bqn,bnc->bqc", ds, k)
+    dk = scale * torch.einsum("bqn,bqc->bnc", ds, q)
+    return dq, dk, dv
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Attention whose output is differentiable in q, k and v: forward by
+    the kernel (``use_cuda``) or by its plain bf16 version, backward by
+    :func:`attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, use_cuda):
+        out = (attention_cuda(q, k, v, scale) if use_cuda
+               else attention_torch(q, k, v, scale, bf16_operands=True))
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, ctx.scale, do), None, None)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float, impl: str = "auto") -> torch.Tensor:
     """The kernel for CUDA tensors; for CPU tensors the plain version in
-    the kernel's bf16 numerics (``bf16_operands=True``)."""
-    if use_kernel(impl, q):
-        return attention_cuda(q, k, v, scale)
-    return attention_torch(q, k, v, scale, bf16_operands=True)
+    the kernel's bf16 numerics (``bf16_operands=True``).  Differentiable in
+    q, k and v."""
+    return AttentionFunction.apply(q, k, v, scale, use_kernel(impl, q))

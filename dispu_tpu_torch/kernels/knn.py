@@ -1,9 +1,10 @@
 """kNN kernel (``csrc/knn.cu``) and its plain PyTorch version.
 
-Replaces ``knn_pallas`` (``dispu_tpu/ops/pallas_kernels.py``), forward
-only: the autograd rule comes with the training slice.  On an H100 the
-kernel is bound by its k selection rounds over each query's distance row,
-which it keeps in shared memory; see the note at the top of the source.
+Replaces ``knn_pallas`` (``dispu_tpu/ops/pallas_kernels.py``).  On an H100
+the kernel is bound by its k selection rounds over each query's distance
+row, which it keeps in shared memory; see the note at the top of the
+source.  :func:`knn` is differentiable through :class:`KnnFunction`, which
+carries ``knn_pallas_diff``'s backward rule in torch ops.
 """
 
 from __future__ import annotations
@@ -88,11 +89,48 @@ def knn_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
     return dists, idx
 
 
+def knn_backward(points: torch.Tensor, queries: torch.Tensor,
+                 idx: torch.Tensor, g_dist: torch.Tensor):
+    """``_knn_diff_bwd`` of the JAX package: the selection held fixed, the
+    distance cotangent gives ``2·g·(q − p)`` to each query and its
+    negation, scatter-added, to each chosen neighbour.  Returns
+    (d_points (b, n, c), d_queries (b, m, c))."""
+    b, m, k = idx.shape
+    c = points.shape[-1]
+    flat = idx.reshape(b, m * k, 1).long().expand(b, m * k, c)
+    neighbors = torch.gather(points, 1, flat).reshape(b, m, k, c)
+    contrib = 2.0 * g_dist[..., None] * (queries[:, :, None, :] - neighbors)
+    d_queries = torch.sum(contrib, dim=2)
+    d_points = torch.zeros_like(points).scatter_add_(
+        1, flat, -contrib.reshape(b, m * k, c))
+    return d_points, d_queries
+
+
+class KnnFunction(torch.autograd.Function):
+    """kNN whose distances are differentiable in the points and queries:
+    forward by the kernel (``use_cuda``) or by :func:`knn_torch`, backward
+    by :func:`knn_backward`.  Indices and the bias carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, k, points, queries, bias, use_cuda):
+        run = knn_cuda if use_cuda else knn_torch
+        dists, idx = run(k, points, queries, bias)
+        ctx.save_for_backward(points, queries, idx)
+        ctx.mark_non_differentiable(idx)
+        return dists, idx
+
+    @staticmethod
+    def backward(ctx, g_dist, _g_idx):
+        points, queries, idx = ctx.saved_tensors
+        d_points, d_queries = knn_backward(points, queries, idx, g_dist)
+        return None, d_points, d_queries, None, None
+
+
 def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
         bias: torch.Tensor | None = None, impl: str = "auto"):
     """k nearest ``points`` of each query, ascending, with an optional
     (b, n) column bias.  The kernel for CUDA tensors, the plain version
-    for CPU tensors (see :func:`dispu_tpu_torch.kernels.use_kernel`)."""
-    if use_kernel(impl, points):
-        return knn_cuda(k, points, queries, bias)
-    return knn_torch(k, points, queries, bias)
+    for CPU tensors (see :func:`dispu_tpu_torch.kernels.use_kernel`);
+    differentiable in ``points`` and ``queries``."""
+    return KnnFunction.apply(k, points, queries, bias,
+                             use_kernel(impl, points))

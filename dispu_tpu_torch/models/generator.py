@@ -22,7 +22,9 @@ from dispu_tpu_torch.nn.upsample import CoordinateRegressor, DuplicateUp
 
 
 class DisPUGenerator(nn.Module):
-    """Inference-mode Dis-PU generator.
+    """Dis-PU generator.  It is made in ``.eval()`` mode (batch norm on its
+    running statistics); ``.train()`` switches batch norm to the batch's
+    statistics, as the train step does.
 
     impl: how the kNN and attention kernels are reached — 'auto' (the
     kernels for CUDA tensors, their plain versions for CPU tensors),

@@ -42,13 +42,19 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class BatchNorm(nn.Module):
-    """Batch norm over the last axis in flax's convention, inference only.
+    """Batch norm over the last axis in flax's convention.
 
     Parameters ``scale`` and ``bias``, running statistics ``mean`` and
     ``var`` (flax's ``batch_stats``).  Normalizes as flax does:
-    ``(x − mean) · (rsqrt(var + eps) · scale) + bias``.  Training-mode
-    statistics (flax momentum 0.95, the biased batch variance) come with
-    the training slice.
+    ``(x − mean) · (rsqrt(var + eps) · scale) + bias``, with the running
+    statistics in ``.eval()`` mode and the batch's in ``.train()`` mode.
+    The batch statistics are flax's (``use_fast_variance``): the mean over
+    every axis but the last, and the biased variance ``max(0, E[x²] −
+    E[x]²)``.  Each training forward then moves the running statistics as
+    flax does, ``mean ← m·mean + (1 − m)·batch_mean`` (m = ``momentum``,
+    0.95) and the same for ``var``: the opposite direction to
+    ``torch.nn.BatchNorm1d``'s momentum, whose running variance is also
+    unbiased.
     """
 
     def __init__(self, features: int, momentum: float = 0.95,
@@ -70,12 +76,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "batch-norm training statistics are not ported yet "
-                "(ROADMAP.md, queue 1: CD training); call .eval()"
-            )
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return (x - self.mean) * mul + self.bias
+            axes = tuple(range(x.dim() - 1))
+            mean = torch.mean(x, dim=axes)
+            var = torch.maximum(torch.mean(x * x, dim=axes) - mean * mean,
+                                x.new_zeros(()))
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return (x - mean) * mul + self.bias
 
 
 class _PermutedRowDense(nn.Module):

@@ -35,7 +35,8 @@ def mask_duplicate_rows(points: torch.Tensor) -> torch.Tensor:
 def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
         impl: str = "auto"):
     """(b, n, c) points, (b, m, c) queries → ((b, m, k) squared distances
-    ascending, (b, m, k) int32 indices); ties go to the lower index."""
+    ascending, (b, m, k) int32 indices); ties go to the lower index.  The
+    distances are differentiable (``kernels.knn.KnnFunction``)."""
     return _knn_kernel(k, points.contiguous(), queries.contiguous(),
                        impl=impl)
 
@@ -53,7 +54,7 @@ def knn_unique(k: int, points: torch.Tensor, queries: torch.Tensor,
     each distinct point is returned at most once unless fewer than k
     distinct points exist."""
     points = points.contiguous()
-    bias = mask_duplicate_rows(points).to(torch.float32) * 1e30
+    bias = mask_duplicate_rows(points.detach()).to(torch.float32) * 1e30
     return _knn_kernel(k, points, queries.contiguous(), bias, impl=impl)
 
 

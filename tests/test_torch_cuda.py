@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and its serving path on the card.
+"""The port's CUDA kernels, their autograd rules, and its serving and
+training paths on the card.
 
 Every test here needs an NVIDIA GPU with nvcc: it is marked ``cuda`` and
 skips where no card is present.  This file imports neither JAX nor the
@@ -17,6 +18,9 @@ from dispu_tpu_torch.kernels.attention import attention_cuda, attention_torch
 from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps_cuda, fps_torch
 from dispu_tpu_torch.kernels.fps_chunked import fps_chunked_cuda
 from dispu_tpu_torch.kernels.knn import MAX_ROW_FLOATS, knn_cuda, knn_torch
+from dispu_tpu_torch.kernels.query_ball import (MAX_C, MAX_N, MAX_NSAMPLE,
+                                                query_ball_cuda,
+                                                query_ball_torch)
 from dispu_tpu_torch.ops.knn import mask_duplicate_rows
 
 pytestmark = pytest.mark.cuda
@@ -139,7 +143,7 @@ def test_upsampler_goes_through_the_kernels(dev):
     # per chunk; attention once per chunk (its 512 × 512 map reaches the
     # kernel's threshold); FPS for the seeds and the merge
     assert kernels.launch_counts() == {"knn": 11, "fps": 2, "fps_chunked": 0,
-                                       "attention": 2}
+                                       "attention": 2, "query_ball": 0}
     assert out.shape == (2400, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
                          device="cpu").upsample(pc)
@@ -159,7 +163,7 @@ def test_upsampler_fine_extractor_attention_reaches_the_kernel(dev):
     out = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf).upsample(pc)
     # 2 chunks: kNN 1 + (4 coarse + 2 fine backbone + 1 refiner) per chunk
     assert kernels.launch_counts() == {"knn": 15, "fps": 2, "fps_chunked": 0,
-                                       "attention": 2}
+                                       "attention": 2, "query_ball": 0}
     assert out.shape == (2400, 3) and np.isfinite(out).all()
 
 
@@ -173,7 +177,7 @@ def test_upsampler_16x_goes_through_the_kernels(dev):
     # attention 4 · 2 (maps of 512² and 2048²); the merge of 28 · 2048 =
     # 57,344 candidates goes to the cluster kernel
     assert kernels.launch_counts() == {"knn": 41, "fps": 1, "fps_chunked": 1,
-                                       "attention": 8}
+                                       "attention": 8, "query_ball": 0}
     assert out.shape == (19200, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
                          impl="torch").upsample(pc)
@@ -186,8 +190,10 @@ def test_upsampler_16x_goes_through_the_kernels(dev):
     # 2 · 28 seeds → 7 chunks of 8: kNN 1 + 5 · 7 per pass, attention 7 per
     # pass; merges of 28 · 512 = 14,336 (fps) or 28 · 2048 = 57,344
     # (fps_chunked, one cluster a cloud) candidates for both clouds at once
-    (4, {"knn": 36, "fps": 2, "fps_chunked": 0, "attention": 7}),
-    (16, {"knn": 71, "fps": 1, "fps_chunked": 1, "attention": 14}),
+    (4, {"knn": 36, "fps": 2, "fps_chunked": 0, "attention": 7,
+         "query_ball": 0}),
+    (16, {"knn": 71, "fps": 1, "fps_chunked": 1, "attention": 14,
+          "query_ball": 0}),
 ])
 def test_upsample_many_goes_through_the_kernels(dev, final_ratio, counts):
     inf = InferenceConfig(patch_num_point=128, patch_batch=8,
@@ -203,3 +209,131 @@ def test_upsample_many_goes_through_the_kernels(dev, final_ratio, counts):
                          impl="torch").upsample_many(pcs)
     for v in range(2):
         assert _chamfer(out[v], ref[v]) <= 1e-6
+
+
+# ------------------------------------------------------------ training slice
+
+
+@pytest.mark.parametrize("b,n,m,c,r,ns,s", [
+    (3, 1024, 1024, 3, 0.15, 20, 5), (2, 300, 77, 5, 1.5, 64, 7),
+    (2, 4096, 64, 3, 0.3, 128, 5), (1, 40, 9, 128, 16.0, 128, 3),
+    (2, 12, 6, 3, 0.01, 20, 5),
+])
+def test_query_ball_kernel_matches_plain(dev, b, n, m, c, r, ns, s):
+    xyz = _randn(n + c, b, n, c).to(dev)
+    xyz[:, n // 2:n // 2 + 5] = xyz[:, :5]  # exact ties between slots
+    qs = xyz[:, :m].contiguous()
+    got = query_ball_cuda(r, ns, xyz, qs, True, s)
+    want = query_ball_torch(r, ns, xyz, qs, True, s)
+    torch.cuda.synchronize()
+    # slots and counts differ only where a distance sits within round-off
+    # of r² (chip_smoke.py checks that rule at full size): on random
+    # points that is rare, so at least 99.5% of rows agree exactly
+    same = torch.all(got[0] == want[0], -1) & (got[1] == want[1])
+    assert float(same.float().mean()) >= 0.995
+    scale = 2.0 * float(torch.amax(torch.sum(xyz * xyz, -1)))
+    derr = (torch.abs(got[2] - want[2]) / (want[2].abs() + scale))
+    assert float(derr[same].max()) <= 1e-5
+    assert float((got[3] == want[3])[same].float().mean()) >= 0.995
+    for mode in ((), (True,)):
+        narrow = query_ball_cuda(r, ns, xyz, qs, *mode)
+        assert all(torch.equal(a, w) for a, w in zip(narrow, got))
+
+
+def test_query_ball_kernel_refuses_beyond_its_limits(dev):
+    ok = torch.zeros((1, 8, 3), device=dev)
+    with pytest.raises(ValueError, match="n <="):
+        query_ball_cuda(0.1, 4, torch.zeros((1, MAX_N + 1, 3), device=dev),
+                        ok)
+    with pytest.raises(ValueError, match="c <="):
+        wide = torch.zeros((1, 8, MAX_C + 1), device=dev)
+        query_ball_cuda(0.1, 4, wide, wide)
+    with pytest.raises(ValueError, match="nsample"):
+        query_ball_cuda(0.1, MAX_NSAMPLE + 1, ok, ok)
+
+
+def test_knn_function_gradients_through_the_kernel(dev):
+    from dispu_tpu_torch.kernels.knn import KnnFunction
+
+    pts, qs = _randn(3, 2, 300, 8).to(dev), _randn(4, 2, 90, 8).to(dev)
+    g = _randn(5, 2, 90, 6).to(dev)
+    grads = []
+    for use_cuda in (True, False):
+        p, q = pts.clone().requires_grad_(), qs.clone().requires_grad_()
+        d, idx = KnnFunction.apply(6, p, q, None, use_cuda)
+        d.backward(g)
+        grads.append((idx, p.grad, q.grad))
+    (ik, gpk, gqk), (ip, gpp, gqp) = grads
+    assert torch.equal(ik, ip)  # random points: no near-ties
+    assert torch.allclose(gpk, gpp, rtol=0, atol=1e-5)
+    assert torch.allclose(gqk, gqp, rtol=0, atol=1e-5)
+
+
+def test_attention_function_gradients_through_the_kernel(dev):
+    from dispu_tpu_torch.kernels.attention import AttentionFunction
+
+    q, k, v = (_randn(i, 2, 600, 32).to(dev) for i in range(3))
+    do = _randn(3, 2, 600, 32).to(dev)
+    outs = []
+    for use_cuda in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = AttentionFunction.apply(*leaves, 0.2, use_cuda)
+        out.backward(do)
+        outs.append((out, [t.grad for t in leaves]))
+    # the backward recomputes the map from q, k, v: the same gradients
+    # whichever forward ran
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(a, b)
+    assert float(torch.abs(outs[0][0] - outs[1][0]).max()) <= 1e-3
+
+
+def test_chamfer_argmin_through_the_kernel(dev):
+    from dispu_tpu_torch.ops.chamfer import nn_distance
+
+    x1, x2 = _randn(6, 2, 500, 3).to(dev), _randn(7, 2, 300, 3).to(dev)
+    res = []
+    for impl in ("cuda", "torch"):
+        a, b = x1.clone().requires_grad_(), x2.clone().requires_grad_()
+        kernels.reset_launch_counts()
+        d1, i1, d2, i2 = nn_distance(a, b, impl)
+        launched = kernels.launch_counts()["knn"]
+        (d1.sum() + 2 * d2.sum()).backward()
+        res.append((i1, i2, d1, d2, a.grad, b.grad, launched))
+    assert res[0][6] == 2 and res[1][6] == 0
+    # random points: the same neighbours, so the same recomputed distances
+    for x, y in zip(res[0][:4], res[1][:4]):
+        assert torch.equal(x, y)
+    # the backward's scatter-adds run in atomics' order outside
+    # deterministic mode: f32 round-off apart
+    for x, y in zip(res[0][4:6], res[1][4:6]):
+        assert torch.allclose(x, y, rtol=1e-6, atol=1e-6)
+
+
+def test_train_step_on_the_card_reaches_every_parameter(dev):
+    from dispu_tpu_torch.config import ExperimentConfig, LossConfig
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+
+    cfg = ExperimentConfig(generator=GeneratorConfig(**dict(
+        SMALL, num_points=256)), loss=LossConfig(repulsion_radius=0.1))
+    gt = _randn(8, 4, 1024, 3).to(dev) * 0.3
+    grads = {}
+    for impl in ("auto", "torch"):
+        st = create_generator_state(cfg.generator, impl=impl, device=dev)
+        step = make_train_step(cfg, impl=impl)
+        kernels.reset_launch_counts()
+        st, m = step(st, gt, torch.ones(4, device=dev),
+                     torch.Generator(device=dev).manual_seed(0))
+        assert np.isfinite(float(m["total"]))
+        grads[impl] = {n: p.grad for n, p in st.model.named_parameters()}
+        counts = kernels.launch_counts()
+        if impl == "auto":
+            # 4 backbone + 1 refiner + 8 chamfer argmins; the NL cell's
+            # 1024² map; the repulsion ball query
+            assert counts == {"knn": 13, "fps": 0, "fps_chunked": 0,
+                              "attention": 1, "query_ball": 1}
+        else:
+            assert sum(counts.values()) == 0
+    for n, g in grads["torch"].items():
+        if bool(g.abs().max() > 0):
+            assert bool(grads["auto"][n].abs().max() > 0), n

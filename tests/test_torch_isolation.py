@@ -42,7 +42,9 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, dispu_tpu_torch, dispu_tpu_torch.inference, "
             "dispu_tpu_torch.kernels.knn, dispu_tpu_torch.kernels.fps, "
             "dispu_tpu_torch.kernels.fps_chunked, "
-            "dispu_tpu_torch.kernels.attention, dispu_tpu_torch.time_fps; "
+            "dispu_tpu_torch.kernels.attention, dispu_tpu_torch.time_fps, "
+            "dispu_tpu_torch.kernels.query_ball, dispu_tpu_torch.losses, "
+            "dispu_tpu_torch.train.trainer, dispu_tpu_torch.ops.chamfer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -23,6 +23,7 @@ from dispu_tpu_torch.kernels.attention import attention, attention_torch
 from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps, fps_cuda
 from dispu_tpu_torch.kernels.fps_chunked import fps_chunked, fps_chunked_cuda
 from dispu_tpu_torch.kernels.knn import knn as knn_kernel
+from dispu_tpu_torch.kernels.query_ball import query_ball
 from dispu_tpu_torch.nn.attention import global_attention
 from dispu_tpu_torch.ops import knn as tknn
 from dispu_tpu_torch.ops.sampling import farthest_point_sample, fps_kernel_for
@@ -270,8 +271,9 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     fps(8, x)
     fps_chunked(8, x)
     attention(x, x, x, 1.0)
+    query_ball(0.5, 4, x, x, select_smallest=2)
     assert kernels.launch_counts() == {"knn": 0, "fps": 0, "fps_chunked": 0,
-                                       "attention": 0}
+                                       "attention": 0, "query_ball": 0}
 
 
 @pytest.mark.parametrize("call", [
