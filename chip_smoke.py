@@ -18,21 +18,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      and time the kernel, the plain version and one PyTorch library call
      for the same function where there is one; the cluster FPS kernel also
      past its on-chip capacity and at a ragged n with ties across its
-     blocks;
+     blocks; the turbo path's kernels at its shapes: the fused kNN + gather
+     (backbone and refiner, turbo and exact; its distances and indices
+     bit-equal to the kNN kernel's), the packed kNN selection (pass 2's
+     refiner) and the bucketed merge FPS (4×, 16×, two clouds);
   4. drive each serving path at full GeneratorConfig() width from the
      port's own seeded init, on demo/gt/Icosahedron.xyz and
      demo/gt/fandisk.xyz, with the launch counts set to 0 just before each
      path and read just after: 6 whole-cloud 4× requests, 4 whole-cloud 16×
      requests, and ``upsample_many`` of both clouds at 4× and at 16× (twice
      each); compare each path's output with the same path run through the
-     plain versions (impl='torch') on the card.  Then CD training at the
+     plain versions (impl='torch') on the card.  The same for the turbo
+     serving configuration (``dispu_tpu_torch.cli.build_config`` of
+     ``--phase test --turbo true``): 4× and 16× requests on both clouds
+     and ``upsample_many`` of both at 4× and 16×, each beside the exact
+     path's Chamfer and time.  Then CD training at the
      same width with the training defaults (batch 28, random input,
      augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
      steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
      on one batch (the loss falls; ms per step), one step through the
      kernels against one through the plain versions (metrics, and a
      gradient at every parameter), and two 5-step runs that must agree
-     bit for bit; each run with exact launch counts;
+     bit for bit; each run with exact launch counts.  Last, ``python -m
+     dispu_tpu_torch.cli --phase test --turbo true`` restores the
+     training's checkpoint and upsamples both demo clouds into files;
   5. print one JSON line listing every kernel with its numbers;
   6. print {"ok": true, "device": {...}} as the last line.
 
@@ -99,6 +108,14 @@ GEN_MAX_ABS = 1e-2         # no row beyond this
 # 5.1e-10.  At 16x pass 2 takes pass 1's output, so a near-tie swap there
 # moves pass 2's candidates and the merge may pick other points.
 CHAMFER_MAX = {4: 1e-9, 16: 1e-7}
+# the turbo path through the kernels vs through the plain versions, by
+# final ratio: Chamfer over the output's own mean squared nearest-neighbour
+# spacing.  The bucketed merge ranks candidates by Morton code, and a
+# round-off move across one of its steps shifts bucket seams and seeds
+# (see tests/test_torch_turbo.py); at 16× pass 2's near-tie swaps move
+# candidates so.  Readings on an H100 at 700 W: 4x 7.1e-12 to 7.9e-12
+# (requests and upsample_many); 16x 1.8e-2 to 6.5e-2.
+TURBO_CHAMFER_REL = {4: 1e-9, 16: 0.5}
 
 
 def log(*args):
@@ -557,24 +574,276 @@ def check_query_ball(dev):
     return agg
 
 
+def _near_tie_swaps(label, ik, ip, pts, qs, bias, rtol):
+    """Rank by rank, the plain distance of the kernel's index must equal
+    that of the plain version's index to ``rtol`` of the expansion's
+    scale: index differences are swaps between near-ties.  Returns the
+    number of differing indices."""
+    import torch
+
+    from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
+
+    full = pairwise_sq_dist(qs, pts)
+    if bias is not None:
+        full = full + bias[:, None, :]
+    dk = torch.gather(full, 2, ik.long())
+    dp = torch.gather(full, 2, ip.long())
+    scale = 2.0 * float(torch.amax(torch.sum(pts * pts, -1)))
+    err = float((torch.abs(dk - dp) / (torch.abs(dp) + scale)).max())
+    require(err <= rtol, f"{label}: index differs beyond a near-tie ({err})")
+    uniq = torch.sort(ik, dim=-1).values
+    require(bool(torch.all(uniq[..., 1:] != uniq[..., :-1])),
+            f"{label}: repeated index in a row")
+    return int((ik != ip).sum())
+
+
+def check_knn_group(dev):
+    """The fused kNN + gather at the turbo path's shapes: the backbone's
+    edge gather (drop_first, duplicate bias, features only) of passes 1
+    and 2, the refiner's pass-1 grouping (xyz and 128 features) in turbo
+    and exact mode.  Its (dists, idx) bit-equal to the kNN kernel's on the
+    same inputs; against the plain version, swaps only between near-ties;
+    its gathered rows bit-equal to the plain gather (bf16-rounded in turbo
+    mode) at its own indices.  The aggregate is a 4× turbo request's."""
+    import torch
+
+    from dispu_tpu_torch.kernels.knn import knn_cuda
+    from dispu_tpu_torch.kernels.knn_group import (bf16_round,
+                                                   knn_group_cuda,
+                                                   knn_group_torch)
+    from dispu_tpu_torch.ops.knn import mask_duplicate_rows
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def feats(b, n, c, n_dup):
+        x = torch.randn(b, n, c, generator=gen)
+        x[:, n - n_dup:] = x[:, :n_dup]
+        return x
+
+    xyz = feats(32, 1024, 3, 0)
+    nl = feats(32, 1024, 128, 0)
+    # (label, keys, features (None: the keys), k, exact, with_xyz,
+    # drop_first and duplicate bias, launches per 4x turbo request)
+    cases = [("bbone c24", feats(32, 256, 24, 8), None, 16, False, False,
+              True, 1),
+             ("bbone c48", feats(32, 256, 48, 8), None, 16, False, False,
+              True, 3),
+             ("refiner", xyz, nl, 16, False, True, False, 1),
+             ("refiner exact", xyz, nl, 16, True, True, False, 0),
+             ("p2 bbone c24", feats(32, 1024, 24, 8), None, 16, False, False,
+              True, 0),
+             ("p2 bbone c48", feats(32, 1024, 48, 8), None, 16, False, False,
+              True, 0)]
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    for label, pts, ft, k, exact, with_xyz, drop, per_req in cases:
+        pts = pts.contiguous().to(dev)
+        ft = pts if ft is None else ft.contiguous().to(dev)
+        bias = (mask_duplicate_rows(pts).float() * 1e30) if drop else None
+        kw = dict(exact=exact, with_xyz=with_xyz, drop_first=drop)
+        d, i, gx, gf = knn_group_cuda(k, pts, pts, ft, bias, **kw)
+        kd, ki = knn_cuda(k + drop, pts, pts, bias)
+        pd, pi, _, _ = knn_group_torch(k, pts, pts, ft, bias, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(d, kd[..., int(drop):])
+                and torch.equal(i, ki[..., int(drop):]),
+                f"knn_group {label}: (dists, idx) differ from the kNN kernel")
+        swaps = _near_tie_swaps(f"knn_group {label}", i, pi, pts, pts, bias,
+                                KNN_SWAP_RTOL)
+        b, n, c = pts.shape
+        cf = ft.shape[-1]
+        flat = i.reshape(b, -1, 1).long()
+        rows = torch.gather(ft, 1, flat.expand(-1, -1, cf)).reshape(gf.shape)
+        require(torch.equal(gf, rows if exact else bf16_round(rows)),
+                f"knn_group {label}: gathered rows differ")
+        if with_xyz:
+            require(torch.equal(gx, torch.gather(
+                pts, 1, flat.expand(-1, -1, 3)).reshape(gx.shape)),
+                f"knn_group {label}: gathered xyz differ")
+        max_abs = float(torch.abs(d - pd).max())
+        ms = timed_ms(lambda: knn_group_cuda(k, pts, pts, ft, bias, **kw),
+                      reps=20)
+        plain_ms = timed_ms(lambda: knn_group_torch(k, pts, pts, ft, bias,
+                                                    **kw), reps=5)
+
+        def library():
+            dd = torch.cdist(pts, pts) ** 2
+            if bias is not None:
+                dd = dd + bias[:, None, :]
+            ii = torch.topk(dd, k + drop, dim=-1, largest=False)[1]
+            ii = ii[..., int(drop):].reshape(b, -1, 1)
+            return torch.gather(ft, 1, ii.expand(-1, -1, cf))
+
+        library_ms = timed_ms(library, reps=5)
+        m = n
+        nbytes = (4 * (2 * b * n * c + (b * n * cf if ft is not pts else 0)
+                       + (b * n if drop else 0))
+                  + b * m * k * (8 + 4 * cf + (12 if with_xyz else 0)))
+        ops = b * m * n * (2 * c + 4)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        log(f"knn_group {label:13s} (b={b} n=m={n} c={c} cf={cf} k={k} "
+            f"{'exact' if exact else 'turbo'}{' xyz' if with_xyz else ''}"
+            f"{' drop_first' if drop else ''}): dists, idx bit-equal to knn; "
+            f"rows bit-equal; vs plain: swaps {swaps}, max|d|err "
+            f"{max_abs:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"cdist+topk+gather {library_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by})")
+        agg["ms"] += per_req * ms
+        agg["plain_ms"] += per_req * plain_ms
+        agg["library_ms"] += per_req * library_ms
+        agg["bound_ms"] += per_req * bms
+        agg["t_bytes"] += per_req * nbytes / HBM_BYTES_PER_S
+        agg["t_ops"] += per_req * ops / F32_FLOPS
+        agg["max_abs_err"] = max(agg["max_abs_err"], max_abs)
+    return agg
+
+
+def check_knn_packed(dev):
+    """The packed kNN selection at pass 2's refiner shape of a 16× turbo
+    request, (32, 4096, 3), k = 16: its distances are the kNN kernel's own
+    exact distances with the low lane bits cleared, bit for bit, and its
+    indices move only at their truncation ties (bench.py's contract);
+    against the plain version (cuBLAS distances) swaps only where the
+    plain distances agree to one truncation step.  The aggregate is a 16×
+    turbo request's one launch."""
+    import torch
+
+    from dispu_tpu_torch.kernels.knn import (knn_cuda, knn_packed_cuda,
+                                             knn_packed_torch,
+                                             packed_lane_bits)
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    pts = torch.randn(32, 4096, 3, generator=gen).to(dev)
+    k = 16
+    lb = packed_lane_bits(pts.shape[1])
+    step = 2.0 ** -(23 - lb)
+
+    def trunc(x):
+        return (x.contiguous().view(torch.int32) & ~((1 << lb) - 1)).view(
+            torch.float32)
+
+    d, i = knn_packed_cuda(k, pts, pts)
+    ed, ei = knn_cuda(k + 1, pts, pts)
+    pd, pi = knn_packed_torch(k, pts, pts)
+    torch.cuda.synchronize()
+    te = trunc(ed)
+    require(torch.equal(d, te[..., :k]),
+            "knn_packed: distances are not the exact ones truncated")
+    tie = te[..., :k] == te[..., 1:]
+    tie[..., 1:] |= te[..., 1:k] == te[..., :k - 1]
+    trunc_swaps = int((i != ei[..., :k]).sum())
+    require(bool(torch.all((i == ei[..., :k]) | tie)),
+            "knn_packed: an index moved away from a truncation tie")
+    swaps = _near_tie_swaps("knn_packed", i, pi, pts, pts, None,
+                            2 * step + KNN_SWAP_RTOL)
+    max_abs = float(torch.abs(d - pd).max())
+    b, n, c = pts.shape
+    ms = timed_ms(lambda: knn_packed_cuda(k, pts, pts), reps=20)
+    plain_ms = timed_ms(lambda: knn_packed_torch(k, pts, pts), reps=5)
+    library_ms = timed_ms(lambda: torch.topk(
+        torch.cdist(pts, pts) ** 2, k, dim=-1, largest=False), reps=5)
+    nbytes = 4 * 2 * b * n * c + 8 * b * n * k
+    ops = b * n * n * (2 * c + 4)
+    bms, by = bound(nbytes, ops, F32_FLOPS)
+    log(f"knn_packed (b={b} n=m={n} c={c} k={k}, {lb} lane bits): distances "
+        f"= the kNN kernel's truncated; {trunc_swaps} swaps at truncation "
+        f"ties; vs plain: swaps {swaps}, max|d|err {max_abs:.3e}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk "
+        f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                t_ops=ops / F32_FLOPS, max_abs_err=max_abs)
+
+
+def check_fps_bucketed(dev):
+    """The bucketed merge FPS bit-equal to the plain FPS on each bucket: a
+    4× merge of a 2048-point cloud (64 buckets of 384 → 128), a 16× one
+    (64 of 1536 → 512), the same for two clouds (one launch), and buckets
+    past the register form (3 of 2,500 points).  The aggregate is the 4×
+    merge, the kernel's one launch in a 4× turbo request."""
+    import torch
+
+    from dispu_tpu_torch.kernels.fps_bucketed import (fps_bucketed_cuda,
+                                                      fps_bucketed_torch)
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def buckets(k, nb):
+        x = torch.randn(k, nb, 3, generator=gen)
+        x[:, nb - 10:] = x[:, :10]  # duplicated points
+        return x
+
+    cases = [("4x merge", buckets(64, 384), 128, True),
+             ("16x merge", buckets(64, 1536), 512, True),
+             ("4x stream B=2", buckets(128, 384), 128, True),
+             ("16x stream B=2", buckets(128, 1536), 512, True),
+             ("device-memory form", buckets(3, 2500), 64, False)]
+    agg = None
+    for label, x, mb, timed in cases:
+        x = x.contiguous().to(dev)
+        got = fps_bucketed_cuda(mb, x)
+        want, plain_ms = timed_once(lambda: fps_bucketed_torch(mb, x))
+        n_diff = int((got != want).sum())
+        require(n_diff == 0, f"fps_bucketed {label}: {n_diff} indices differ")
+        k, nb, _ = x.shape
+        if not timed:
+            log(f"fps_bucketed {label} ({k} x {nb} -> {mb}): bit-equal")
+            continue
+        ms = timed_ms(lambda: fps_bucketed_cuda(mb, x), reps=10)
+        nbytes = 12 * k * nb + 4 * k * mb
+        ops = 9 * k * nb * (mb - 1)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        log(f"fps_bucketed {label} ({k} x {nb} -> {mb}): bit-equal; kernel "
+            f"{ms:.4f} ms ({ms / (mb - 1) * 1e3:.3f} us a round), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        if agg is None:
+            agg = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                       t_ops=ops / F32_FLOPS, max_abs_err=0.0)
+    return agg
+
+
 # --------------------------------------------------------------- phase 4
 
 
 def expected_counts(up, n: int, b: int = 1) -> dict:
     """Kernel launches of one call of ``up``'s path on b clouds of n points,
-    from ``plan_counts``: one seed FPS and one patch kNN for all b clouds;
-    per chunk of patches and pass, 5 kNN (4 backbone, 1 refiner) and one
-    attention; one merge FPS, in the kernel that takes its candidates."""
+    from ``plan_counts`` and the JAX package's shape gates: one seed FPS
+    and one patch kNN for all b clouds; per chunk of patches and pass, one
+    attention and a kNN in each dense block and in the refiner, each in
+    the kernel its gate picks (the fused kNN + gather at n ≤ 2048 with
+    ``fused_grouping``, else the packed selection at 64 ≤ n ≤ 4096 with
+    ``fast_knn``, else the exact kNN); one merge FPS, bucketed or in the
+    kernel that takes its candidates."""
+    from dispu_tpu_torch import kernels
     from dispu_tpu_torch.inference import plan_counts
     from dispu_tpu_torch.ops.sampling import fps_kernel_for
 
-    seed_num, _ = plan_counts(n, up.inf_cfg)
-    chunks = -(-b * seed_num // up.inf_cfg.patch_batch)
-    candidates = (seed_num * up.inf_cfg.patch_num_point
-                  * up.gen_cfg.up_ratio ** up.num_passes)
-    counts = dict(knn=1 + 5 * chunks * up.num_passes, fps=1, fps_chunked=0,
-                  attention=chunks * up.num_passes, query_ball=0)
-    counts[fps_kernel_for(candidates)] += 1
+    g, inf = up.gen_cfg, up.inf_cfg
+    seed_num, out_num = plan_counts(n, inf)
+    chunks = -(-b * seed_num // inf.patch_batch)
+
+    def knn_kernel(points, fused_low, k):
+        if g.fused_grouping and fused_low <= points <= 2048:
+            return "knn_group"
+        if g.fast_knn and 64 <= points <= 4096 and k <= 128:
+            return "knn_packed"
+        return "knn"
+
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    counts.update(knn=1, fps=1)
+    points = inf.patch_num_point
+    for _ in range(up.num_passes):
+        # the backbone's gate (edge_parts) starts at 64 points, the
+        # refiner's (grouping) at 1
+        counts[knn_kernel(points, 64, g.knn + 1)] += g.dense_block * chunks
+        points *= g.up_ratio
+        counts[knn_kernel(points, 1, g.refine_nsample)] += chunks
+        counts["attention"] += chunks
+    if inf.merge_fps == "bucketed" and out_num >= inf.merge_fps_buckets:
+        counts["fps_bucketed"] += 1
+    else:
+        counts[fps_kernel_for(seed_num * points)] += 1
     return counts
 
 
@@ -763,6 +1032,173 @@ def serve_stream(card: str):
     return total
 
 
+def turbo_config():
+    """The turbo serving configuration, as ``python -m dispu_tpu_torch.cli
+    --phase test --turbo true`` builds it."""
+    from dispu_tpu_torch import cli
+
+    return cli.build_config(cli.parse_args(["--phase", "test", "--turbo",
+                                            "true"]))
+
+
+def own_spacing2(a, rows: int = 4096) -> float:
+    """Mean squared distance from each point of an (n, 3) cloud to its
+    nearest other point, on the card, in row blocks."""
+    import torch
+
+    a = torch.as_tensor(a).cuda()
+    total = 0.0
+    for i in range(0, len(a), rows):
+        d = torch.cdist(a[i:i + rows], a,
+                        compute_mode="donot_use_mm_for_euclid_dist") ** 2
+        r = torch.arange(d.shape[0], device=d.device)
+        d[r, i + r] = float("inf")
+        total += float(d.min(1).values.sum())
+    return total / len(a)
+
+
+def serve_turbo(card: str):
+    """The turbo serving configuration at full width from the port's seeded
+    init: two 4× and two 16× requests on each demo cloud, then two
+    ``upsample_many`` calls of both clouds at each ratio, each path with
+    exact launch counts and bit-equal repeats; each output against the
+    same path through the plain versions on the card, and beside the
+    exact path's output and time."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+
+    cfg = turbo_config()
+    clouds = {name: load_cloud(name)
+              for name in ("Icosahedron.xyz", "fandisk.xyz")}
+    pcs = np.stack(list(clouds.values()))
+    b, n, _ = pcs.shape
+    total = {}
+    for ratio in (4, 16):
+        inf = dataclasses.replace(cfg.inference, final_ratio=ratio)
+        up = PatchUpsampler(gen_cfg=cfg.generator, inf_cfg=inf, seed=0)
+        expected = {}
+        for pc in clouds.values():
+            expected = add_counts(expected, expected_counts(up, pc.shape[0]),
+                                  2)
+        outs, times = {}, []
+        kernels.reset_launch_counts()
+        for name, pc in clouds.items():
+            for rep in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = up.upsample(pc)
+                times.append((time.perf_counter() - t0) * 1e3)
+                require(out.shape == (pc.shape[0] * ratio, 3), out.shape)
+                require(np.isfinite(out).all(), f"turbo {name}: non-finite")
+                if rep:
+                    require(np.array_equal(out, outs[name]),
+                            f"turbo {ratio}x {name}: repeated request differs")
+                outs[name] = out
+        counts = kernels.launch_counts()
+        log(f"turbo: launches over 4 {ratio}x requests: {counts} (expected "
+            f"{expected})")
+        require(counts == expected, f"turbo {ratio}x launch counts {counts}")
+        total = add_counts(total, counts)
+
+        expected = add_counts({}, expected_counts(up, n, b), 2)
+        many, many_times = [], []
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            many.append(up.upsample_many(pcs))
+            many_times.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        log(f"turbo: launches over 2 {ratio}x upsample_many calls (B={b}): "
+            f"{counts} (expected {expected})")
+        require(counts == expected,
+                f"turbo {ratio}x stream launch counts {counts}")
+        require(many[0].shape == (b, n * ratio, 3)
+                and np.isfinite(many[0]).all()
+                and np.array_equal(many[0], many[1]),
+                f"turbo {ratio}x stream: shape, values or repeat")
+        total = add_counts(total, counts)
+
+        ref = PatchUpsampler(gen_cfg=cfg.generator, inf_cfg=inf, seed=0,
+                             impl="torch")
+        exact = PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
+            final_ratio=ratio))
+        exact_ms, rel = [], []
+        with torch.inference_mode():
+            for name, pc in clouds.items():
+                cd = chamfer(outs[name], ref.upsample(pc))
+                exact.upsample(pc)  # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex = exact.upsample(pc)
+                exact_ms.append((time.perf_counter() - t0) * 1e3)
+                s2 = own_spacing2(outs[name])
+                rel.append(cd / s2)
+                log(f"turbo {ratio}x {name}: vs the plain turbo path on the "
+                    f"card Chamfer {cd:.3e} ({cd / s2:.3e} of the output's "
+                    f"own mean squared spacing {s2:.3e}); vs the exact path "
+                    f"Chamfer {chamfer(outs[name], ex):.3e}")
+            many_ref = ref.upsample_many(pcs)
+            for v in range(b):
+                cd = chamfer(many[0][v], many_ref[v])
+                rel.append(cd / own_spacing2(many[0][v]))
+        log(f"turbo {ratio}x: Chamfer vs plain over own spacing, requests "
+            f"and upsample_many: {['%.3e' % r for r in rel]} (bound "
+            f"{TURBO_CHAMFER_REL[ratio]})")
+        require(max(rel) <= TURBO_CHAMFER_REL[ratio],
+                f"turbo {ratio}x: Chamfer vs plain {rel}")
+        warm = times[1::2]
+        log(f"ms per 2048-point {ratio}x turbo request after warm-up: "
+            f"{', '.join('%.2f' % t for t in warm)} (first requests "
+            f"{', '.join('%.2f' % t for t in times[0::2])}); the exact "
+            f"path's {', '.join('%.2f' % t for t in exact_ms)}; "
+            f"upsample_many (B={b}) {', '.join('%.2f' % t for t in many_times)}"
+            f" (the first warms up); on {card}")
+    return total
+
+
+def cli_phase(card: str, log_dir: str):
+    """``python -m dispu_tpu_torch.cli --phase test --turbo true`` on the
+    two demo clouds, restoring the training phase's checkpoint from
+    ``log_dir``: both output files exist with n·4 finite rows."""
+    import shutil
+
+    import numpy as np
+
+    work = os.path.join(REPO, "chiprun_out", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "in"))
+    names = ("Icosahedron", "fandisk")
+    for name in names:
+        shutil.copy(os.path.join(REPO, "demo", "gt", f"{name}.xyz"),
+                    os.path.join(work, "in"))
+    cmd = [sys.executable, "-m", "dispu_tpu_torch.cli", "--phase", "test",
+           "--turbo", "true", "--log_dir", log_dir, "--test_data",
+           os.path.join(work, "in", "*.xyz"), "--out_folder",
+           os.path.join(work, "out")]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0,
+            f"cli test phase exited {out.returncode}: {out.stderr[-3000:]}")
+    for name in names:
+        n = load_cloud(f"{name}.xyz").shape[0]
+        path = os.path.join(work, "out", f"{name}_X4.xyz")
+        require(os.path.exists(path), f"cli wrote no {path}")
+        rows = np.loadtxt(path, dtype=np.float32)
+        require(rows.shape == (n * 4, 3) and np.isfinite(rows).all(),
+                f"cli output {path}: {rows.shape}")
+    log(f"cli --phase test --turbo true: restored {log_dir}, wrote "
+        f"{', '.join(f'{n}_X4.xyz' for n in names)} ({seconds:.1f} s with "
+        f"the process's start) on {card}")
+
+
 # ------------------------------------------------------ phase 4: training
 
 
@@ -772,12 +1208,14 @@ def expected_train_counts(cfg) -> dict:
     chamfer argmin of both directions of the four Chamfer/Hausdorff terms
     (kNN at k = 1: 64 ≤ points ≤ 4096); the NL cell's attention (maps of
     at least 512²); one ball query for the repulsion loss."""
+    from dispu_tpu_torch import kernels
+
     g, n_out = cfg.generator, cfg.generator.num_out_points
     argmin = 8 if 64 <= n_out <= 4096 else 0
     nl = g.refine and g.use_nonlocal and n_out * n_out >= 512 * 512
-    return dict(knn=g.dense_block + int(g.refine) + argmin, fps=0,
-                fps_chunked=0, attention=int(nl),
-                query_ball=int(cfg.loss.use_repulsion))
+    return dict(dict.fromkeys(kernels.LAUNCHES, 0),
+                knn=g.dense_block + int(g.refine) + argmin,
+                attention=int(nl), query_ball=int(cfg.loss.use_repulsion))
 
 
 def _grads(model) -> dict:
@@ -1020,7 +1458,9 @@ def profile_request(up, pc):
         stages[name] = (time.perf_counter() - t0) * 1e3
         return out
 
-    log(f"profile of one {up.inf_cfg.final_ratio}x request:")
+    log(f"profile of one {up.inf_cfg.final_ratio}x request "
+        f"({'turbo' if up.gen_cfg.fused_grouping else 'exact'} generator, "
+        f"{up.inf_cfg.merge_fps} merge):")
     with torch.inference_mode():
         up.upsample(pc)  # warm
         pc_n, _, _ = stage("normalize", lambda: normalize_point_cloud(
@@ -1110,8 +1550,10 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # phase 3
-    aggs = {"knn": check_knn(dev), "fps": check_fps(dev),
+    aggs = {"knn": check_knn(dev), "knn_packed": check_knn_packed(dev),
+            "knn_group": check_knn_group(dev), "fps": check_fps(dev),
             "fps_chunked": check_fps_chunked(dev),
+            "fps_bucketed": check_fps_bucketed(dev),
             "attention": check_attention(dev),
             "query_ball": check_query_ball(dev)}
     train_knn = [TRAIN_KNN_MS[k] for k in ("train bb c24", "train bb c48",
@@ -1126,28 +1568,45 @@ def main() -> int:
     # phase 4: each path with its own counts; the JSON line sums them
     counts = add_counts(serve(card), serve_16x(card))
     counts = add_counts(counts, serve_stream(card))
+    counts = add_counts(counts, serve_turbo(card))
     counts = add_counts(counts, train_phase(card, args.profile))
+    cli_phase(card, os.path.join(REPO, "chiprun_out", "train_smoke"))
     if args.profile:
+        import dataclasses
+
         from dispu_tpu_torch import InferenceConfig
         from dispu_tpu_torch.inference import PatchUpsampler
 
+        turbo = turbo_config()
         for ratio in (4, 16):
-            profile_request(
-                PatchUpsampler(device="cuda", seed=0,
-                               inf_cfg=InferenceConfig(final_ratio=ratio)),
-                load_cloud("Icosahedron.xyz"))
+            for gen_cfg, inf in (
+                    (None, InferenceConfig(final_ratio=ratio)),
+                    (turbo.generator, dataclasses.replace(
+                        turbo.inference, final_ratio=ratio))):
+                kw = {} if gen_cfg is None else dict(gen_cfg=gen_cfg)
+                profile_request(PatchUpsampler(seed=0, inf_cfg=inf, **kw),
+                                load_cloud("Icosahedron.xyz"))
 
     # phase 5: ms, plain_ms, bound_ms and library_ms are per 2048-point
     # request: a 4x request for knn, fps and attention, a 16x request for
-    # fps_chunked (its one launch there); per train step for query_ball
+    # fps_chunked (its one launch there); a 4x turbo request for knn_group
+    # and fps_bucketed, a 16x turbo request for knn_packed (its one launch
+    # there); per train step for query_ball
     meta = {
         "knn": ("dispu_tpu_torch/kernels/csrc/knn.cu",
                 "dispu_tpu/ops/pallas_kernels.py:867"),
+        "knn_packed": ("dispu_tpu_torch/kernels/csrc/knn.cu",
+                       "dispu_tpu/ops/pallas_kernels.py:867 (variant "
+                       "packed, :744)"),
+        "knn_group": ("dispu_tpu_torch/kernels/csrc/knn_group.cu",
+                      "dispu_tpu/ops/pallas_kernels.py:1791"),
         "fps": ("dispu_tpu_torch/kernels/csrc/fps.cu",
                 "dispu_tpu/ops/pallas_kernels.py:87"),
         "fps_chunked": ("dispu_tpu_torch/kernels/csrc/fps_chunked.cu",
                         "dispu_tpu/ops/pallas_kernels.py:526, "
                         "dispu_tpu/ops/pallas_kernels.py:471"),
+        "fps_bucketed": ("dispu_tpu_torch/kernels/csrc/fps_bucketed.cu",
+                         "dispu_tpu/ops/pallas_kernels.py:631"),
         "attention": ("dispu_tpu_torch/kernels/csrc/attention.cu",
                       "dispu_tpu/ops/pallas_kernels.py:2221"),
         "query_ball": ("dispu_tpu_torch/kernels/csrc/query_ball.cu",

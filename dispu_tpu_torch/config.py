@@ -200,6 +200,9 @@ class ExperimentConfig:
 
 
 EXACT_GATHERS = ("gather", "onehot_hp", "onehot3", "pallas")
+#: every gather_impl the port runs: the exact ones, the bf16 turbo gather
+#: and the fused kNN + gather kernel (exact or bf16 features)
+GATHERS = EXACT_GATHERS + ("onehot", "fused", "fused_turbo")
 
 
 def _unsupported(what: str, item: str):
@@ -210,42 +213,60 @@ def _unsupported(what: str, item: str):
 
 def check_supported(gen_cfg: GeneratorConfig,
                     inf_cfg: InferenceConfig | None = None) -> None:
-    """Raise ``NotImplementedError`` for settings outside the ported slice.
+    """Raise ``NotImplementedError`` for settings outside the ported slice
+    (``ValueError`` for values the JAX package does not know either).
 
-    Each message names the ROADMAP.md queue item that will bring it.
+    Each message names the ROADMAP.md queue item that will bring it.  The
+    turbo serving flags are ported: ``fast_knn``, ``fast_gather``,
+    ``fast_gather_backbone``, ``fused_grouping``, ``dense_impl='split'``,
+    ``gather_impl='onehot'`` and the bucketed merge with the argsort rank.
     """
     turbo = "turbo and opt-in paths"
-    if gen_cfg.fast_knn:
-        _unsupported("fast_knn (packed-key kNN)", turbo)
-    if gen_cfg.fast_gather or gen_cfg.fast_gather_backbone:
-        _unsupported("fast_gather / fast_gather_backbone", turbo)
-    if gen_cfg.fused_grouping:
-        _unsupported("fused_grouping", turbo)
     if gen_cfg.refine_local_impl != "xla":
-        _unsupported(f"refine_local_impl={gen_cfg.refine_local_impl!r}", turbo)
-    if gen_cfg.dense_impl != "concat":
-        _unsupported(f"dense_impl={gen_cfg.dense_impl!r}", turbo)
-    if gen_cfg.gather_impl not in EXACT_GATHERS:
+        _unsupported(f"refine_local_impl={gen_cfg.refine_local_impl!r} "
+                     "(queue 2 items 12 and 13)", turbo)
+    if gen_cfg.dense_impl not in ("concat", "split"):
+        raise ValueError(f"unknown dense_impl {gen_cfg.dense_impl!r}")
+    if gen_cfg.gather_impl not in GATHERS:
         _unsupported(f"gather_impl={gen_cfg.gather_impl!r}", turbo)
     if inf_cfg is None:
         return
     if inf_cfg.compute_dtype != "float32":
         _unsupported(f"compute_dtype={inf_cfg.compute_dtype!r}", turbo)
-    if inf_cfg.merge_fps != "exact":
-        _unsupported(f"merge_fps={inf_cfg.merge_fps!r}", turbo)
+    if inf_cfg.merge_fps not in ("exact", "bucketed"):
+        raise ValueError(f"unknown merge_fps {inf_cfg.merge_fps!r}")
+    if inf_cfg.merge_fps_rank not in ("argsort", "radix"):
+        raise ValueError(f"unknown merge_fps_rank {inf_cfg.merge_fps_rank!r}")
+    if inf_cfg.merge_fps == "bucketed" and inf_cfg.merge_fps_rank == "radix":
+        _unsupported("merge_fps_rank='radix' (morton_rank)",
+                     "ops/sampling.py, the rest (item 12)")
 
 
 def check_train_supported(cfg: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` for training settings outside the
     ported slice (CD training, one device, f32), naming the ROADMAP.md
-    queue item that will bring each."""
+    queue item that will bring each.  The turbo generator flags serve
+    only: training through the fused kernel needs its backward rule,
+    which comes with the GAN slice."""
     check_supported(cfg.generator)
+    g, turbo = cfg.generator, "turbo and opt-in paths"
+    if g.fast_knn:
+        _unsupported("training with fast_knn (packed-key kNN)", turbo)
+    if g.fast_gather or g.fast_gather_backbone:
+        _unsupported("training with fast_gather / fast_gather_backbone",
+                     turbo)
+    if g.fused_grouping:
+        _unsupported("training through the fused kNN + gather kernel "
+                     "(its backward rule)", "the GAN stack")
+    if g.dense_impl != "concat":
+        _unsupported(f"training with dense_impl={g.dense_impl!r}", turbo)
+    if g.gather_impl not in EXACT_GATHERS:
+        _unsupported(f"training with gather_impl={g.gather_impl!r}", turbo)
     gan = "the GAN stack"
     if cfg.use_gan:
         _unsupported("use_gan (adversarial training)", gan)
     if cfg.train.fake_pool_size > 0:
         _unsupported("fake_pool_size > 0 (the critic's history pool)", gan)
-    turbo = "turbo and opt-in paths"
     if cfg.train.remat:
         _unsupported("remat", turbo)
     if cfg.train.compute_dtype != "float32":

@@ -6,8 +6,11 @@ kernel on the card) → per-patch normalization → the generator in chunks
 of ``patch_batch`` patches (the count padded with copies of the first
 patch), ``num_passes`` chained passes a chunk (1 at 4×, 2 at 16×) →
 un-normalize the patches → merge FPS down to n·final_ratio points a cloud
-→ un-normalize the clouds.  ``upsample_many`` runs B same-size clouds
-through each stage at once; ``upsample`` is its one-cloud case.
+(exact, or with ``merge_fps='bucketed'`` by Morton buckets) → un-normalize
+the clouds.  ``upsample_many`` runs B same-size clouds through each stage
+at once; ``upsample`` is its one-cloud case.  The turbo serving flags of
+``dispu.py --turbo`` are a ``GeneratorConfig`` and an ``InferenceConfig``
+(``cli.build_config``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from dispu_tpu_torch.convert import from_flax_variables
 from dispu_tpu_torch.models.generator import DisPUGenerator
 from dispu_tpu_torch.ops.geometry import normalize_point_cloud
 from dispu_tpu_torch.ops.knn import knn
-from dispu_tpu_torch.ops.sampling import farthest_point_sample
+from dispu_tpu_torch.ops.sampling import (farthest_point_sample,
+                                          farthest_point_sample_bucketed)
 
 
 def pin_f32() -> None:
@@ -134,9 +138,19 @@ class PatchUpsampler:
 
     def merge(self, points: torch.Tensor, out_num: int) -> torch.Tensor:
         """Merge FPS of B clouds' candidates, one FPS call for all B (the
-        JAX package's ``impl='batch'``): (B, N, 3) → (B, out_num, 3)."""
-        impl = "batch" if self.impl == "auto" else self.impl
-        return _take(points, farthest_point_sample(out_num, points, impl=impl))
+        JAX package's ``impl='batch'``): (B, N, 3) → (B, out_num, 3).
+        With ``merge_fps='bucketed'`` and ``out_num ≥ merge_fps_buckets``
+        the bucketed FPS instead, every bucket of the B clouds in one
+        ``fps_bucketed`` call (the JAX package loops over the clouds)."""
+        inf = self.inf_cfg
+        if inf.merge_fps == "bucketed" and out_num >= inf.merge_fps_buckets:
+            idx = farthest_point_sample_bucketed(
+                out_num, points, n_buckets=inf.merge_fps_buckets,
+                impl=self.impl, rank_impl=inf.merge_fps_rank)
+        else:
+            impl = "batch" if self.impl == "auto" else self.impl
+            idx = farthest_point_sample(out_num, points, impl=impl)
+        return _take(points, idx)
 
     # ------------------------------------------------------------------- API
 

@@ -24,7 +24,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-NAMES = ("knn", "fps", "fps_chunked", "attention", "query_ball")
+NAMES = ("knn", "fps", "fps_chunked", "attention", "query_ball",
+         "knn_group", "fps_bucketed")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,10 +1,13 @@
-"""kNN kernel (``csrc/knn.cu``) and its plain PyTorch version.
+"""kNN kernels (``csrc/knn.cu``) and their plain PyTorch versions.
 
-Replaces ``knn_pallas`` (``dispu_tpu/ops/pallas_kernels.py``).  On an H100
-the kernel is bound by its k selection rounds over each query's distance
-row, which it keeps in shared memory; see the note at the top of the
-source.  :func:`knn` is differentiable through :class:`KnnFunction`, which
-carries ``knn_pallas_diff``'s backward rule in torch ops.
+Replaces ``knn_pallas`` (``dispu_tpu/ops/pallas_kernels.py``): the exact
+selection (:func:`knn`, count ``LAUNCHES["knn"]``) and the packed-key turbo
+selection of ``variant="packed"`` (:func:`knn_packed`, count
+``LAUNCHES["knn_packed"]``).  On an H100 both are bound by their k
+selection rounds over each query's distance row, which they keep in shared
+memory; see the note at the top of the source.  :func:`knn` is
+differentiable through :class:`KnnFunction`, which carries
+``knn_pallas_diff``'s backward rule in torch ops.
 """
 
 from __future__ import annotations
@@ -134,3 +137,71 @@ def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
     differentiable in ``points`` and ``queries``."""
     return KnnFunction.apply(k, points, queries, bias,
                              use_kernel(impl, points))
+
+
+# ----------------------------------------------------- packed-key variant
+
+
+def packed_lane_bits(n: int) -> int:
+    """The packed selection's index bits for an n-point row: those of
+    ``knn_pallas``'s padded row, ``n_pad = round_up(max(n, 128), 128)``,
+    so the truncation of the distances is the TPU kernel's."""
+    n_pad = -(-max(n, 128) // 128) * 128
+    return max(1, (n_pad - 1).bit_length())
+
+
+def knn_packed_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
+                     bias: torch.Tensor | None = None):
+    """Plain version of the packed (turbo) selection: the distance matrix
+    of :func:`knn_torch`, each entry's bits with the low
+    :func:`packed_lane_bits` bits replaced by its column index, and the k
+    smallest of these distinct int keys ascending.  Returns ((b, m, k)
+    truncated distances, (b, m, k) int32 indices)."""
+    n = points.shape[1]
+    lmask = (1 << packed_lane_bits(n)) - 1
+    d = pairwise_sq_dist(queries, points)
+    if bias is not None:
+        d = d + bias[..., None, :]
+    cols = torch.arange(n, dtype=torch.int32, device=d.device)
+    keys = (d.contiguous().view(torch.int32) & ~lmask) | cols
+    keys = torch.topk(keys, k, dim=-1, largest=False, sorted=True).values
+    return ((keys & ~lmask).view(torch.float32).contiguous(),
+            (keys & lmask).contiguous())
+
+
+def knn_packed_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
+                    bias: torch.Tensor | None = None):
+    """Launch the packed kernel.  Same contract as
+    :func:`knn_packed_torch`; same limits as :func:`knn_cuda`."""
+    from dispu_tpu_torch.kernels import _build
+
+    _check(k, points, queries, bias)
+    b, n, c = points.shape
+    m = queries.shape[1]
+    if bias is None:
+        bias = torch.zeros((b, n), dtype=torch.float32, device=points.device)
+    dists = torch.empty((b, m, k), dtype=torch.float32, device=points.device)
+    idx = torch.empty((b, m, k), dtype=torch.int32, device=points.device)
+    fn = _build.load("knn").dispu_knn_packed
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(points.data_ptr(), queries.data_ptr(), bias.data_ptr(),
+                    dists.data_ptr(), idx.data_ptr(), b, n, m, c, k,
+                    packed_lane_bits(n), stream)
+    _build.check(status, "packed knn kernel launch")
+    LAUNCHES["knn_packed"] += 1
+    return dists, idx
+
+
+def knn_packed(k: int, points: torch.Tensor, queries: torch.Tensor,
+               bias: torch.Tensor | None = None, impl: str = "auto"):
+    """The packed (turbo) selection of ``knn_pallas(variant='packed')``:
+    near-ties whose distances agree above the low lane bits resolve by
+    index, and the distances come back truncated.  The kernel for CUDA
+    tensors, the plain version for CPU tensors.  Serving only: nothing
+    here carries a gradient (training refuses ``fast_knn``)."""
+    run = knn_packed_cuda if use_kernel(impl, points) else knn_packed_torch
+    return run(k, points.detach(), queries.detach(),
+               None if bias is None else bias.detach())

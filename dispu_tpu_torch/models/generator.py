@@ -21,10 +21,25 @@ from dispu_tpu_torch.nn.refine import PointShuffle2
 from dispu_tpu_torch.nn.upsample import CoordinateRegressor, DuplicateUp
 
 
+def _gather_impl(cfg: GeneratorConfig, fast: bool) -> str:
+    """The gather of the backbone (``fast`` = ``fast_gather_backbone``) or
+    of the refiner (``fast`` = ``fast_gather``), as the JAX package maps
+    the configuration: the fused kernel with ``fused_grouping`` (bf16
+    features when ``fast``), else the bf16 'onehot' gather when ``fast``,
+    else ``gather_impl``."""
+    if cfg.fused_grouping:
+        return "fused_turbo" if fast else "fused"
+    return "onehot" if fast else cfg.gather_impl
+
+
 class DisPUGenerator(nn.Module):
     """Dis-PU generator.  It is made in ``.eval()`` mode (batch norm on its
     running statistics); ``.train()`` switches batch norm to the batch's
     statistics, as the train step does.
+
+    The turbo flags (``fast_knn``, ``fast_gather``,
+    ``fast_gather_backbone``, ``fused_grouping``, ``dense_impl='split'``)
+    reach the modules as the JAX package's generator passes them.
 
     impl: how the kNN and attention kernels are reached — 'auto' (the
     kernels for CUDA tensors, their plain versions for CPU tensors),
@@ -39,10 +54,12 @@ class DisPUGenerator(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        kw = dict(use_bn=cfg.use_bn, bn_momentum=cfg.bn_momentum)
-        gkw = dict(gather_impl=cfg.gather_impl, impl=impl, **kw)
+        kw = dict(use_bn=cfg.use_bn, bn_momentum=cfg.bn_momentum, impl=impl)
+        knn_variant = "packed" if cfg.fast_knn else "auto"
         self.feature_extraction_coarse = FeatureExtractorGCN(
-            3, cfg.growth_rate, cfg.dense_block, cfg.dense_n, cfg.knn, **gkw)
+            3, cfg.growth_rate, cfg.dense_block, cfg.dense_n, cfg.knn,
+            gather_impl=_gather_impl(cfg, cfg.fast_gather_backbone),
+            knn_variant=knn_variant, dense_impl=cfg.dense_impl, **kw)
         width = self.feature_extraction_coarse.out_features
         for i in range(cfg.num_up_steps):
             up = DuplicateUp(width, up_ratio=cfg.step_ratio)
@@ -51,13 +68,17 @@ class DisPUGenerator(nn.Module):
         self.coarse_coordinate_regressor = CoordinateRegressor(width)
         if cfg.refine:
             if cfg.fine_extractor:
+                # the JAX package gives it the default exact gather and
+                # selection, and the configured dense_impl
                 self.feature_extraction_fine = FeatureExtractorGCN(
-                    3, cfg.growth_rate, 2, cfg.dense_n, cfg.knn, **gkw)
+                    3, cfg.growth_rate, 2, cfg.dense_n, cfg.knn,
+                    dense_impl=cfg.dense_impl, **kw)
                 width += self.feature_extraction_fine.out_features
             self.PointShuffle = PointShuffle2(
                 width, nsample=cfg.refine_nsample, mlp=tuple(cfg.refine_mlp),
                 use_nonlocal=cfg.use_nonlocal, use_local=cfg.use_local,
-                **gkw)
+                gather_impl=_gather_impl(cfg, cfg.fast_gather),
+                knn_variant=knn_variant, **kw)
             self.fine_coordinate_regressor = CoordinateRegressor(
                 cfg.refine_mlp[-1],
                 offset_range=cfg.offset_range if cfg.is_off else None)

@@ -1,8 +1,10 @@
 """The spatial refiner core, ``PointShuffle2`` (counterpart of
 ``nn/refine.py``), composed path only.
 
-  1. kNN-group xyz + features (k = ``nsample``; the kNN kernel on the
-     card), one combined ``[xyz | feature]`` gather;
+  1. kNN-group xyz + features (k = ``nsample``; on the card the kNN
+     kernel and one combined ``[xyz | feature]`` gather, or with
+     ``gather_impl`` 'fused' / 'fused_turbo' the ``knn_group`` kernel;
+     see ``ops.grouping.grouping``);
   2. local branch: per-edge MLP → pooling weights from ``WeightNetHidden``
      over the centred xyz → ``bnkt,bnkc->bntc`` pooling → k-major flatten
      → ``after_conv``, whose stored kernel rows stay (C', k)-major and are
@@ -33,11 +35,12 @@ class PointShuffle2(nn.Module):
                  mlp: Tuple[int, ...] = (128, 128, 256), use_bn: bool = False,
                  bn_momentum: float = 0.95, use_nonlocal: bool = True,
                  use_local: bool = True, gather_impl: str = "gather",
-                 impl: str = "auto"):
+                 impl: str = "auto", knn_variant: str = "auto"):
         super().__init__()
         c, k, out_c = in_features, nsample, mlp[-1]
         kw = dict(use_bn=use_bn, bn_momentum=bn_momentum)
         self.nsample, self.gather_impl, self.impl = k, gather_impl, impl
+        self.knn_variant = knn_variant
         self.use_nonlocal, self.use_local = use_nonlocal, use_local
         if use_nonlocal:
             # 'nonlocal' is a Python keyword: the flax name needs add_module
@@ -63,6 +66,7 @@ class PointShuffle2(nn.Module):
         grouped_xyz, grouped_feat, _ = grouping(
             feature, self.nsample, xyz, xyz, use_xyz=True,
             gather_impl=self.gather_impl, impl=self.impl,
+            knn_variant=self.knn_variant,
         )
         centered = grouped_xyz - xyz[:, :, None, :]
         grouped_feat = torch.cat([centered, grouped_feat], dim=-1)

@@ -4,8 +4,10 @@ Every exact gather of the JAX package ('gather', and the one-hot MXU
 contractions 'onehot_hp', 'onehot3' and 'pallas', which it proves
 bit-identical to a gather) is one plain index gather here: on the card a
 load is exact, so the TPU's one-hot detour has no reason to exist.  The
-ball query runs the ball-query kernel on the card where the JAX package's
-gate admits its Pallas kernel.
+turbo gather 'onehot' is the same gather rounded to bf16.  The ball query
+runs the ball-query kernel, and the fused kNN + gather (``gather_impl``
+'fused' / 'fused_turbo') the ``knn_group`` kernel, on the card where the
+JAX package's gates admit their Pallas kernels.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from dispu_tpu_torch.config import EXACT_GATHERS
 from dispu_tpu_torch.kernels import IMPLS
+from dispu_tpu_torch.kernels import knn_group as _knn_group
 from dispu_tpu_torch.kernels import query_ball as _ball
 from dispu_tpu_torch.ops.knn import knn_indices
 
@@ -50,35 +53,67 @@ def query_ball_point(radius, nsample: int, xyz: torch.Tensor,
 
 def group_point(points: torch.Tensor, idx: torch.Tensor,
                 impl: str = "gather") -> torch.Tensor:
-    """(b, n, c) points, (b, m, k) indices → (b, m, k, c)."""
-    if impl not in EXACT_GATHERS:
+    """(b, n, c) points, (b, m, k) indices → (b, m, k, c).  ``'onehot'``
+    is the turbo gather: the JAX package's bf16 one-hot contraction, whose
+    values are the gathered rows rounded to bf16 (to nearest even)."""
+    if impl not in EXACT_GATHERS + ("onehot",):
         raise NotImplementedError(
             f"group_point impl={impl!r} is not ported yet (ROADMAP.md, "
             "queue 1: turbo and opt-in paths)"
         )
-    b, m, k = idx.shape
-    c = points.shape[-1]
-    flat = idx.reshape(b, m * k, 1).long().expand(b, m * k, c)
-    return torch.gather(points, 1, flat).reshape(b, m, k, c)
+    out = _knn_group.rows_at(points, idx)
+    return _knn_group.bf16_round(out) if impl == "onehot" else out
+
+
+def _fused_fits(feature, src_xyz) -> bool:
+    """The JAX package's gate for its fused kNN + gather kernel in
+    ``grouping`` (n ≤ 2048, c ≤ 384, 3-d keys), without its backend
+    test."""
+    return (src_xyz.shape[1] <= 2048 and feature.shape[-1] <= _knn_group.MAX_C
+            and src_xyz.shape[-1] == 3)
 
 
 def grouping(feature: torch.Tensor, k: int, src_xyz: torch.Tensor,
              q_xyz: torch.Tensor, use_xyz: bool = True, use_knn: bool = True,
              radius: float = 0.2, gather_impl: str = "gather",
-             impl: str = "auto"):
+             impl: str = "auto", knn_variant: str = "auto"):
     """kNN (or, with ``use_knn=False``, ball) neighbourhoods of the query
     points with their gathered features.
 
     Returns (grouped_xyz (b, m, k, 3), grouped_feature (b, m, k, 3 + c or
-    c), idx (b, m, k)).  One combined ``[xyz | feature]`` gather, as on the
-    JAX package's exact path.
+    c), idx (b, m, k)).  An exact ``gather_impl``: one combined ``[xyz |
+    feature]`` gather, as on the JAX package's exact path.  ``'onehot'``
+    (turbo): the xyz gathered exactly, the features bf16-rounded.
+    ``'fused'`` / ``'fused_turbo'``: the kNN and both gathers in the
+    ``knn_group`` kernel (features exact / bf16-rounded) inside the JAX
+    package's gate, the composed ``'onehot_hp'`` / ``'onehot'`` path
+    outside it.  ``knn_variant`` ('auto' or 'packed') picks the composed
+    path's kNN selection.
     """
+    if use_knn and gather_impl in ("fused", "fused_turbo"):
+        if _fused_fits(feature, src_xyz):
+            _, idx, grouped_xyz, grouped_feature = _knn_group.knn_group(
+                k, src_xyz.float().contiguous(), q_xyz.float().contiguous(),
+                feature.contiguous(), exact=gather_impl == "fused",
+                with_xyz=True, impl=impl)
+            if use_xyz:
+                grouped_feature = torch.cat([grouped_xyz, grouped_feature],
+                                            dim=-1)
+            return grouped_xyz, grouped_feature, idx
+        gather_impl = "onehot_hp" if gather_impl == "fused" else "onehot"
     if use_knn:
-        idx = knn_indices(k, src_xyz, q_xyz, impl=impl)
+        idx = knn_indices(k, src_xyz, q_xyz, impl=impl, variant=knn_variant)
     else:
         idx, _ = query_ball_point(radius, k, src_xyz, q_xyz, impl=impl)
-    combined = group_point(torch.cat([src_xyz, feature], dim=-1), idx,
-                           impl=gather_impl)
-    grouped_xyz = combined[..., :3]
-    grouped_feature = combined if use_xyz else combined[..., 3:]
+    if gather_impl != "onehot":
+        combined = group_point(torch.cat([src_xyz, feature], dim=-1), idx,
+                               impl=gather_impl)
+        grouped_xyz = combined[..., :3]
+        grouped_feature = combined if use_xyz else combined[..., 3:]
+        return grouped_xyz, grouped_feature, idx
+    # turbo: the features round, the xyz must stay exact
+    grouped_xyz = group_point(src_xyz, idx)
+    grouped_feature = group_point(feature, idx, impl=gather_impl)
+    if use_xyz:
+        grouped_feature = torch.cat([grouped_xyz, grouped_feature], dim=-1)
     return grouped_xyz, grouped_feature, idx

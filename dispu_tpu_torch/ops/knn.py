@@ -1,9 +1,11 @@
-"""Exact k-nearest-neighbour search (counterpart of ``ops/knn.py``).
+"""k-nearest-neighbour search (counterpart of ``ops/knn.py``).
 
-On the card every kNN of the serving path goes through the one kNN kernel
+On the card every kNN of the serving path goes through the kNN kernels
 (``kernels/knn.py``), including patch extraction with k = 256, which the
-JAX package leaves to XLA's ``top_k``; on the CPU the kernel's plain
-version runs.  Indices come back int32, distances ascending.
+JAX package leaves to XLA's ``top_k``; on the CPU the kernels' plain
+versions run.  ``variant="packed"`` (the turbo selection) takes the packed
+kernel where the JAX package's gate admits its Pallas kernel, and the exact
+selection elsewhere.  Indices come back int32, distances ascending.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 import torch
 
 from dispu_tpu_torch.kernels.knn import knn as _knn_kernel
+from dispu_tpu_torch.kernels.knn import knn_packed as _knn_packed
+
+VARIANTS = ("auto", "packed")
 
 
 def mask_duplicate_rows(points: torch.Tensor) -> torch.Tensor:
@@ -32,33 +37,52 @@ def mask_duplicate_rows(points: torch.Tensor) -> torch.Tensor:
     return (first[group] != index).reshape(points.shape[:-1])
 
 
+def _use_packed(variant: str, points: torch.Tensor, k: int) -> bool:
+    """Whether ``variant`` takes the packed selection at this shape: the
+    JAX package's gate for its Pallas kernel (``_use_pallas``: 64 ≤ n ≤
+    4096, c ≤ 128, k ≤ 128), without its backend test."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    return (variant == "packed" and points.dim() == 3
+            and 64 <= points.shape[-2] <= 4096 and points.shape[-1] <= 128
+            and k <= 128)
+
+
+def _select(k, points, queries, bias, impl, variant):
+    points, queries = points.contiguous(), queries.contiguous()
+    if _use_packed(variant, points, k):
+        return _knn_packed(k, points, queries, bias, impl=impl)
+    return _knn_kernel(k, points, queries, bias, impl=impl)
+
+
 def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
-        impl: str = "auto"):
+        impl: str = "auto", variant: str = "auto"):
     """(b, n, c) points, (b, m, c) queries → ((b, m, k) squared distances
     ascending, (b, m, k) int32 indices); ties go to the lower index.  The
-    distances are differentiable (``kernels.knn.KnnFunction``)."""
-    return _knn_kernel(k, points.contiguous(), queries.contiguous(),
-                       impl=impl)
+    exact distances are differentiable (``kernels.knn.KnnFunction``); the
+    packed ones are truncated and carry no gradient."""
+    return _select(k, points, queries, None, impl, variant)
 
 
 def knn_indices(k: int, points: torch.Tensor, queries: torch.Tensor,
-                impl: str = "auto") -> torch.Tensor:
+                impl: str = "auto", variant: str = "auto") -> torch.Tensor:
     """Neighbour indices only, detached from autograd."""
-    return knn(k, points.detach(), queries.detach(), impl)[1]
+    return knn(k, points.detach(), queries.detach(), impl, variant)[1]
 
 
 def knn_unique(k: int, points: torch.Tensor, queries: torch.Tensor,
-               impl: str = "auto"):
+               impl: str = "auto", variant: str = "auto"):
     """kNN in which rows that duplicate an earlier row sort last: their
     columns carry a bias of 1e30, as on the JAX package's Pallas path, so
     each distinct point is returned at most once unless fewer than k
     distinct points exist."""
-    points = points.contiguous()
     bias = mask_duplicate_rows(points.detach()).to(torch.float32) * 1e30
-    return _knn_kernel(k, points, queries.contiguous(), bias, impl=impl)
+    return _select(k, points, queries, bias, impl, variant)
 
 
 def knn_unique_indices(k: int, points: torch.Tensor, queries: torch.Tensor,
-                       impl: str = "auto") -> torch.Tensor:
+                       impl: str = "auto",
+                       variant: str = "auto") -> torch.Tensor:
     """``knn_unique`` indices only, detached from autograd."""
-    return knn_unique(k, points.detach(), queries.detach(), impl)[1]
+    return knn_unique(k, points.detach(), queries.detach(), impl, variant)[1]

@@ -1,11 +1,13 @@
-"""Farthest-point sampling, row gathers and the training input's
-nonuniform draw (counterpart of ``ops/sampling.py``)."""
+"""Farthest-point sampling (exact, and bucketed by Morton order), row
+gathers and the training input's nonuniform draw (counterpart of
+``ops/sampling.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from dispu_tpu_torch.kernels import fps as _fps
+from dispu_tpu_torch.kernels import fps_bucketed as _fps_bucketed
 from dispu_tpu_torch.kernels import fps_chunked as _fps_chunked
 
 
@@ -34,6 +36,71 @@ def farthest_point_sample(npoint: int, xyz: torch.Tensor,
     if fps_kernel_for(xyz.shape[1]) == "fps":
         return _fps.fps(npoint, xyz, impl=impl)
     return _fps_chunked.fps_chunked(npoint, xyz, impl=impl)
+
+
+def _morton_spread3(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of v so they occupy every 3rd bit (int64
+    carries the JAX package's uint32 arithmetic)."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton_codes(xyz: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """(..., n, 3) points → (..., n) int32 interleaved-bit (Z-order) keys,
+    each cloud quantized over its own bounding box.  The f32 quantization
+    is the JAX package's, operation for operation: ``(xyz − lo) · ((2^bits
+    − 1) / max(hi − lo, 1e-12))``, truncated toward zero, clipped."""
+    lo = torch.amin(xyz, dim=-2, keepdim=True)
+    hi = torch.amax(xyz, dim=-2, keepdim=True)
+    # a tensor numerator: ``scalar / tensor`` is a reciprocal then a
+    # product in PyTorch, which rounds differently from the division
+    scale = torch.full_like(hi, 2 ** bits - 1) / torch.clamp_min(hi - lo,
+                                                                1e-12)
+    q = torch.clamp(((xyz - lo) * scale).to(torch.int32), 0, 2 ** bits - 1)
+    q = q.to(torch.int64)
+    code = (_morton_spread3(q[..., 0]) | (_morton_spread3(q[..., 1]) << 1)
+            | (_morton_spread3(q[..., 2]) << 2))
+    return code.to(torch.int32)
+
+
+def farthest_point_sample_bucketed(npoint: int, xyz: torch.Tensor,
+                                   n_buckets: int = 64, impl: str = "auto",
+                                   rank_impl: str = "argsort") -> torch.Tensor:
+    """Approximate FPS of B clouds by spatial buckets: (B, n, 3) → (B,
+    npoint) int32 indices (the JAX package's function of one cloud, for
+    each cloud of the batch).
+
+    Each cloud is ranked by Morton code (a stable argsort, as
+    ``jnp.argsort``), padded with its last-ranked point to ``n_buckets``
+    equal buckets of n_b = max(ceil(n / K), m_b) points, m_b = ceil(npoint
+    / K); every bucket of every cloud runs exact FPS for m_b points in one
+    ``fps_bucketed`` call (the kernel on a CUDA tensor); the picks come
+    back round-robin by bucket, cut to ``npoint``.  ``rank_impl='radix'``
+    (``morton_rank`` over 4-bit codes) is not ported."""
+    if rank_impl == "radix":
+        raise NotImplementedError(
+            "rank_impl='radix' (morton_rank) is not ported yet (ROADMAP.md, "
+            "queue 1: ops/sampling.py, the rest (item 12))")
+    if rank_impl != "argsort":
+        raise ValueError(f"unknown rank_impl {rank_impl!r}")
+    b, n, _ = xyz.shape
+    k = n_buckets
+    m_b = -(-npoint // k)
+    n_b = max(-(-n // k), m_b)
+    xyz = xyz.to(torch.float32)
+    order = torch.argsort(morton_codes(xyz), dim=-1, stable=True)
+    pad = k * n_b - n
+    if pad:
+        order = torch.cat([order, order[:, -1:].expand(b, pad)], dim=1)
+    buckets = gather_point(xyz, order).reshape(b * k, n_b, 3)
+    local = _fps_bucketed.fps_bucketed(m_b, buckets.contiguous(), impl=impl)
+    picked = torch.gather(order.reshape(b * k, n_b), 1, local.long())
+    # round-robin: every bucket's j-th pick before any (j+1)-th
+    picked = picked.reshape(b, k, m_b).transpose(1, 2).reshape(b, k * m_b)
+    return picked[:, :npoint].to(torch.int32)
 
 
 def gather_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,8 @@ from dispu_tpu_torch.ops.knn import mask_duplicate_rows
 pytestmark = pytest.mark.cuda
 
 SMALL = dict(num_points=64, knn=8, refine_nsample=8)
+#: the turbo path's kernels, which the exact paths never launch
+NO_TURBO = {"knn_packed": 0, "knn_group": 0, "fps_bucketed": 0}
 
 
 @pytest.fixture
@@ -143,7 +145,8 @@ def test_upsampler_goes_through_the_kernels(dev):
     # per chunk; attention once per chunk (its 512 × 512 map reaches the
     # kernel's threshold); FPS for the seeds and the merge
     assert kernels.launch_counts() == {"knn": 11, "fps": 2, "fps_chunked": 0,
-                                       "attention": 2, "query_ball": 0}
+                                       "attention": 2, "query_ball": 0,
+                                       **NO_TURBO}
     assert out.shape == (2400, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
                          device="cpu").upsample(pc)
@@ -163,7 +166,8 @@ def test_upsampler_fine_extractor_attention_reaches_the_kernel(dev):
     out = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf).upsample(pc)
     # 2 chunks: kNN 1 + (4 coarse + 2 fine backbone + 1 refiner) per chunk
     assert kernels.launch_counts() == {"knn": 15, "fps": 2, "fps_chunked": 0,
-                                       "attention": 2, "query_ball": 0}
+                                       "attention": 2, "query_ball": 0,
+                                       **NO_TURBO}
     assert out.shape == (2400, 3) and np.isfinite(out).all()
 
 
@@ -177,7 +181,8 @@ def test_upsampler_16x_goes_through_the_kernels(dev):
     # attention 4 · 2 (maps of 512² and 2048²); the merge of 28 · 2048 =
     # 57,344 candidates goes to the cluster kernel
     assert kernels.launch_counts() == {"knn": 41, "fps": 1, "fps_chunked": 1,
-                                       "attention": 8, "query_ball": 0}
+                                       "attention": 8, "query_ball": 0,
+                                       **NO_TURBO}
     assert out.shape == (19200, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
                          impl="torch").upsample(pc)
@@ -191,9 +196,9 @@ def test_upsampler_16x_goes_through_the_kernels(dev):
     # pass; merges of 28 · 512 = 14,336 (fps) or 28 · 2048 = 57,344
     # (fps_chunked, one cluster a cloud) candidates for both clouds at once
     (4, {"knn": 36, "fps": 2, "fps_chunked": 0, "attention": 7,
-         "query_ball": 0}),
+         "query_ball": 0, **NO_TURBO}),
     (16, {"knn": 71, "fps": 1, "fps_chunked": 1, "attention": 14,
-          "query_ball": 0}),
+          "query_ball": 0, **NO_TURBO}),
 ])
 def test_upsample_many_goes_through_the_kernels(dev, final_ratio, counts):
     inf = InferenceConfig(patch_num_point=128, patch_batch=8,
@@ -331,9 +336,148 @@ def test_train_step_on_the_card_reaches_every_parameter(dev):
             # 4 backbone + 1 refiner + 8 chamfer argmins; the NL cell's
             # 1024² map; the repulsion ball query
             assert counts == {"knn": 13, "fps": 0, "fps_chunked": 0,
-                              "attention": 1, "query_ball": 1}
+                              "attention": 1, "query_ball": 1, **NO_TURBO}
         else:
             assert sum(counts.values()) == 0
     for n, g in grads["torch"].items():
         if bool(g.abs().max() > 0):
             assert bool(grads["auto"][n].abs().max() > 0), n
+
+
+# --------------------------------------------------------- turbo serving
+
+
+TURBO = dict(fast_knn=True, fast_gather=True, fast_gather_backbone=True,
+             fused_grouping=True, dense_impl="split")
+
+
+def _trunc(d, lb):
+    return (d.contiguous().view(torch.int32) & ~((1 << lb) - 1)).view(
+        torch.float32)
+
+
+@pytest.mark.parametrize("b,n,m,c,k,dup", [
+    (2, 4096, 4096, 3, 16, False), (2, 256, 256, 24, 17, True),
+    (3, 100, 30, 5, 100, False),
+])
+def test_knn_packed_kernel_contract(dev, b, n, m, c, k, dup):
+    from dispu_tpu_torch.kernels.knn import (knn_packed_cuda,
+                                             knn_packed_torch,
+                                             packed_lane_bits)
+
+    pts = _randn(n, b, n, c).to(dev)
+    if dup:
+        pts[:, -10:] = pts[:, :10]
+    qs = pts[:, :m].contiguous()
+    bias = mask_duplicate_rows(pts).float() * 1e30 if dup else None
+    lb = packed_lane_bits(n)
+    dk, ik = knn_packed_cuda(k, pts, qs, bias)
+    ed, ei = knn_cuda(min(k + 1, n), pts, qs, bias)
+    # the kernel's distances are its exact kernel's, truncated, bit for
+    # bit; indices move only at a truncation tie of those
+    te = _trunc(ed, lb)
+    assert torch.equal(dk, te[..., :k])
+    eq = te[..., 1:] == te[..., :-1]  # rank p ties with rank p + 1
+    tie = torch.zeros_like(ik, dtype=torch.bool)
+    j = min(k, eq.shape[-1])
+    tie[..., :j] |= eq[..., :j]
+    tie[..., 1:] |= eq[..., :k - 1]
+    assert bool(torch.all((ik == ei[..., :k]) | tie))
+    # against the plain version (cuBLAS distances): swaps are rare
+    dp, ip = knn_packed_torch(k, pts, qs, bias)
+    assert float((ik != ip).float().mean()) <= 1e-2
+    scale = 2.0 * float(torch.amax(torch.sum(pts * pts, -1)))
+    step = 2.0 ** -(23 - lb)
+    assert float((torch.abs(dk - dp) / (dp.abs() * 2 * step + 1e-5 * scale)
+                  ).max()) <= 1.0
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("with_xyz,drop_first,dup", [
+    (True, False, False), (False, True, True), (True, True, True),
+])
+def test_knn_group_kernel_bit_equal_to_knn_kernel(dev, with_xyz, drop_first,
+                                                  dup, exact):
+    from dispu_tpu_torch.kernels.knn_group import (bf16_round,
+                                                   knn_group_cuda)
+
+    b, n, k = 2, 1024, 16
+    feats = _randn(1, b, n, 40 if with_xyz else 48).to(dev)
+    pts = _randn(2, b, n, 3).to(dev) if with_xyz else feats
+    if dup:
+        pts[:, -10:] = pts[:, :10]
+    qs = pts if drop_first else pts[:, ::4].contiguous()
+    bias = mask_duplicate_rows(pts).float() * 1e30 if dup else None
+    d, i, gx, gf = knn_group_cuda(k, pts, qs, feats, bias, exact=exact,
+                                  with_xyz=with_xyz, drop_first=drop_first)
+    kd, ki = knn_cuda(k + drop_first, pts, qs, bias)
+    assert torch.equal(d, kd[..., drop_first:])
+    assert torch.equal(i, ki[..., drop_first:])
+    flat = i.reshape(b, -1, 1).long()
+    rows = torch.gather(feats, 1, flat.expand(-1, -1, feats.shape[-1]))
+    rows = rows.reshape(gf.shape)
+    assert torch.equal(gf, rows if exact else bf16_round(rows))
+    if with_xyz:
+        xyz = torch.gather(pts, 1, flat.expand(-1, -1, 3)).reshape(gx.shape)
+        assert torch.equal(gx, xyz)
+    else:
+        assert gx is None
+
+
+def test_knn_group_kernel_refuses_beyond_its_limits(dev):
+    from dispu_tpu_torch.kernels.knn_group import MAX_C, knn_group_cuda
+
+    pts = torch.zeros((1, 64, 3), device=dev)
+    with pytest.raises(ValueError, match="c <="):
+        knn_group_cuda(4, pts, pts, torch.zeros((1, 64, MAX_C + 1),
+                                                device=dev))
+    with pytest.raises(ValueError, match="3-d"):
+        wide = torch.zeros((1, 64, 5), device=dev)
+        knn_group_cuda(4, wide, wide, wide, with_xyz=True)
+
+
+@pytest.mark.parametrize("K,nb,mb", [
+    (64, 384, 128), (8, 1536, 512), (3, 2500, 40), (5, 7, 7), (2, 33, 10),
+])
+def test_fps_bucketed_kernel_bit_equal_to_plain(dev, K, nb, mb):
+    from dispu_tpu_torch.kernels.fps_bucketed import (fps_bucketed_cuda,
+                                                      fps_bucketed_torch)
+
+    x = _randn(K * nb, K, nb, 3).to(dev)
+    x[:, nb // 2:nb // 2 + 3] = x[:, :3]  # ties
+    assert torch.equal(fps_bucketed_cuda(mb, x), fps_bucketed_torch(mb, x))
+
+
+def _own_spacing2(a):
+    d = torch.cdist(a, a, compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    d.fill_diagonal_(float("inf"))
+    return float(d.min(1).values.mean())
+
+
+@pytest.mark.parametrize("final_ratio,patch,n,counts", [
+    # 14 seeds → 2 chunks of 8: knn_group 4 backbone + 1 refiner a chunk
+    (4, 128, 600, {"knn": 1, "knn_group": 10, "knn_packed": 0,
+                   "attention": 2, "fps": 1, "fps_bucketed": 1}),
+    # 7 seeds → 1 chunk, two passes; pass 2's refiner kNN over 4096
+    # points is past the fused gate (≤ 2048): the packed kernel
+    (16, 256, 600, {"knn": 1, "knn_group": 9, "knn_packed": 1,
+                    "attention": 2, "fps": 1, "fps_bucketed": 1}),
+])
+def test_turbo_upsampler_goes_through_the_kernels(dev, final_ratio, patch, n,
+                                                  counts):
+    inf = InferenceConfig(patch_num_point=patch, patch_batch=8,
+                          final_ratio=final_ratio, merge_fps="bucketed")
+    cfg = GeneratorConfig(**SMALL, **TURBO)
+    pc = _randn(0, n, 3).numpy()
+    up = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf)
+    kernels.reset_launch_counts()
+    out = up.upsample(pc)
+    assert kernels.launch_counts() == dict(
+        counts, fps_chunked=0, query_ball=0)
+    assert out.shape == (n * final_ratio, 3) and np.isfinite(out).all()
+    ref = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf, impl="torch").upsample(pc)
+    # against the plain versions on the card: the bucketed merge moves
+    # picks where round-off moves a candidate across a Morton step (see
+    # tests/test_torch_turbo.py), so the outputs are held as sets
+    assert _chamfer(out, ref) <= 0.25 * _own_spacing2(
+        torch.from_numpy(ref).cuda())

@@ -99,11 +99,25 @@ def test_own_init_full_width_cpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fast_knn", True), ("fast_gather", True),
-    ("fast_gather_backbone", True), ("fused_grouping", True),
-    ("refine_local_impl", "fused"), ("dense_impl", "split"),
-    ("gather_impl", "onehot"),
+    ("refine_local_impl", "fused"), ("refine_local_impl", "megafused"),
 ])
 def test_unported_settings_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DisPUGenerator(GeneratorConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("fast_knn", True), ("fast_gather", True),
+    ("fast_gather_backbone", True), ("fused_grouping", True),
+    ("dense_impl", "split"), ("gather_impl", "onehot"),
+])
+def test_turbo_settings_build_and_run(field, value):
+    """Each turbo setting on its own builds and runs on the CPU (the whole
+    turbo generator against flax: tests/test_torch_turbo.py)."""
+    model = DisPUGenerator(GeneratorConfig(**SMALL, **{field: value}))
+    x = torch.from_numpy(
+        np.random.RandomState(1).randn(1, 64, 3).astype(np.float32))
+    with torch.inference_mode():
+        coarse, fine = model(x)
+    assert coarse.shape == fine.shape == (1, 256, 3)
+    assert torch.isfinite(fine).all()

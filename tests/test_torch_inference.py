@@ -101,13 +101,27 @@ def test_plan_counts_match(n, inf_kw):
 
 
 @pytest.mark.parametrize("inf_kw", [
-    dict(final_ratio=16, merge_fps="bucketed"), dict(merge_fps="bucketed"),
     dict(compute_dtype="bfloat16"),
+    dict(merge_fps="bucketed", merge_fps_rank="radix"),
 ])
 def test_unported_inference_settings_raise(inf_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL),
                        inf_cfg=InferenceConfig(**inf_kw), device="cpu")
+
+
+@pytest.mark.parametrize("inf_kw", [
+    dict(final_ratio=16, merge_fps="bucketed"), dict(merge_fps="bucketed"),
+])
+def test_bucketed_merge_settings_run(inf_kw):
+    """The bucketed merge at 4× and 16× builds and runs on the CPU (against
+    JAX: tests/test_torch_turbo.py)."""
+    inf = InferenceConfig(**dict(INF, **inf_kw))
+    pc = np.random.RandomState(2).randn(128, 3).astype(np.float32)
+    out = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
+                         device="cpu").upsample(pc)
+    assert out.shape == (128 * inf.final_ratio, 3)
+    assert np.isfinite(out).all()
 
 
 def test_mesh_raises():

@@ -44,7 +44,10 @@ def test_import_leaves_jax_unloaded():
             "dispu_tpu_torch.kernels.fps_chunked, "
             "dispu_tpu_torch.kernels.attention, dispu_tpu_torch.time_fps, "
             "dispu_tpu_torch.kernels.query_ball, dispu_tpu_torch.losses, "
-            "dispu_tpu_torch.train.trainer, dispu_tpu_torch.ops.chamfer; "
+            "dispu_tpu_torch.train.trainer, dispu_tpu_torch.ops.chamfer, "
+            "dispu_tpu_torch.kernels.knn_group, dispu_tpu_torch.cli, "
+            "dispu_tpu_torch.kernels.fps_bucketed, "
+            "dispu_tpu_torch.evaluation.meshio; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))

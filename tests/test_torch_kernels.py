@@ -22,7 +22,10 @@ from dispu_tpu_torch import kernels
 from dispu_tpu_torch.kernels.attention import attention, attention_torch
 from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps, fps_cuda
 from dispu_tpu_torch.kernels.fps_chunked import fps_chunked, fps_chunked_cuda
+from dispu_tpu_torch.kernels.fps_bucketed import fps_bucketed
 from dispu_tpu_torch.kernels.knn import knn as knn_kernel
+from dispu_tpu_torch.kernels.knn import knn_packed
+from dispu_tpu_torch.kernels.knn_group import knn_group
 from dispu_tpu_torch.kernels.query_ball import query_ball
 from dispu_tpu_torch.nn.attention import global_attention
 from dispu_tpu_torch.ops import knn as tknn
@@ -272,8 +275,13 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     fps_chunked(8, x)
     attention(x, x, x, 1.0)
     query_ball(0.5, 4, x, x, select_smallest=2)
-    assert kernels.launch_counts() == {"knn": 0, "fps": 0, "fps_chunked": 0,
-                                       "attention": 0, "query_ball": 0}
+    knn_packed(4, x, x)
+    knn_group(4, x, x, x, drop_first=True)
+    fps_bucketed(8, x)
+    assert kernels.launch_counts() == {
+        "knn": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
+        "fps_chunked": 0, "fps_bucketed": 0, "attention": 0,
+        "query_ball": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -282,6 +290,9 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     lambda x: fps_chunked(8, x, impl="cuda"),
     lambda x: fps_chunked_cuda(8, x),
     lambda x: attention(x, x, x, 1.0, impl="cuda"),
+    lambda x: knn_packed(4, x, x, impl="cuda"),
+    lambda x: knn_group(4, x, x, x, impl="cuda"),
+    lambda x: fps_bucketed(8, x, impl="cuda"),
 ])
 def test_wrappers_refuse_cuda_impl_on_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
