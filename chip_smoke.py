@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving and training paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py            # the whole run, one card
-    python3 chip_smoke.py --profile  # and where a request's and a train
-                                     # step's time goes
+    python3 chip_smoke.py --profile  # and where a request's, a train
+                                     # step's and a GAN step's time goes
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card's name and power limit (nvidia-smi) and the CUDA version;
@@ -21,7 +21,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      blocks; the turbo path's kernels at its shapes: the fused kNN + gather
      (backbone and refiner, turbo and exact; its distances and indices
      bit-equal to the kNN kernel's), the packed kNN selection (pass 2's
-     refiner) and the bucketed merge FPS (4×, 16×, two clouds);
+     refiner) and the bucketed merge FPS (4×, 16×, two clouds); the lite
+     FPS entry (the critic's seed shape and the 4× merge); the gather
+     kernel bit-equal to ``torch.gather`` and the scatter-add kernel
+     bit-equal run to run (and to the CPU's ``index_add_``) at the train
+     step's gather shapes; ``knn_group``'s backward rule at the backbone's
+     and the refiner's train shapes;
   4. drive each serving path at full GeneratorConfig() width from the
      port's own seeded init, on demo/gt/Icosahedron.xyz and
      demo/gt/fandisk.xyz, with the launch counts set to 0 just before each
@@ -39,9 +44,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      on one batch (the loss falls; ms per step), one step through the
      kernels against one through the plain versions (metrics, and a
      gradient at every parameter), and two 5-step runs that must agree
-     bit for bit; each run with exact launch counts.  Last, ``python -m
-     dispu_tpu_torch.cli --phase test --turbo true`` restores the
-     training's checkpoint and upsamples both demo clouds into files;
+     bit for bit; each run with exact launch counts; the same step with
+     ``gather_impl='pallas'`` (the gather pair) and with
+     ``fused_grouping`` (``knn_group`` and its backward rule), each
+     against the plain versions, repeated bit for bit, and timed beside
+     the default step.  ``python -m dispu_tpu_torch.cli --phase test
+     --turbo true`` restores the training's checkpoint and upsamples both
+     demo clouds into files.  Then GAN training at full width with
+     ``dispu.py --use_gan true``'s defaults: ``GANTrainer.train(epochs=2)``
+     with a bit-equal restore, 20 steps (ms per step), kernels against
+     plain versions (every generator and critic parameter), two bit-equal
+     5-step runs, the ``d_clip=0`` game and the critic's fused grouping,
+     each with exact launch counts; and the CLI's test phase on the GAN
+     log dir (its generator half);
   5. print one JSON line listing every kernel with its numbers;
   6. print {"ok": true, "device": {...}} as the last line.
 
@@ -803,6 +818,225 @@ def check_fps_bucketed(dev):
     return agg
 
 
+def check_fps_lite(dev):
+    """``fps_lite`` (``fps.cu`` under its own count) bit-equal to the plain
+    FPS at the critic's seed shape (28 clouds of 1024 points → 128) and at
+    the 4× merge (24,576 → 8,192).  No path calls it, as in the JAX
+    package; the aggregate is the critic's shape."""
+    import torch
+
+    from dispu_tpu_torch.kernels.fps import fps_lite, fps_torch
+
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    merged = torch.randn(1, 24576, 3, generator=gen)
+    merged[:, 20000:20100] = merged[:, :100]
+    cases = [("critic seeds", torch.randn(28, 1024, 3, generator=gen), 128),
+             ("4x merge", merged, 8192)]
+    agg = None
+    for label, xyz, npoint in cases:
+        xyz = xyz.contiguous().to(dev)
+        got = fps_lite(npoint, xyz, impl="cuda")
+        want, plain_ms = timed_once(lambda: fps_torch(npoint, xyz))
+        n_diff = int((got != want).sum())
+        require(n_diff == 0, f"fps_lite {label}: {n_diff} indices differ")
+        b, n, _ = xyz.shape
+        ms = timed_ms(lambda: fps_lite(npoint, xyz, impl="cuda"), reps=5)
+        nbytes = 12 * b * n + 4 * b * npoint
+        ops = 9 * b * n * (npoint - 1)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        log(f"fps_lite {label} (b={b} n={n} -> {npoint}): bit-equal; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        if agg is None:
+            agg = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                       t_ops=ops / F32_FLOPS, max_abs_err=0.0)
+    return agg
+
+
+# the gather pair's shapes in a train step at batch 28 with
+# gather_impl='pallas': (label, n, c, rows gathered per point, launches a
+# step): the backbone's first block (c 24) and its three later ones (c 48),
+# the refiner's combined [xyz | feature] gather (c 131)
+GATHER_CASES = [("backbone c24", 256, 24, 16, 1),
+                ("backbone c48", 256, 48, 16, 3),
+                ("refiner c131", 1024, 131, 16, 1)]
+# the scatter kernel against index_add_ on the card (another sum order):
+# |d| over each row's sum of |g|; f32 round-off of sums of a few to a few
+# dozen terms
+SCATTER_SUM_REL = 1e-6
+
+
+def _gather_inputs(gen, n, c, per_point, b=28):
+    import torch
+
+    table = torch.randn(b, n, c, generator=gen)
+    idx = torch.randint(0, n, (b, n * per_point), generator=gen,
+                        dtype=torch.int32)
+    idx[:, ::per_point] = torch.arange(n, dtype=torch.int32)  # self rows
+    return table, idx
+
+
+def check_gather_rows(dev):
+    """The gather kernel bit-equal to ``torch.gather`` at the train step's
+    shapes (``GATHER_CASES``); the aggregate is a train step's five
+    launches.  The library call is ``torch.gather`` itself, which is also
+    the plain version."""
+    import torch
+
+    from dispu_tpu_torch.kernels.gather_rows import (gather_rows_cuda,
+                                                     gather_rows_torch)
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    for label, n, c, per_point, per_step in GATHER_CASES:
+        table, idx = _gather_inputs(gen, n, c, per_point)
+        table, idx = table.to(dev), idx.to(dev)
+        got = gather_rows_cuda(table, idx)
+        torch.cuda.synchronize()
+        require(torch.equal(got, gather_rows_torch(table, idx)),
+                f"gather_rows {label}: rows differ from torch.gather")
+        b, q = idx.shape
+        flat = idx.long()[..., None].expand(-1, -1, c)
+        ms = timed_ms(lambda: gather_rows_cuda(table, idx), reps=20)
+        plain_ms = timed_ms(lambda: gather_rows_torch(table, idx), reps=20)
+        library_ms = timed_ms(lambda: torch.gather(table, 1, flat), reps=20)
+        nbytes = 4 * (b * n * c + b * q + b * q * c)
+        bms, by = bound(nbytes, 0, F32_FLOPS)
+        log(f"gather_rows {label} (b={b} n={n} c={c} q={q}): bit-equal to "
+            f"torch.gather; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.gather {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", library_ms), ("bound_ms", bms)):
+            agg[key] += per_step * val
+        agg["t_bytes"] += per_step * nbytes / HBM_BYTES_PER_S
+    return agg
+
+
+def check_scatter_rows(dev):
+    """The scatter kernel at the train step's shapes (the cotangents of
+    ``GATHER_CASES``): bit-equal run to run and to the CPU's sequential
+    ``index_add_``, and within ``SCATTER_SUM_REL`` of each row's sum of
+    |g| from ``index_add_`` on the card.  Plain: ``index_add_`` on the
+    card (atomics); library: ``scatter_add_`` under deterministic
+    algorithms (a sort, then ordered sums), the backward of
+    ``torch.gather`` that the CD step pays.  The aggregate is a train
+    step's five launches."""
+    import torch
+
+    from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
+                                                     scatter_rows_torch)
+    from dispu_tpu_torch.train.steps import deterministic
+
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    worst = 0.0
+    for label, n, c, per_point, per_step in GATHER_CASES:
+        _, idx = _gather_inputs(gen, n, c, per_point)
+        b, q = idx.shape
+        g_cpu = torch.randn(b, q, c, generator=gen)
+        g, idx = g_cpu.to(dev), idx.to(dev)
+        got = scatter_rows_cuda(g, idx, n)
+        again = scatter_rows_cuda(g, idx, n)
+        plain = scatter_rows_torch(g, idx, n)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again),
+                f"scatter_rows {label}: two runs differ")
+        require(torch.equal(got.cpu(), scatter_rows_torch(g_cpu, idx.cpu(),
+                                                          n)),
+                f"scatter_rows {label}: differs from the CPU's index_add_")
+        abs_sum = scatter_rows_torch(g.abs(), idx, n)
+        rel = float((torch.abs(got - plain) / abs_sum.clamp_min(1e-30))
+                    .max())
+        worst = max(worst, rel)
+        require(rel <= SCATTER_SUM_REL,
+                f"scatter_rows {label}: {rel} of the row sums from "
+                "index_add_")
+        ms = timed_ms(lambda: scatter_rows_cuda(g, idx, n), reps=20)
+        plain_ms = timed_ms(lambda: scatter_rows_torch(g, idx, n), reps=20)
+        flat = idx.long()[..., None].expand(-1, -1, c)
+        zeros = torch.zeros((b, n, c), device=dev)
+        with deterministic(dev):
+            library_ms = timed_ms(
+                lambda: zeros.clone().scatter_add_(1, flat, g), reps=20)
+        nbytes = 4 * (b * q * c + b * q + b * n * c)
+        bms, by = bound(nbytes, b * q * c, F32_FLOPS)
+        log(f"scatter_rows {label} (b={b} q={q} c={c} -> n={n}): bit-equal "
+            f"run to run and to the CPU's index_add_; vs index_add_ on the "
+            f"card {rel:.2e} of the row sums of |g| (bound "
+            f"{SCATTER_SUM_REL}); kernel {ms:.4f} ms, index_add_ "
+            f"{plain_ms:.4f} ms, deterministic scatter_add_ {library_ms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", library_ms), ("bound_ms", bms)):
+            agg[key] += per_step * val
+        agg["t_bytes"] += per_step * nbytes / HBM_BYTES_PER_S
+        agg["t_ops"] += per_step * b * q * c / F32_FLOPS
+        agg["max_abs_err"] = max(agg["max_abs_err"],
+                                 float(torch.abs(got - plain).max()))
+    return agg
+
+
+# KnnGroupFunction's backward against autograd of the plain distance and
+# gathers at the kernel's indices: max |d| over each gradient's max |g|
+KNN_GROUP_BWD_REL = 1e-5
+
+
+def check_knn_group_backward(dev):
+    """``KnnGroupFunction``'s backward rule (its gather transposes through
+    the scatter kernel) at the train step's shapes: the backbone's aliased
+    call (28, 256, c 48, k 16, drop_first, duplicate bias) and the
+    refiner's (28 × 1024 points and queries, 128 features, with xyz),
+    against autograd of the plain distances and gathers at the kernel's
+    own indices (the rule holds the selection fixed)."""
+    import torch
+
+    from dispu_tpu_torch.kernels.knn_group import knn_group, rows_at
+    from dispu_tpu_torch.ops.knn import mask_duplicate_rows
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(28, 256, 48, generator=gen)
+    x[:, -8:] = x[:, :8]
+    cases = [("backbone c48", x, None, True),
+             ("refiner", torch.randn(28, 1024, 3, generator=gen),
+              torch.randn(28, 1024, 128, generator=gen), False)]
+    for label, pts, feats, drop in cases:
+        with_xyz = feats is not None
+
+        def leaves():
+            p = pts.to(dev).requires_grad_(True)
+            f = p if feats is None else feats.to(dev).requires_grad_(True)
+            return p, f, [p] if f is p else [p, f]
+
+        p, f, uniq = leaves()
+        bias = (mask_duplicate_rows(p.detach()).float() * 1e30 if drop
+                else None)
+        d, idx, gx, gf = knn_group(16, p, p, f, bias, with_xyz=with_xyz,
+                                   drop_first=drop, impl="cuda")
+        outs = [t for t in (d, gx, gf) if t is not None]
+        cots = [torch.randn(t.shape, generator=gen).to(dev) for t in outs]
+
+        def backward():
+            return torch.autograd.grad(outs, uniq, cots, retain_graph=True)
+
+        got = backward()
+        bwd_ms = timed_ms(backward, reps=5)
+        p, f, uniq2 = leaves()
+        nbr = rows_at(p, idx)
+        ref = [torch.sum((p[:, :, None, :] - nbr) ** 2, dim=-1)]
+        ref += ([nbr] if with_xyz else []) + [rows_at(f, idx)]
+        want = torch.autograd.grad(ref, uniq2, cots)
+        rels = [float((a - w).abs().max() / w.abs().max())
+                for a, w in zip(got, want)]
+        require(max(rels) <= KNN_GROUP_BWD_REL,
+                f"knn_group backward {label}: {rels}")
+        log(f"knn_group backward {label}: gradients vs autograd of the plain "
+            f"version at the kernel's indices, max|d|/max|g| "
+            f"{['%.2e' % r for r in rels]} (bound {KNN_GROUP_BWD_REL}); "
+            f"backward {bwd_ms:.4f} ms")
+
+
 # --------------------------------------------------------------- phase 4
 
 
@@ -1162,15 +1396,16 @@ def serve_turbo(card: str):
     return total
 
 
-def cli_phase(card: str, log_dir: str):
-    """``python -m dispu_tpu_torch.cli --phase test --turbo true`` on the
-    two demo clouds, restoring the training phase's checkpoint from
-    ``log_dir``: both output files exist with n·4 finite rows."""
+def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),
+              name: str = "cli_smoke"):
+    """``python -m dispu_tpu_torch.cli --phase test`` with ``flags`` on the
+    two demo clouds, restoring the newest checkpoint in ``log_dir``: both
+    output files exist with n·4 finite rows."""
     import shutil
 
     import numpy as np
 
-    work = os.path.join(REPO, "chiprun_out", "cli_smoke")
+    work = os.path.join(REPO, "chiprun_out", name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(os.path.join(work, "in"))
     names = ("Icosahedron", "fandisk")
@@ -1178,7 +1413,7 @@ def cli_phase(card: str, log_dir: str):
         shutil.copy(os.path.join(REPO, "demo", "gt", f"{name}.xyz"),
                     os.path.join(work, "in"))
     cmd = [sys.executable, "-m", "dispu_tpu_torch.cli", "--phase", "test",
-           "--turbo", "true", "--log_dir", log_dir, "--test_data",
+           *flags, "--log_dir", log_dir, "--test_data",
            os.path.join(work, "in", "*.xyz"), "--out_folder",
            os.path.join(work, "out")]
     t0 = time.perf_counter()
@@ -1194,7 +1429,7 @@ def cli_phase(card: str, log_dir: str):
         rows = np.loadtxt(path, dtype=np.float32)
         require(rows.shape == (n * 4, 3) and np.isfinite(rows).all(),
                 f"cli output {path}: {rows.shape}")
-    log(f"cli --phase test --turbo true: restored {log_dir}, wrote "
+    log(f"cli --phase test {' '.join(flags)}: restored {log_dir}, wrote "
         f"{', '.join(f'{n}_X4.xyz' for n in names)} ({seconds:.1f} s with "
         f"the process's start) on {card}")
 
@@ -1203,19 +1438,69 @@ def cli_phase(card: str, log_dir: str):
 
 
 def expected_train_counts(cfg) -> dict:
-    """Kernel launches of one train step, from the configuration: a
-    feature-space kNN in each dense block and the refiner's xyz kNN; the
-    chamfer argmin of both directions of the four Chamfer/Hausdorff terms
-    (kNN at k = 1: 64 ≤ points ≤ 4096); the NL cell's attention (maps of
-    at least 512²); one ball query for the repulsion loss."""
+    """Kernel launches of one CD train step, from the configuration and
+    the JAX package's gates: a feature-space kNN in each dense block and
+    the refiner's xyz kNN, each the fused ``knn_group`` with
+    ``fused_grouping`` inside its gate (backbone 64 ≤ n ≤ 2048, refiner
+    n ≤ 2048); the chamfer argmin of both directions of the four
+    Chamfer/Hausdorff terms (kNN at k = 1: 64 ≤ points ≤ 4096); the NL
+    cell's attention (maps of at least 512²); one ball query for the
+    repulsion loss.  With ``gather_impl='pallas'`` each block's and the
+    refiner's gather inside ``gather_fits`` runs the gather kernel
+    forward and the scatter kernel backward; the fused kernel's backward
+    scatters the features (and, in the refiner, the xyz)."""
+    import torch
+
     from dispu_tpu_torch import kernels
+    from dispu_tpu_torch.models.generator import DisPUGenerator
+    from dispu_tpu_torch.ops.grouping import gather_fits
 
     g, n_out = cfg.generator, cfg.generator.num_out_points
+    n_in = g.num_points
     argmin = 8 if 64 <= n_out <= 4096 else 0
     nl = g.refine and g.use_nonlocal and n_out * n_out >= 512 * 512
+    fused_bb = g.fused_grouping and 64 <= n_in <= 2048 and g.knn + 1 <= 128
+    fused_ref = g.fused_grouping and g.refine and n_out <= 2048
+    model = DisPUGenerator(g, impl="torch")
+    widths = [model.feature_extraction_coarse.layer1.l0.dense.in_features
+              // 2]
+    widths += [getattr(model.feature_extraction_coarse, f"layer{i}_prep")
+               .features for i in range(2, g.dense_block + 1)]
+    gathers = 0
+    if g.gather_impl == "pallas" and not g.fused_grouping:
+        gathers = sum(gather_fits(torch.empty(0, n_in, w)) for w in widths)
+        if g.refine:
+            c = model.PointShuffle.skip.dense.in_features - 6
+            gathers += int(gather_fits(torch.empty(0, n_out, 3 + c)))
     return dict(dict.fromkeys(kernels.LAUNCHES, 0),
-                knn=g.dense_block + int(g.refine) + argmin,
-                attention=int(nl), query_ball=int(cfg.loss.use_repulsion))
+                knn=(g.dense_block * (not fused_bb)
+                     + int(g.refine and not fused_ref) + argmin),
+                knn_group=g.dense_block * fused_bb + int(fused_ref),
+                attention=int(nl), query_ball=int(cfg.loss.use_repulsion),
+                gather_rows=gathers,
+                scatter_rows=(gathers + g.dense_block * fused_bb
+                              + 2 * fused_ref))
+
+
+def expected_gan_counts(cfg) -> dict:
+    """Kernel launches of one GAN step: the CD step's
+    (``expected_train_counts``), the critic's geometry once (an FPS for
+    the seeds, a kNN for each of gt and pred at each of the three scales,
+    each a ``knn_group`` with the critic's ``fused_grouping`` at clouds of
+    at most 2048 points; ball queries with ``knn=False``), again for a
+    pooled fake with ``fake_pool_size``, and the ``uniform`` metric (an
+    FPS, and a ball query and a kNN for each of its five disk sizes)."""
+    d, n_out = cfg.discriminator, cfg.generator.num_out_points
+    counts = expected_train_counts(cfg)
+    times = 2 if cfg.train.fake_pool_size > 0 else 1
+    scales = 2 * len(d.nsample_list)
+    kind = ("knn_group" if d.fused_grouping and d.knn and n_out <= 2048
+            else "knn" if d.knn else "query_ball")
+    counts["fps"] += times + 1
+    counts[kind] += times * scales
+    counts["query_ball"] += 5
+    counts["knn"] += 5
+    return counts
 
 
 def _grads(model) -> dict:
@@ -1223,6 +1508,52 @@ def _grads(model) -> dict:
 
     return {n: (p.grad if p.grad is not None else torch.zeros_like(p)
                 ).detach().clone() for n, p in model.named_parameters()}
+
+
+def compare_steps(label, m_k, g_k, m_p, g_p, extra="", metric_floor=0.0):
+    """One step through the kernels against one through the plain
+    versions: metrics within ``TRAIN_METRIC_REL`` (of the larger of the
+    metric and ``metric_floor`` of the largest one), gradients within
+    ``TRAIN_GRAD_REL`` of each leaf's largest, and every parameter with a
+    gradient on the plain path has one through the kernels."""
+    floor = max(1e-12, metric_floor * max(abs(float(v)) for v in m_p.values()))
+    metric_rel = max(abs(float(m_k[k]) - float(m_p[k]))
+                     / max(abs(float(m_p[k])), floor) for k in m_p)
+    top = max(float(g.abs().max()) for g in g_p.values())
+    grad_rel = max(float((g_k[n] - g_p[n]).abs().max())
+                   / max(float(g_p[n].abs().max()), 1e-3 * top)
+                   for n in g_p)
+    dead = sorted(n for n in g_p if bool(g_p[n].abs().max() > 0)
+                  and not bool(g_k[n].abs().max() > 0))
+    log(f"{label}: one step, kernels vs plain versions on the card: "
+        f"metrics max rel {metric_rel:.3e} (bound {TRAIN_METRIC_REL}), "
+        f"gradients max |d| / leaf max {grad_rel:.3e} (bound "
+        f"{TRAIN_GRAD_REL}); {len(g_p)} parameters, gradient zero through "
+        f"the kernels only at {dead}{extra}")
+    require(not dead, f"{label}: no gradient through the kernels at {dead}")
+    require(metric_rel <= TRAIN_METRIC_REL,
+            f"{label}: metrics differ {metric_rel}")
+    require(grad_rel <= TRAIN_GRAD_REL,
+            f"{label}: gradients differ {grad_rel}")
+
+
+def require_repeatable(label, make_modules):
+    """Two runs from the same state and seed give bit-equal tensors;
+    ``make_modules`` runs once and returns the module (or modules) to
+    compare."""
+    import torch
+
+    def tensors():
+        mods = make_modules()
+        mods = mods if isinstance(mods, tuple) else (mods,)
+        return [t for m in mods for t in m.state_dict().values()]
+
+    a, b = tensors(), tensors()
+    n_diff = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    log(f"{label}: two runs of 5 steps, tensors that differ: {n_diff} of "
+        f"{len(a)}")
+    require(n_diff == 0, f"{label}: repeated training differs in {n_diff} "
+            "tensors")
 
 
 def train_phase(card: str, profile: bool):
@@ -1291,10 +1622,10 @@ def train_phase(card: str, profile: bool):
     gt = torch.from_numpy(dataset.gt[:bs]).cuda()
     radius = torch.from_numpy(dataset.radius[:bs]).cuda()
 
-    def run(impl, steps, seed=0, times=None):
-        st = create_generator_state(cfg.generator, seed=0, impl=impl,
+    def run(impl, steps, seed=0, times=None, c=cfg):
+        st = create_generator_state(c.generator, seed=0, impl=impl,
                                     device="cuda")
-        step = make_train_step(cfg, impl=impl)
+        step = make_train_step(c, impl=impl)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         totals = []
         for _ in range(steps):
@@ -1329,38 +1660,289 @@ def train_phase(card: str, profile: bool):
     g_k = _grads(st_k.model)
     st_p, _, m_p = run("torch", 1)
     g_p = _grads(st_p.model)
-    metric_rel = max(abs(float(m_k[k]) - float(m_p[k]))
-                     / max(abs(float(m_p[k])), 1e-12) for k in m_p)
-    top = max(float(g.abs().max()) for g in g_p.values())
-    grad_rel = max(float((g_k[n] - g_p[n]).abs().max())
-                   / max(float(g_p[n].abs().max()), 1e-3 * top)
-                   for n in g_p)
-    dead = sorted(n for n in g_p if bool(g_p[n].abs().max() > 0)
-                  and not bool(g_k[n].abs().max() > 0))
-    log(f"training: one step, kernels vs plain versions on the card: "
-        f"metrics max rel {metric_rel:.3e} (bound {TRAIN_METRIC_REL}), "
-        f"gradients max |d| / leaf max {grad_rel:.3e} (bound "
-        f"{TRAIN_GRAD_REL}); {len(g_p)} parameters, gradient zero through "
-        f"the kernels only at {dead}; NL cell conv_kv / conv_query max|g| "
-        + ", ".join("%.3e" % float(g_k[n].abs().max()) for n in g_k
-                    if "nonlocal.conv_kv.dense.weight" in n
-                    or "nonlocal.conv_query.dense.weight" in n))
-    require(not dead, f"no gradient through the kernels at {dead}")
-    require(metric_rel <= TRAIN_METRIC_REL, f"metrics differ {metric_rel}")
-    require(grad_rel <= TRAIN_GRAD_REL, f"gradients differ {grad_rel}")
+    compare_steps("training", m_k, g_k, m_p, g_p, extra=(
+        "; NL cell conv_kv / conv_query max|g| " + ", ".join(
+            "%.3e" % float(g_k[n].abs().max()) for n in g_k
+            if "nonlocal.conv_kv.dense.weight" in n
+            or "nonlocal.conv_query.dense.weight" in n)))
 
     # (d) two runs of 5 steps from the same state and seed: bit-equal
-    runs = [run("auto", 5, seed=3)[0] for _ in range(2)]
-    sd = [r.model.state_dict() for r in runs]
-    n_diff = sum(not torch.equal(sd[0][k], sd[1][k]) for k in sd[0])
-    log(f"training: two runs of 5 steps, tensors that differ: {n_diff} of "
-        f"{len(sd[0])}")
-    require(n_diff == 0, f"repeated training differs in {n_diff} tensors")
+    require_repeatable("training", lambda: run("auto", 5, seed=3)[0].model)
+
+    # (e) the gather kernels' setting and the fused kNN + gather: exact
+    # launch counts of a step through the kernels, then that step against
+    # the plain versions, two bit-equal 5-step runs, and ms per warm step
+    # beside the default step's, in turns
+    variants = {"default": cfg}
+    for name, kw in (("gather_impl=pallas", dict(gather_impl="pallas")),
+                     ("fused_grouping", dict(fused_grouping=True))):
+        vcfg = dataclasses.replace(cfg, generator=dataclasses.replace(
+            cfg.generator, **kw))
+        variants[name] = vcfg
+        kernels.reset_launch_counts()
+        st_k, _, m_k = run("auto", 1, c=vcfg)
+        counts = kernels.launch_counts()
+        want = expected_train_counts(vcfg)
+        log(f"training, {name}: launches of one step {counts} (expected "
+            f"{want})")
+        require(counts == want, f"{name} train launch counts {counts}")
+        total_counts = add_counts(total_counts, counts)
+        st_p, _, m_p = run("torch", 1, c=vcfg)
+        compare_steps(f"training, {name}", m_k, _grads(st_k.model), m_p,
+                      _grads(st_p.model))
+        kernels.reset_launch_counts()
+        require_repeatable(f"training, {name}",
+                           lambda: run("auto", 5, seed=3, c=vcfg)[0].model)
+        total_counts = add_counts(total_counts, kernels.launch_counts())
+    laps = {name: [] for name in variants}
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        for name, vcfg in variants.items():
+            times = []
+            run("auto", 8, times=times, c=vcfg)
+            laps[name] += times[1:]
+    total_counts = add_counts(total_counts, kernels.launch_counts())
+    log("training: ms per warm step at batch 28, two turns of 7 each: "
+        + "; ".join(f"{name} median {statistics.median(t):.3f} (min "
+                    f"{min(t):.3f}, max {max(t):.3f})"
+                    for name, t in laps.items()) + f"; on {card}")
 
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s on {card}")
     if profile:
         profile_train_step(cfg, gt, radius)
     return total_counts
+
+
+# one GAN step through the kernels vs through the plain versions: the CD
+# step's limits, each metric against the larger of itself and this share
+# of the largest metric (the critic's gap and variance lie near zero)
+GAN_METRIC_FLOOR = 1e-3
+
+
+def gan_phase(card: str, profile: bool):
+    """GAN training at full GeneratorConfig() and DiscriminatorConfig()
+    width with ``dispu.py --use_gan true``'s defaults (``cli.build_config``:
+    d_clip 0.01, gen_update 2, base_lr_d 1e-4), batch 28, on
+    synthetic_patches, from the port's seeded init: ``GANTrainer.train
+    (epochs=2)`` with a bit-equal checkpoint restore, 20 steps on one
+    batch (ms per step), one step through the kernels against one through
+    the plain versions (every generator and critic parameter with a
+    gradient), two bit-equal 5-step runs, the ``d_clip=0, gen_update=2``
+    game over three steps (the critic trains, holds, trains), one step
+    with the critic's ``fused_grouping`` and two with a fake pool; each
+    with exact launch counts."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import cli, kernels
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+    from dispu_tpu_torch.train.gan_trainer import GANTrainer
+    from dispu_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                  restore_checkpoint)
+    from dispu_tpu_torch.utils.visu import PointPool
+
+    t_phase = time.perf_counter()
+    log_dir = os.path.join(REPO, "chiprun_out", "gan_smoke")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    base = cli.build_config(cli.parse_args(
+        ["--phase", "train", "--use_gan", "true", "--log_dir", log_dir]))
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, epoch_per_save=1, steps_per_print=2))
+    bs = cfg.train.batch_size
+    per_step = expected_gan_counts(cfg)
+    dataset = PatchDataset(h5_path=os.path.join(log_dir, "absent.h5"),
+                           synthetic_patches_count=3 * bs, seed=0)
+
+    def tensors(st):
+        return ([*st.gen.model.state_dict().values(), *st.gen.mu.values(),
+                 *st.gen.nu.values(), *st.disc.state_dict().values(),
+                 *st.d_mu.values(), *st.d_nu.values()])
+
+    # (a) GANTrainer: 2 epochs of 3 steps, logs and checkpoints
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = GANTrainer(cfg, dataset=dataset).train(epochs=2)
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = add_counts({}, per_step, 6)
+    log(f"GAN training: GANTrainer.train(epochs=2), 6 steps of batch {bs}, "
+        f"{trainer_s:.2f} s with set-up; launches {counts} (expected "
+        f"{expected})")
+    require(counts == expected, f"GAN launch counts {counts}")
+    total_counts = counts
+    epoch, path = latest_checkpoint(log_dir)
+    require(epoch == 2, f"no GAN checkpoint of epoch 2 in {log_dir}")
+    back = restore_checkpoint(path, create_gan_state(cfg, seed=11,
+                                                     device="cuda"))
+    require(all(torch.equal(a, b) for a, b in zip(tensors(state),
+                                                  tensors(back)))
+            and (back.gen.count, back.d_count, back.step)
+            == (state.gen.count, state.d_count, state.step),
+            "restored GAN checkpoint differs")
+    for line in open(os.path.join(log_dir, "log_train.txt")):
+        log("  " + line.rstrip())
+
+    gt = torch.from_numpy(dataset.gt[:bs]).cuda()
+    radius = torch.from_numpy(dataset.radius[:bs]).cuda()
+
+    def run(impl, steps, seed=0, times=None, c=cfg):
+        st = create_gan_state(c, seed=0, impl=impl, device="cuda")
+        step = make_gan_train_step(c, impl=impl)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        totals = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step(st, gt, radius, gen)
+            totals.append(float(m["total"]))  # a host fetch: synchronized
+            if times is not None:
+                times.append((time.perf_counter() - t) * 1e3)
+        return st, totals, m
+
+    def grads(st):
+        out = {f"generator.{n}": g for n, g in _grads(st.gen.model).items()}
+        out.update({f"critic.{n}": g for n, g in _grads(st.disc).items()})
+        return out
+
+    # (b) 20 steps on one fixed batch: ms per warm step
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _, totals, m = run("auto", 20, times=times)
+    counts = kernels.launch_counts()
+    require(counts == add_counts({}, per_step, 20),
+            f"GAN launch counts over 20 steps {counts}")
+    total_counts = add_counts(total_counts, counts)
+    warm = times[1:]
+    log(f"GAN training: 20 steps on one batch: total {totals[0]:.4f} -> "
+        f"{totals[-1]:.4f}, d_loss {float(m['d_loss']):.4f}, g_gan "
+        f"{float(m['g_gan']):.4f}, d_clip_frac {float(m['d_clip_frac']):.4f}"
+        f"; launches {counts}; ms per warm step: median "
+        f"{statistics.median(warm):.3f} (min {min(warm):.3f}, max "
+        f"{max(warm):.3f}, first step {times[0]:.1f}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; on {card}")
+    require(np.isfinite(totals).all() and totals[-1] < totals[0],
+            f"GAN loss did not fall: {totals}")
+
+    # (c) one step through the kernels and through the plain versions
+    st_k, _, m_k = run("cuda", 1)
+    st_p, _, m_p = run("torch", 1)
+    compare_steps("GAN training", m_k, grads(st_k), m_p, grads(st_p),
+                  metric_floor=GAN_METRIC_FLOOR)
+
+    # (d) two runs of 5 steps from the same state and seed: bit-equal
+    kernels.reset_launch_counts()
+    require_repeatable("GAN training", lambda: (
+        lambda st: (st.gen.model, st.disc))(run("auto", 5, seed=3)[0]))
+    total_counts = add_counts(total_counts, kernels.launch_counts())
+
+    # (e) the d_clip = 0 game (the critic trains at step 0, holds at step
+    # 1) and the critic's fused kNN + gather, each with exact counts
+    game = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, d_clip=0.0, gen_update=2))
+    st = create_gan_state(game, seed=0, device="cuda")
+    step = make_gan_train_step(game)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels.reset_launch_counts()
+    snaps = []
+    for _ in range(3):
+        snaps.append([p.detach().clone() for p in st.disc.parameters()])
+        st, m = step(st, gt, radius, gen)
+    snaps.append([p.detach().clone() for p in st.disc.parameters()])
+    counts = kernels.launch_counts()
+    require(counts == add_counts({}, expected_gan_counts(game), 3),
+            f"d_clip=0 game launch counts {counts}")
+    total_counts = add_counts(total_counts, counts)
+    moved = [any(not torch.equal(a, b) for a, b in zip(x, y))
+             for x, y in zip(snaps, snaps[1:])]
+    log(f"GAN training, d_clip=0 gen_update=2: the critic moved at steps "
+        f"{[i for i, mv in enumerate(moved) if mv]} of 0..2 (d_count "
+        f"{st.d_count}), d_clip_frac {float(m['d_clip_frac'])}, d_gap "
+        f"{float(m['d_gap']):.4e}; launches {counts}")
+    require(moved == [True, False, True] and st.d_count == 2,
+            f"gen_update game: critic moved at {moved}")
+    fused = dataclasses.replace(cfg, discriminator=dataclasses.replace(
+        cfg.discriminator, fused_grouping=True))
+    kernels.reset_launch_counts()
+    st_k, _, m_k = run("auto", 1, c=fused)
+    counts = kernels.launch_counts()
+    require(counts == expected_gan_counts(fused),
+            f"fused critic launch counts {counts}")
+    total_counts = add_counts(total_counts, counts)
+    st_p, _, m_p = run("torch", 1, c=fused)
+    compare_steps("GAN training, critic fused_grouping", m_k, grads(st_k),
+                  m_p, grads(st_p), metric_floor=GAN_METRIC_FLOOR,
+                  extra=f"; launches {counts}")
+    # (f) the fake pool's host round trip: two steps with a pool of one
+    # batch (the first fills it, the second may swap), each with the
+    # critic's geometry of the pooled fake as well
+    pooled = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, fake_pool_size=1))
+    kernels.reset_launch_counts()
+    pool = PointPool(1, rng=np.random.RandomState(cfg.train.seed))
+    st = create_gan_state(pooled, seed=0, device="cuda")
+    step = make_gan_train_step(pooled, fake_pool=pool)
+    for _ in range(2):
+        st, m = step(st, gt, radius, gen)
+    counts = kernels.launch_counts()
+    require(counts == add_counts({}, expected_gan_counts(pooled), 2)
+            and len(pool.points) == 1 and np.isfinite(float(m["total"])),
+            f"fake pool launch counts {counts}")
+    total_counts = add_counts(total_counts, counts)
+    log(f"GAN training, fake_pool_size=1: two steps, launches {counts}")
+    log(f"GAN phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    if profile:
+        profile_gan_step(cfg, gt, radius)
+    return total_counts, log_dir
+
+
+def profile_gan_step(cfg, gt, radius):
+    """Device time by kernel and the idle share of one warm GAN step under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+
+    st = create_gan_state(cfg, device="cuda")
+    step = make_gan_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(2):
+        step(st, gt, radius, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(st, gt, radius, gen)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(st, gt, radius, gen)
+        torch.cuda.synchronize()
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(evt.name, (0.0, 0))
+            by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3,
+                                 n + 1)
+    if not by_name:
+        log("profiler: no device time traced")
+        return
+    busy = sum(ms for ms, _ in by_name.values())
+    log(f"profiled GAN step: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+        f"wall (unprofiled), idle share {1 - busy / wall_ms:.3f}; "
+        f"{sum(n for _, n in by_name.values())} device kernels")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:20]:
+        log(f"  {ms:9.3f} ms  x{n:4d}  {name[:110]}")
 
 
 def profile_train_step(cfg, gt, radius):
@@ -1555,7 +2137,11 @@ def main() -> int:
             "fps_chunked": check_fps_chunked(dev),
             "fps_bucketed": check_fps_bucketed(dev),
             "attention": check_attention(dev),
-            "query_ball": check_query_ball(dev)}
+            "query_ball": check_query_ball(dev),
+            "fps_lite": check_fps_lite(dev),
+            "gather_rows": check_gather_rows(dev),
+            "scatter_rows": check_scatter_rows(dev)}
+    check_knn_group_backward(dev)
     train_knn = [TRAIN_KNN_MS[k] for k in ("train bb c24", "train bb c48",
                                            "train refiner", "chamfer k1")]
     log(f"kernel ms per train step, by the phase-3 timings: knn "
@@ -1571,6 +2157,9 @@ def main() -> int:
     counts = add_counts(counts, serve_turbo(card))
     counts = add_counts(counts, train_phase(card, args.profile))
     cli_phase(card, os.path.join(REPO, "chiprun_out", "train_smoke"))
+    gan_counts, gan_dir = gan_phase(card, args.profile)
+    counts = add_counts(counts, gan_counts)
+    cli_phase(card, gan_dir, ("--use_gan", "true"), "cli_gan_smoke")
     if args.profile:
         import dataclasses
 
@@ -1591,7 +2180,10 @@ def main() -> int:
     # request: a 4x request for knn, fps and attention, a 16x request for
     # fps_chunked (its one launch there); a 4x turbo request for knn_group
     # and fps_bucketed, a 16x turbo request for knn_packed (its one launch
-    # there); per train step for query_ball
+    # there); per train step for query_ball, and for gather_rows and
+    # scatter_rows with gather_impl='pallas' (five launches each); the
+    # critic's seed FPS (28 x 1024 -> 128) for fps_lite, which no path
+    # calls
     meta = {
         "knn": ("dispu_tpu_torch/kernels/csrc/knn.cu",
                 "dispu_tpu/ops/pallas_kernels.py:867"),
@@ -1611,6 +2203,12 @@ def main() -> int:
                       "dispu_tpu/ops/pallas_kernels.py:2221"),
         "query_ball": ("dispu_tpu_torch/kernels/csrc/query_ball.cu",
                        "dispu_tpu/ops/pallas_kernels.py:1098"),
+        "fps_lite": ("dispu_tpu_torch/kernels/csrc/fps.cu",
+                     "dispu_tpu/ops/pallas_kernels.py:211"),
+        "gather_rows": ("dispu_tpu_torch/kernels/csrc/gather_rows.cu",
+                        "dispu_tpu/ops/pallas_kernels.py:1265"),
+        "scatter_rows": ("dispu_tpu_torch/kernels/csrc/gather_rows.cu",
+                         "dispu_tpu/ops/pallas_kernels.py:1365"),
     }
     line = []
     for name, (source, replaces) in meta.items():

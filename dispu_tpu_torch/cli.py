@@ -6,15 +6,18 @@ so one command line gives the same configuration in both packages.
 bf16 gathers, the packed-key kNN selection, the fused kNN + gather
 kernel, the part-split dense EdgeConv and the bucketed merge FPS.
 ``--device`` (default ``cuda``) is the port's own; ``--device cpu`` runs
-the kernels' plain versions.
+the kernels' plain versions.  ``--use_gan true`` trains the generator
+against the PointNet++ critic (``GANTrainer``); the test phase restores
+the generator of a CD or a GAN checkpoint alike.
 
     python -m dispu_tpu_torch.cli --phase train --synthetic 84 --epochs 2
+    python -m dispu_tpu_torch.cli --phase train --use_gan true \\
+        --synthetic 84 --epochs 2 --d_clip 0
     python -m dispu_tpu_torch.cli --phase test --log_dir log \\
         --test_data 'demo/gt/*.xyz' --turbo true --out_folder outputs
 
 Not ported (``NotImplementedError``, naming the ROADMAP.md item):
-``--use_gan true`` and GAN checkpoints (the GAN stack), ``--phase
-export`` (``serving.py``).
+``--phase export`` (``serving.py``).
 """
 
 from __future__ import annotations
@@ -160,13 +163,9 @@ def build_config(args):
     )
 
 
-def _gan_unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1: the GAN stack)")
-
-
 def run_train(args, cfg):
     from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.gan_trainer import GANTrainer
     from dispu_tpu_torch.train.trainer import Trainer
 
     dataset = None
@@ -175,13 +174,15 @@ def run_train(args, cfg):
             h5_path=cfg.data.h5_path, num_point=cfg.data.num_point,
             up_ratio=cfg.data.up_ratio,
             synthetic_patches_count=args.synthetic, seed=args.seed)
-    return Trainer(cfg, dataset=dataset, device=args.device).train(
+    trainer = GANTrainer if cfg.use_gan else Trainer
+    return trainer(cfg, dataset=dataset, device=args.device).train(
         restore=args.restore, epochs=args.epochs)
 
 
 def restore_generator_weights(cfg, device):
     """The generator's ``state_dict`` from the newest checkpoint in the log
-    dir (``model-<epoch>.pt``, written by the port's ``Trainer``)."""
+    dir (``model-<epoch>.pt``, written by the port's ``Trainer``, or by
+    its ``GANTrainer``, whose generator half is taken)."""
     import torch
 
     from dispu_tpu_torch.utils.checkpoint import latest_checkpoint
@@ -191,10 +192,13 @@ def restore_generator_weights(cfg, device):
         raise SystemExit(f"no checkpoint found in {cfg.log_dir}")
     logging.info("restoring %s (epoch %d)", path, epoch)
     saved = torch.load(path, map_location=device, weights_only=True)
-    if "model" not in saved:
-        _gan_unported(f"restoring {path} (not a CD training state: a GAN "
-                      "checkpoint)")
-    return saved["model"]
+    if "model" in saved:
+        return saved["model"]
+    if "model" not in saved.get("gen", {}):
+        raise ValueError(f"{path} holds neither a CD training state nor a "
+                         "GAN checkpoint's generator half")
+    logging.info("restored the generator half of a GAN checkpoint")
+    return saved["gen"]["model"]
 
 
 def run_test(args, cfg):
@@ -241,9 +245,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     cfg = build_config(args)
-    if cfg.use_gan:
-        _gan_unported("--use_gan true (adversarial training and its "
-                      "checkpoints)")
     if args.phase == "export":
         raise NotImplementedError(
             "--phase export is not ported yet (ROADMAP.md, queue 1: "

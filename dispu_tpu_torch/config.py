@@ -37,8 +37,9 @@ class GeneratorConfig:
     fast_gather: bool = False           # turbo: bf16 refiner gathers
     fast_gather_backbone: bool = False  # turbo: bf16 backbone gathers
     fast_knn: bool = False              # turbo: packed-key kNN selection
-    # exact neighborhood gather; every exact choice is a plain index
-    # gather here ('gather', 'onehot_hp', 'onehot3', 'pallas')
+    # exact neighborhood gather: 'pallas' runs the gather kernel and its
+    # scatter-add backward; 'gather', 'onehot_hp', 'onehot3' are a plain
+    # index gather here
     gather_impl: str = "onehot_hp"
     fused_grouping: bool = False        # fused kNN+gather kernel (opt-in)
     refine_local_impl: str = "xla"      # 'xla' | 'fused' | 'megafused'
@@ -70,8 +71,7 @@ class InferenceConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DiscriminatorConfig:
-    """PointNet++-MSG patch critic (the GAN slice; carried for the
-    experiment config's shape)."""
+    """PointNet++-MSG patch critic (``models/discriminator.py``)."""
 
     divide_ratio: int = 2
     knn: bool = True
@@ -244,10 +244,13 @@ def check_supported(gen_cfg: GeneratorConfig,
 
 def check_train_supported(cfg: ExperimentConfig) -> None:
     """Raise ``NotImplementedError`` for training settings outside the
-    ported slice (CD training, one device, f32), naming the ROADMAP.md
-    queue item that will bring each.  The turbo generator flags serve
-    only: training through the fused kernel needs its backward rule,
-    which comes with the GAN slice."""
+    ported slice, naming the ROADMAP.md queue item that will bring each.
+
+    Ported: CD and GAN training (``use_gan``, ``fake_pool_size``) on one
+    device in f32, with any exact ``gather_impl`` ('pallas' through the
+    gather and scatter-add kernels) or with ``fused_grouping`` alone (the
+    ``knn_group`` kernel and its backward rule), for the generator and
+    the critic.  The other turbo flags serve only."""
     check_supported(cfg.generator)
     g, turbo = cfg.generator, "turbo and opt-in paths"
     if g.fast_knn:
@@ -255,18 +258,10 @@ def check_train_supported(cfg: ExperimentConfig) -> None:
     if g.fast_gather or g.fast_gather_backbone:
         _unsupported("training with fast_gather / fast_gather_backbone",
                      turbo)
-    if g.fused_grouping:
-        _unsupported("training through the fused kNN + gather kernel "
-                     "(its backward rule)", "the GAN stack")
     if g.dense_impl != "concat":
         _unsupported(f"training with dense_impl={g.dense_impl!r}", turbo)
     if g.gather_impl not in EXACT_GATHERS:
         _unsupported(f"training with gather_impl={g.gather_impl!r}", turbo)
-    gan = "the GAN stack"
-    if cfg.use_gan:
-        _unsupported("use_gan (adversarial training)", gan)
-    if cfg.train.fake_pool_size > 0:
-        _unsupported("fake_pool_size > 0 (the critic's history pool)", gan)
     if cfg.train.remat:
         _unsupported("remat", turbo)
     if cfg.train.compute_dtype != "float32":

@@ -1,4 +1,5 @@
-"""Load a flax variable tree, or a whole JAX training state, into the port.
+"""Load a flax variable tree, or a whole JAX training state (CD or GAN),
+into the port.
 
 The JAX package's variables are ``{'params': ..., 'batch_stats': ...}``
 nested by module scope.  The port names its submodules by the same scopes,
@@ -117,4 +118,23 @@ def from_jax_state(state, jax_state):
     state.count = int(np.asarray(_field(opt, "count")))
     state.epoch = float(np.asarray(_field(jax_state, "epoch")))
     state.step = int(np.asarray(_field(jax_state, "step")))
+    return state
+
+
+def from_jax_gan_state(state, jax_state):
+    """Fill a ``train.gan_steps.GANState`` from the JAX package's
+    ``GANState`` (or any object or mapping with its fields): the generator
+    half through :func:`from_jax_state`, the critic's ``d_params`` into
+    the critic, and ``d_opt_state``'s ``mu``, ``nu`` and ``count`` into
+    its Adam moments.  Raises ``ValueError`` as :func:`from_jax_state`
+    does."""
+    from_jax_state(state.gen, _field(jax_state, "gen"))
+    from_flax_variables(state.disc, {"params": _field(jax_state, "d_params")})
+    opt = _field(jax_state, "d_opt_state")
+    for name, target in (("mu", state.d_mu), ("nu", state.d_nu)):
+        unused = []
+        what = f"d_opt_state/{name}"
+        _fill(target, _collect(_field(opt, name), what, target, unused),
+              unused, what)
+    state.d_count = int(np.asarray(_field(opt, "count")))
     return state

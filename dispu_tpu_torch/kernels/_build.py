@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NAMES = ("knn", "fps", "fps_chunked", "attention", "query_ball",
-         "knn_group", "fps_bucketed")
+         "knn_group", "fps_bucketed", "gather_rows")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,6 +1,13 @@
 """Farthest-point-sampling kernel (``csrc/fps.cu``) and its plain version.
 
-Replaces ``fps_pallas`` (``dispu_tpu/ops/pallas_kernels.py``).  On an H100
+Replaces ``fps_pallas`` and ``fps_pallas_lite``
+(``dispu_tpu/ops/pallas_kernels.py``).  The TPU's lite form cuts the wide
+kernel's per-round VMEM sweeps: it reads only the selected point's row,
+drops the re-mask of the padding and writes one output row.  ``fps.cu``
+already works so (it loads the selected point's three coordinates, has no
+padding and writes each index to its slot), so :func:`fps_lite` launches
+the same kernel under its own count, ``LAUNCHES["fps_lite"]``; as in the
+JAX package no path calls it.  On an H100
 the kernel is bound by the latency of its serial argmax chain: one block
 per cloud, min-distances in registers, two block barriers a round; see the
 note at the top of the source.  It takes clouds of up to
@@ -46,9 +53,11 @@ def fps_torch(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
     return out.to(torch.int32)
 
 
-def fps_cuda(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel.  Same contract as :func:`fps_torch`, for clouds of
-    at most :data:`FPS_MAX_N` points."""
+def fps_cuda(npoint: int, xyz: torch.Tensor,
+             count: str = "fps") -> torch.Tensor:
+    """Launch the kernel, adding one to ``LAUNCHES[count]``.  Same contract
+    as :func:`fps_torch`, for clouds of at most :data:`FPS_MAX_N`
+    points."""
     from dispu_tpu_torch.kernels import _build
 
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
@@ -70,7 +79,7 @@ def fps_cuda(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(xyz.data_ptr(), out.data_ptr(), b, n, npoint, stream)
     _build.check(status, "fps kernel launch")
-    LAUNCHES["fps"] += 1
+    LAUNCHES[count] += 1
     return out
 
 
@@ -79,4 +88,14 @@ def fps(npoint: int, xyz: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     tensor, the plain version for a CPU tensor."""
     if use_kernel(impl, xyz):
         return fps_cuda(npoint, xyz)
+    return fps_torch(npoint, xyz)
+
+
+def fps_lite(npoint: int, xyz: torch.Tensor, impl: str = "auto"
+             ) -> torch.Tensor:
+    """``fps_pallas_lite``: the same contract and bits as :func:`fps`; the
+    kernel (counted as ``fps_lite``) for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    if use_kernel(impl, xyz):
+        return fps_cuda(npoint, xyz, count="fps_lite")
     return fps_torch(npoint, xyz)

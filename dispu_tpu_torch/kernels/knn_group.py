@@ -1,13 +1,16 @@
 """Fused kNN + neighbourhood gather kernel (``csrc/knn_group.cu``) and its
 plain PyTorch version.
 
-Replaces ``knn_group_pallas`` (``dispu_tpu/ops/pallas_kernels.py``),
-forward only: the backbone's fused edge gather (``nn.edgeconv.edge_parts``,
-``drop_first`` with the duplicate bias, features only) and the refiner's
-fused grouping (``ops.grouping.grouping``, with xyz) of the turbo serving
-path.  On an H100 the kernel is bound by the bytes of its gathered rows;
-see the note at the top of the source.  Its (dists, idx) are bit-equal to
-the kNN kernel's on the same inputs.
+Replaces ``knn_group_pallas`` (``dispu_tpu/ops/pallas_kernels.py``): the
+backbone's fused edge gather (``nn.edgeconv.edge_parts``, ``drop_first``
+with the duplicate bias, features only), the refiner's fused grouping
+(``ops.grouping.grouping``, with xyz) and the critic's fused
+neighbourhoods.  On an H100 the kernel is bound by the bytes of its
+gathered rows; see the note at the top of the source.  Its (dists, idx)
+are bit-equal to the kNN kernel's on the same inputs.
+:class:`KnnGroupFunction` carries ``knn_group_pallas_diff``'s backward
+rule, whose gather transposes are the deterministic scatter-add kernel of
+``kernels/gather_rows.py`` on the card.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import ctypes
 import torch
 
 from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
+                                                 scatter_rows_torch)
 from dispu_tpu_torch.kernels.knn import MAX_ROW_FLOATS, knn_torch
 
 #: the widest feature row the JAX package's kernel takes
@@ -127,6 +132,57 @@ def knn_group_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
     return dists, idx, gxyz, gfeat
 
 
+class KnnGroupFunction(torch.autograd.Function):
+    """``knn_group_pallas_diff``: forward by the kernel (``use_cuda``) or
+    by :func:`knn_group_torch`; backward ``_knn_group_bwd``, the selection
+    held fixed.  The grouped-feature and grouped-xyz cotangents scatter-add
+    back to ``feats`` and ``points`` at the chosen indices, and the
+    distance cotangent gives ``2·g·(q − p)`` to each query and its
+    negation, scatter-added, to each chosen point.  The scatter-adds are
+    the scatter kernel on the card and ``index_add_`` on the CPU.  Where
+    the caller passes one tensor as points, queries and feats (the
+    backbone), autograd sums the three gradients into it.  The indices
+    and the bias carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, k, points, queries, feats, column_bias, exact,
+                with_xyz, drop_first, use_cuda):
+        run = knn_group_cuda if use_cuda else knn_group_torch
+        out = run(k, points, queries, feats, column_bias, exact, with_xyz,
+                  drop_first)
+        ctx.save_for_backward(points, queries, out[1])
+        ctx.n_feats, ctx.use_cuda = feats.shape[1], use_cuda
+        ctx.mark_non_differentiable(out[1])
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_dist, _g_idx, g_gxyz, g_gfeat):
+        points, queries, idx = ctx.saved_tensors
+        b, m, k = idx.shape
+        flat = idx.reshape(b, m * k)
+        n = points.shape[1]
+        scat = scatter_rows_cuda if ctx.use_cuda else scatter_rows_torch
+
+        def scatter(g, rows):
+            return scat(g.reshape(b, m * k, g.shape[-1]).contiguous(), flat,
+                        rows)
+
+        d_feats = (None if g_gfeat is None
+                   else scatter(g_gfeat, ctx.n_feats))
+        d_points = None if g_gxyz is None else scatter(g_gxyz, n)
+        d_queries = None
+        if g_dist is not None:
+            neighbors = rows_at(points, idx)
+            contrib = 2.0 * g_dist[..., None] * (queries[:, :, None, :]
+                                                 - neighbors)
+            d_queries = torch.sum(contrib, dim=2)
+            d_dist = scatter(-contrib, n)
+            d_points = d_dist if d_points is None else d_points + d_dist
+        return (None, d_points, d_queries, d_feats, None, None, None, None,
+                None)
+
+
 def knn_group(k: int, points: torch.Tensor, queries: torch.Tensor,
               feats: torch.Tensor, column_bias: torch.Tensor | None = None,
               exact: bool = True, with_xyz: bool = True,
@@ -134,11 +190,10 @@ def knn_group(k: int, points: torch.Tensor, queries: torch.Tensor,
     """The k nearest ``points`` of each query and the gathered rows, as
     ``knn_group_pallas`` returns them: (dists, idx, grouped_xyz or None,
     grouped_feat).  The kernel for CUDA tensors, the plain version for CPU
-    tensors.  Forward only: nothing carries a gradient (its backward rule
-    comes with the GAN slice; training refuses the fused settings)."""
-    args = (k, points.detach(), queries.detach(), feats.detach(),
-            None if column_bias is None else column_bias.detach(), exact,
-            with_xyz, drop_first)
-    if use_kernel(impl, points):
-        return knn_group_cuda(*args)
-    return knn_group_torch(*args)
+    tensors.  The distances and the gathered rows are differentiable in
+    ``points``, ``queries`` and ``feats`` through
+    :class:`KnnGroupFunction`."""
+    bias = None if column_bias is None else column_bias.detach()
+    return KnnGroupFunction.apply(k, points, queries, feats, bias, exact,
+                                  with_xyz, drop_first,
+                                  use_kernel(impl, points))

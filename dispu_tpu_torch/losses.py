@@ -1,13 +1,13 @@
-"""Losses of CD training (counterpart of ``losses.py``): Chamfer, Hausdorff,
-repulsion, the uniformity statistic, the composite ``pu_losses`` and the
-epoch schedules.
+"""Losses of CD and GAN training (counterpart of ``losses.py``): Chamfer,
+Hausdorff, repulsion, the uniformity statistic, the LSGAN critic and
+generator losses, the composite ``pu_losses`` and the epoch schedules.
 
 Every loss takes ``impl`` for the kernels it reaches (the chamfer argmin's
 kNN kernel and the ball-query kernel; see ``dispu_tpu_torch.kernels``).
 Where the JAX package ranks with ``lax.top_k``, the port takes a stable
 sort, which orders ties by index as ``top_k`` does, so the same neighbour
-receives the gradient.  The GAN losses and the unused variants come with
-the GAN slice.
+receives the gradient.  The JAX package's unused loss variants are not
+ported.
 """
 
 from __future__ import annotations
@@ -134,6 +134,20 @@ def uniform(pcd: torch.Tensor,
         dev = (spacing - expect_len) ** 2 / (expect_len + 1e-8)
         loss.append(torch.mean(dev) * (p * 100) ** 2)
     return sum(loss) / len(percentages)
+
+
+# ---------------------------------------------------------------- GAN (LSGAN)
+
+
+def discriminator_loss(d_real: torch.Tensor,
+                       d_fake: torch.Tensor) -> torch.Tensor:
+    """``0.5·(mean((D(real) − 1)²) + mean(D(fake)²))``."""
+    return 0.5 * (torch.mean((d_real - 1.0) ** 2) + torch.mean(d_fake ** 2))
+
+
+def generator_loss(d_fake: torch.Tensor) -> torch.Tensor:
+    """``mean((D(fake) − 1)²)``."""
+    return torch.mean((d_fake - 1.0) ** 2)
 
 
 # ------------------------------------------------------------------ schedules

@@ -51,7 +51,7 @@ def edge_parts(feature: torch.Tensor, k: int,
     if idx is None:
         idx = knn_unique_indices(k + 1, feature, feature, impl=impl,
                                  variant=knn_variant)[:, :, 1:]
-    return feature, group_point(feature, idx, impl=gather_impl), idx
+    return feature, group_point(feature, idx, gather_impl, impl=impl), idx
 
 
 def edge_feature(feature: torch.Tensor, k: int,

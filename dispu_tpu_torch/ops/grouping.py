@@ -1,13 +1,16 @@
 """Neighbourhood gathers (counterpart of ``ops/grouping.py``).
 
-Every exact gather of the JAX package ('gather', and the one-hot MXU
-contractions 'onehot_hp', 'onehot3' and 'pallas', which it proves
-bit-identical to a gather) is one plain index gather here: on the card a
-load is exact, so the TPU's one-hot detour has no reason to exist.  The
-turbo gather 'onehot' is the same gather rounded to bf16.  The ball query
-runs the ball-query kernel, and the fused kNN + gather (``gather_impl``
-'fused' / 'fused_turbo') the ``knn_group`` kernel, on the card where the
-JAX package's gates admit their Pallas kernels.
+The exact gathers of the JAX package 'gather', 'onehot_hp' and 'onehot3'
+(one-hot MXU contractions it proves bit-identical to a gather) are one
+plain index gather here: on the card a load is exact, so the TPU's one-hot
+detour has no reason to exist.  'pallas' runs the gather kernel and, as
+its backward, the deterministic scatter-add kernel
+(``kernels/gather_rows.py``) on the card inside the JAX package's gate for
+``gather_rows_pallas``, and the plain gather elsewhere.  The turbo gather
+'onehot' is the plain gather rounded to bf16.  The ball query runs the
+ball-query kernel, and the fused kNN + gather (``gather_impl`` 'fused' /
+'fused_turbo') the ``knn_group`` kernel, on the card where the JAX
+package's gates admit their Pallas kernels.
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ from __future__ import annotations
 import torch
 
 from dispu_tpu_torch.config import EXACT_GATHERS
-from dispu_tpu_torch.kernels import IMPLS
+from dispu_tpu_torch.kernels import IMPLS, use_kernel
 from dispu_tpu_torch.kernels import knn_group as _knn_group
+from dispu_tpu_torch.kernels.gather_rows import gather_rows
 from dispu_tpu_torch.kernels import query_ball as _ball
 from dispu_tpu_torch.ops.knn import knn_indices
 
@@ -51,18 +55,47 @@ def query_ball_point(radius, nsample: int, xyz: torch.Tensor,
                             return_dists, select_smallest, impl=impl)
 
 
+def gather_fits(points: torch.Tensor) -> bool:
+    """The JAX package's gate for ``gather_rows_pallas`` in
+    ``group_point(impl='pallas')`` (f32, n ≤ 4096, c ≤ 256, n·c ≤
+    4096·128), without its backend test."""
+    n, c = points.shape[-2:]
+    return (points.dtype == torch.float32 and n <= 4096 and c <= 256
+            and n * c <= 4096 * 128)
+
+
 def group_point(points: torch.Tensor, idx: torch.Tensor,
-                impl: str = "gather") -> torch.Tensor:
-    """(b, n, c) points, (b, m, k) indices → (b, m, k, c).  ``'onehot'``
-    is the turbo gather: the JAX package's bf16 one-hot contraction, whose
-    values are the gathered rows rounded to bf16 (to nearest even)."""
-    if impl not in EXACT_GATHERS + ("onehot",):
+                gather_impl: str = "gather",
+                impl: str = "auto") -> torch.Tensor:
+    """(b, n, c) points, (b, m, k) indices → (b, m, k, c).
+
+    ``gather_impl`` 'pallas': the gather kernel, differentiable through
+    the scatter-add kernel, for CUDA tensors inside :func:`gather_fits`
+    (``impl`` 'cuda' raises outside it; 'torch' takes the plain gather).
+    ``'onehot'`` is the turbo gather: the JAX package's bf16 one-hot
+    contraction, whose values are the gathered rows rounded to bf16 (to
+    nearest even).  Every other exact ``gather_impl`` is the plain gather.
+    """
+    if gather_impl not in EXACT_GATHERS + ("onehot",):
         raise NotImplementedError(
-            f"group_point impl={impl!r} is not ported yet (ROADMAP.md, "
-            "queue 1: turbo and opt-in paths)"
+            f"group_point gather_impl={gather_impl!r} is not ported yet "
+            "(ROADMAP.md, queue 1: turbo and opt-in paths)"
         )
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if gather_impl == "pallas":
+        fits = gather_fits(points)
+        if impl == "cuda" and not fits:
+            raise ValueError(
+                f"gather_rows kernel takes f32 points with n <= 4096, "
+                f"c <= 256 and n*c <= 524288, got {tuple(points.shape)} "
+                f"{points.dtype}")
+        if fits and use_kernel(impl, points):
+            b, m, k = idx.shape
+            out = gather_rows(points, idx.reshape(b, m * k), impl="cuda")
+            return out.reshape(b, m, k, points.shape[-1])
     out = _knn_group.rows_at(points, idx)
-    return _knn_group.bf16_round(out) if impl == "onehot" else out
+    return _knn_group.bf16_round(out) if gather_impl == "onehot" else out
 
 
 def _fused_fits(feature, src_xyz) -> bool:
@@ -107,13 +140,13 @@ def grouping(feature: torch.Tensor, k: int, src_xyz: torch.Tensor,
         idx, _ = query_ball_point(radius, k, src_xyz, q_xyz, impl=impl)
     if gather_impl != "onehot":
         combined = group_point(torch.cat([src_xyz, feature], dim=-1), idx,
-                               impl=gather_impl)
+                               gather_impl, impl=impl)
         grouped_xyz = combined[..., :3]
         grouped_feature = combined if use_xyz else combined[..., 3:]
         return grouped_xyz, grouped_feature, idx
     # turbo: the features round, the xyz must stay exact
     grouped_xyz = group_point(src_xyz, idx)
-    grouped_feature = group_point(feature, idx, impl=gather_impl)
+    grouped_feature = group_point(feature, idx, gather_impl)
     if use_xyz:
         grouped_feature = torch.cat([grouped_xyz, grouped_feature], dim=-1)
     return grouped_xyz, grouped_feature, idx

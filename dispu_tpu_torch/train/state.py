@@ -79,30 +79,42 @@ def _bias_correction(decay: float, count: int) -> float:
 
 
 @torch.no_grad()
-def adam_update(state: GeneratorState, lr: float, train_cfg: TrainConfig
-                ) -> None:
-    """One Adam step on every parameter from its ``.grad`` (none counts as
-    zero), in place.
+def adam_step(named_params, mu: Dict[str, torch.Tensor],
+              nu: Dict[str, torch.Tensor], count: int, lr: float, b1: float,
+              clip: float = 0.0) -> None:
+    """One Adam step (the ``count``-th) on ``named_params`` from their
+    ``.grad`` (none counts as zero), moments and parameters in place.
 
     ``optax.scale_by_adam`` term for term, then ``p ← p − lr·u``:
-    ``mu = (1−b1)·g + b1·mu``, ``nu = (1−b2)·g² + b2·nu``, count + 1,
+    ``mu = (1−b1)·g + b1·mu``, ``nu = (1−b2)·g² + b2·nu``,
     ``u = (mu / (1−b1^count)) / (sqrt(nu / (1−b2^count)) + eps)`` with
     b2 = 0.999 and eps = 1e-8 outside the square root.  Not
     ``torch.optim.Adam``, which folds the corrections into the step size
     and the denominator and so rounds otherwise.  The square root is taken
     in f64 and rounded to f32, which is correctly rounded (the double
     rounding is innocuous for a square root): PyTorch's vectorized CPU f32
-    square root is not, and XLA's is.
+    square root is not, and XLA's is.  ``clip`` > 0 then clips each
+    parameter to [−clip, clip] (the critic's update); the moments are
+    never clipped.
     """
-    b1, b2 = train_cfg.beta1, ADAM_B2
-    state.count += 1
-    bc1 = _bias_correction(b1, state.count)
-    bc2 = _bias_correction(b2, state.count)
-    for name, p in state.model.named_parameters():
+    bc1 = _bias_correction(b1, count)
+    bc2 = _bias_correction(ADAM_B2, count)
+    for name, p in named_params:
         g = p.grad if p.grad is not None else torch.zeros_like(p)
-        mu = (1 - b1) * g + b1 * state.mu[name]
-        nu = (1 - b2) * (g * g) + b2 * state.nu[name]
-        root = torch.sqrt((nu / bc2).double()).float()
-        p.sub_(lr * ((mu / bc1) / (root + ADAM_EPS)))
-        state.mu[name].copy_(mu)
-        state.nu[name].copy_(nu)
+        m = (1 - b1) * g + b1 * mu[name]
+        v = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu[name]
+        root = torch.sqrt((v / bc2).double()).float()
+        p.sub_(lr * ((m / bc1) / (root + ADAM_EPS)))
+        if clip > 0:
+            p.clamp_(-clip, clip)
+        mu[name].copy_(m)
+        nu[name].copy_(v)
+
+
+def adam_update(state: GeneratorState, lr: float, train_cfg: TrainConfig
+                ) -> None:
+    """One Adam step (:func:`adam_step`) on every generator parameter,
+    the count advanced first."""
+    state.count += 1
+    adam_step(state.model.named_parameters(), state.mu, state.nu,
+              state.count, lr, train_cfg.beta1)

@@ -5,8 +5,8 @@ One epoch is ``len(dataset) // batch_size`` full batches, drawn from the
 patch set held on the step's device, one step at a time.  ``BaseTrainer``
 carries what every driver shares (device-resident batches, the epoch
 loop, crash and scheduled checkpoints, logs, meters); :class:`Trainer`
-plugs in the CD state, step and log line, and the GAN driver is to plug
-in the same way.
+plugs in the CD state, step and log line, and
+``train.gan_trainer.GANTrainer`` the GAN ones.
 """
 
 from __future__ import annotations

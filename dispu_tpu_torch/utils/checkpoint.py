@@ -2,7 +2,8 @@
 
 A checkpoint is ``<log_dir>/model-<epoch>.pt``: a ``torch.save`` of the
 whole training state (parameters, batch-norm statistics, Adam moments,
-count, epoch and step), so a restore is an exact resume point.
+count, epoch and step; a GAN state holds the generator's under ``gen`` and
+the critic's beside it), so a restore is an exact resume point.
 """
 
 from __future__ import annotations

@@ -26,8 +26,10 @@ from dispu_tpu_torch.ops.knn import mask_duplicate_rows
 pytestmark = pytest.mark.cuda
 
 SMALL = dict(num_points=64, knn=8, refine_nsample=8)
-#: the turbo path's kernels, which the exact paths never launch
-NO_TURBO = {"knn_packed": 0, "knn_group": 0, "fps_bucketed": 0}
+#: the kernels the default exact paths never launch: the turbo path's,
+#: the lite FPS (no caller) and the gather pair (gather_impl='pallas')
+NO_TURBO = {"knn_packed": 0, "knn_group": 0, "fps_bucketed": 0,
+            "fps_lite": 0, "gather_rows": 0, "scatter_rows": 0}
 
 
 @pytest.fixture
@@ -473,7 +475,8 @@ def test_turbo_upsampler_goes_through_the_kernels(dev, final_ratio, patch, n,
     kernels.reset_launch_counts()
     out = up.upsample(pc)
     assert kernels.launch_counts() == dict(
-        counts, fps_chunked=0, query_ball=0)
+        counts, fps_chunked=0, query_ball=0, fps_lite=0, gather_rows=0,
+        scatter_rows=0)
     assert out.shape == (n * final_ratio, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf, impl="torch").upsample(pc)
     # against the plain versions on the card: the bucketed merge moves
@@ -481,3 +484,220 @@ def test_turbo_upsampler_goes_through_the_kernels(dev, final_ratio, patch, n,
     # tests/test_torch_turbo.py), so the outputs are held as sets
     assert _chamfer(out, ref) <= 0.25 * _own_spacing2(
         torch.from_numpy(ref).cuda())
+
+
+# ------------------------------------------- gather pair, knn_group backward
+
+
+def _rows_idx(seed, b, q, n, lo=0, hi=None):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(lo, n if hi is None else hi,
+                                        (b, q)).astype(np.int32))
+
+
+@pytest.mark.parametrize("b,n,c,q", [
+    (28, 256, 24, 4096), (28, 256, 48, 4096), (4, 1024, 131, 16384),
+    (3, 100, 3, 77), (2, 4096, 128, 5000),
+])
+def test_gather_rows_kernel_bit_equal(dev, b, n, c, q):
+    from dispu_tpu_torch.kernels.gather_rows import (gather_rows_cuda,
+                                                     gather_rows_torch)
+
+    table = _randn(n + c, b, n, c).to(dev)
+    idx = _rows_idx(q, b, q, n).to(dev)
+    got = gather_rows_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_torch(table, idx))
+
+
+def test_gather_rows_kernel_zeroes_rows_outside_the_table(dev):
+    from dispu_tpu_torch.kernels.gather_rows import gather_rows_cuda
+
+    table = _randn(1, 2, 50, 7).to(dev)
+    idx = _rows_idx(2, 2, 40, 50, lo=-5, hi=60).to(dev)
+    got = gather_rows_cuda(table, idx)
+    out = (idx < 0) | (idx >= 50)
+    assert bool(out.any()) and bool((got[out] == 0).all())
+    inside = torch.where(out, 0, idx)
+    want = torch.gather(table, 1, inside.long()[..., None].expand(-1, -1, 7))
+    assert torch.equal(got[~out], want[~out])
+
+
+@pytest.mark.parametrize("b,n,c,q", [
+    (28, 256, 48, 4096), (4, 1024, 131, 16384), (3, 100, 3, 77),
+    (2, 20000, 5, 3000), (1, 1, 4, 16384), (2, 512, 300, 2049),
+])
+def test_scatter_rows_kernel_bit_equal_to_ordered_sum(dev, b, n, c, q):
+    """Bit-equal run to run and to the CPU's ``index_add_``, which adds
+    each row's terms in ascending position as the kernel does (tests/
+    test_torch_gather.py pins that order); every row of a one-row table
+    takes all q positions."""
+    from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
+                                                     scatter_rows_torch)
+
+    g = (_randn(q + c, b, q, c) * 10.0 ** _randn(q, b, q, 1)).to(dev)
+    idx = _rows_idx(n + q, b, q, n).to(dev)
+    got = scatter_rows_cuda(g, idx, n)
+    again = scatter_rows_cuda(g, idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), scatter_rows_torch(g.cpu(), idx.cpu(), n))
+
+
+def test_scatter_rows_kernel_drops_indices_outside_the_table(dev):
+    from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
+                                                     scatter_rows_torch)
+
+    g = _randn(3, 2, 1500, 6).to(dev)
+    idx = _rows_idx(4, 2, 1500, 40, lo=-3, hi=45).to(dev)
+    keep = (idx >= 0) & (idx < 40)
+    got = scatter_rows_cuda(g, idx, 40)
+    want = scatter_rows_torch((g * keep[..., None]).cpu(),
+                              torch.where(keep, idx, 0).cpu(), 40)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_group_point_pallas_launches_the_pair(dev):
+    """Inside the gate the gather kernel runs forward and the scatter
+    kernel backward; the gradient equals the CPU plain version's; outside
+    the gate (16x pass-2 refiner width) nothing launches."""
+    from dispu_tpu_torch.ops.grouping import group_point
+
+    pts = _randn(5, 4, 1024, 131)
+    idx = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 1024, (4, 1024, 16)).astype(np.int32))
+    cot = _randn(7, 4, 1024, 16, 131)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        p = pts.to(device).requires_grad_(True)
+        kernels.reset_launch_counts()
+        out = group_point(p, idx.to(device), "pallas")
+        torch.sum(out * cot.to(device)).backward()
+        counts = kernels.launch_counts()
+        grads.append(p.grad.cpu())
+        want = 1 if device.type == "cuda" else 0
+        assert counts["gather_rows"] == counts["scatter_rows"] == want
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=1e-6)
+    big = _randn(8, 1, 4096, 131).to(dev)
+    kernels.reset_launch_counts()
+    group_point(big, idx[:1].to(dev), "pallas")
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("form", ["backbone", "refiner", "critic"])
+def test_knn_group_backward_on_the_card(dev, form):
+    """``KnnGroupFunction``'s gradients through the kernels (the scatter
+    kernel) against autograd of the plain distance and gathers at the
+    kernel's own indices (the rule holds the selection fixed), to 1e-5 of
+    their largest: the backbone's aliased call (drop_first, duplicate
+    bias), the refiner's (with xyz) and the critic's (seeds as queries)."""
+    from dispu_tpu_torch.kernels.knn_group import knn_group, rows_at
+
+    if form == "backbone":
+        x = _randn(9, 4, 256, 48)
+        x[:, -8:] = x[:, :8]
+        k, pts, qs, ft = 16, x, None, None
+    elif form == "refiner":
+        k, pts, qs, ft = 16, _randn(10, 4, 1024, 3), None, _randn(
+            11, 4, 1024, 128)
+    else:
+        k, pts, qs, ft = 24, _randn(12, 4, 1024, 3), _randn(13, 4, 128,
+                                                            3), None
+    drop, with_xyz = form == "backbone", form == "refiner"
+
+    def leaves():
+        p = pts.to(dev).requires_grad_(True)
+        q = p if qs is None else qs.to(dev).requires_grad_(True)
+        f = p if ft is None else ft.to(dev).requires_grad_(True)
+        return p, q, f, [t for j, t in enumerate((p, q, f))
+                         if all(t is not u for u in (p, q, f)[:j])]
+
+    cg = torch.Generator().manual_seed(14)
+    p, q, f, uniq = leaves()
+    bias = mask_duplicate_rows(p.detach()).float() * 1e30 if drop else None
+    d, idx, gx, gf = knn_group(k, p, q, f, bias, with_xyz=with_xyz,
+                               drop_first=drop)
+    cots = [torch.randn(t.shape, generator=cg).to(dev)
+            for t in (d, gx, gf) if t is not None]
+    outs = [t for t in (d, gx, gf) if t is not None]
+    sum(torch.sum(o * c) for o, c in zip(outs, cots)).backward()
+    got = [t.grad for t in uniq]
+
+    p, q, f, uniq = leaves()
+    nbr = rows_at(p, idx)
+    ref = [torch.sum((q[:, :, None, :] - nbr) ** 2, dim=-1)]
+    ref += [nbr] if with_xyz else []
+    ref += [rows_at(f, idx)]
+    sum(torch.sum(o * c) for o, c in zip(ref, cots)).backward()
+    torch.testing.assert_close(d, ref[0].detach(), rtol=1e-5, atol=1e-4)
+    for g, w in zip(got, (t.grad for t in uniq)):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+def test_fps_lite_kernel_bit_equal_and_counted(dev):
+    from dispu_tpu_torch.kernels.fps import fps_lite, fps_torch
+
+    x = _randn(15, 2, 1500, 3).to(dev)
+    kernels.reset_launch_counts()
+    got = fps_lite(200, x)
+    assert kernels.launch_counts()["fps_lite"] == 1
+    assert kernels.launch_counts()["fps"] == 0
+    assert torch.equal(got, fps_torch(200, x))
+
+
+@pytest.mark.parametrize("gen_kw,disc_kw,counts", [
+    # critic: FPS + 6 kNN; uniform: FPS + 5 ball queries + 5 kNN; the
+    # generator's 13 kNN (4 backbone, refiner, 8 chamfer), attention,
+    # repulsion's ball query; 5 gathers and their 5 scatters
+    (dict(gather_impl="pallas"), dict(),
+     dict(knn=24, fps=2, attention=1, query_ball=6, gather_rows=5,
+          scatter_rows=5)),
+    # fused generator and critic: knn_group 4 + 1 + 6; scatters: 4
+    # backbone, 2 refiner (features and xyz)
+    (dict(fused_grouping=True), dict(fused_grouping=True),
+     dict(knn=13, knn_group=11, fps=2, attention=1, query_ball=6,
+          scatter_rows=6)),
+])
+def test_gan_step_on_the_card(dev, gen_kw, disc_kw, counts):
+    """One GAN step through the kernels against one through the plain
+    versions on the card: launch counts, metrics to 1e-4 relative, every
+    parameter of both networks with a gradient on the plain path has one
+    through the kernels."""
+    from dispu_tpu_torch.config import (DiscriminatorConfig,
+                                        ExperimentConfig, LossConfig,
+                                        TrainConfig)
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+
+    cfg = ExperimentConfig(
+        generator=GeneratorConfig(**dict(SMALL, num_points=256, **gen_kw)),
+        discriminator=DiscriminatorConfig(**disc_kw),
+        train=TrainConfig(d_clip=0.0, gen_update=1),
+        loss=LossConfig(repulsion_radius=0.1), use_gan=True)
+    gt = _randn(16, 4, 1024, 3).to(dev) * 0.3
+    runs = {}
+    for impl in ("auto", "torch"):
+        st = create_gan_state(cfg, impl=impl, device=dev)
+        step = make_gan_train_step(cfg, impl=impl)
+        kernels.reset_launch_counts()
+        st, m = step(st, gt, torch.ones(4, device=dev),
+                     torch.Generator(device=dev).manual_seed(0))
+        got = kernels.launch_counts()
+        if impl == "auto":
+            assert got == dict(dict.fromkeys(got, 0), **counts)
+        else:
+            assert sum(got.values()) == 0
+        # the critic's gradients are its own update's (the generator's
+        # pass runs with the critic frozen)
+        grads = {f"g.{n}": p.grad for n, p in st.gen.model.named_parameters()}
+        grads.update({f"d.{n}": p.grad for n, p in st.disc.named_parameters()})
+        runs[impl] = (m, grads)
+    (mk, gk), (mp, gp) = runs["auto"], runs["torch"]
+    top = max(abs(float(v)) for v in mp.values())
+    for k in mp:
+        assert abs(float(mk[k]) - float(mp[k])) <= 1e-4 * max(
+            abs(float(mp[k])), 1e-3 * top), k
+    for n, g in gp.items():
+        if g is not None and bool(g.abs().max() > 0):
+            assert gk[n] is not None and bool(gk[n].abs().max() > 0), n

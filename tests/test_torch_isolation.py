@@ -47,7 +47,12 @@ def test_import_leaves_jax_unloaded():
             "dispu_tpu_torch.train.trainer, dispu_tpu_torch.ops.chamfer, "
             "dispu_tpu_torch.kernels.knn_group, dispu_tpu_torch.cli, "
             "dispu_tpu_torch.kernels.fps_bucketed, "
-            "dispu_tpu_torch.evaluation.meshio; "
+            "dispu_tpu_torch.evaluation.meshio, "
+            "dispu_tpu_torch.kernels.gather_rows, "
+            "dispu_tpu_torch.models.discriminator, "
+            "dispu_tpu_torch.train.gan_steps, "
+            "dispu_tpu_torch.train.gan_trainer, "
+            "dispu_tpu_torch.utils.visu; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -16,19 +16,21 @@ import torch
 from dispu_tpu.ops.pallas_kernels import (attention_pallas, attention_xla,
                                           fps_pallas, fps_pallas_chunked,
                                           fps_pallas_chunked_batch,
-                                          knn_pallas)
+                                          fps_pallas_lite, knn_pallas)
 from dispu_tpu.ops.sampling import _fps_xla
 from dispu_tpu_torch import kernels
 from dispu_tpu_torch.kernels.attention import attention, attention_torch
-from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps, fps_cuda
+from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps, fps_cuda, fps_lite
 from dispu_tpu_torch.kernels.fps_chunked import fps_chunked, fps_chunked_cuda
 from dispu_tpu_torch.kernels.fps_bucketed import fps_bucketed
+from dispu_tpu_torch.kernels.gather_rows import gather_rows, scatter_rows_cuda
 from dispu_tpu_torch.kernels.knn import knn as knn_kernel
 from dispu_tpu_torch.kernels.knn import knn_packed
 from dispu_tpu_torch.kernels.knn_group import knn_group
 from dispu_tpu_torch.kernels.query_ball import query_ball
 from dispu_tpu_torch.nn.attention import global_attention
 from dispu_tpu_torch.ops import knn as tknn
+from dispu_tpu_torch.ops.grouping import group_point
 from dispu_tpu_torch.ops.sampling import farthest_point_sample, fps_kernel_for
 
 # the package's ``knn`` function shadows its module of that name
@@ -160,6 +162,18 @@ def test_fps_bit_equal(b, n, npoint, n_dup):
         got, np.asarray(fps_pallas(npoint, jnp.asarray(x), interpret=True)))
 
 
+@pytest.mark.parametrize("n,npoint", [(100, 16), (128, 32), (300, 64),
+                                      (1500, 200)])
+def test_fps_lite_bit_equal(n, npoint):
+    """``fps_lite``'s plain version against ``fps_pallas_lite`` in
+    interpret mode at the JAX package's own test shapes: every index
+    equal."""
+    x = _cloud(n + npoint, (2, n, 3))
+    got = fps_lite(npoint, torch.from_numpy(x)).numpy()
+    want = fps_pallas_lite(npoint, jnp.asarray(x), interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def test_fps_more_samples_than_points():
     """npoint > n: once every point is taken, every min-distance is 0 and
     each later round takes index 0 (what ``_fps_xla`` gives)."""
@@ -278,10 +292,14 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     knn_packed(4, x, x)
     knn_group(4, x, x, x, drop_first=True)
     fps_bucketed(8, x)
+    fps_lite(8, x)
+    idx = torch.zeros((1, 5), dtype=torch.int32)
+    torch.sum(gather_rows(x.requires_grad_(True), idx)).backward()
+    group_point(x, idx[..., None], "pallas")
     assert kernels.launch_counts() == {
         "knn": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
-        "fps_chunked": 0, "fps_bucketed": 0, "attention": 0,
-        "query_ball": 0}
+        "fps_lite": 0, "fps_chunked": 0, "fps_bucketed": 0, "attention": 0,
+        "query_ball": 0, "gather_rows": 0, "scatter_rows": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -293,6 +311,13 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     lambda x: knn_packed(4, x, x, impl="cuda"),
     lambda x: knn_group(4, x, x, x, impl="cuda"),
     lambda x: fps_bucketed(8, x, impl="cuda"),
+    lambda x: fps_lite(8, x, impl="cuda"),
+    lambda x: gather_rows(x, torch.zeros((1, 5), dtype=torch.int32),
+                          impl="cuda"),
+    lambda x: scatter_rows_cuda(x, torch.zeros((1, 64), dtype=torch.int32),
+                                8),
+    lambda x: group_point(x, torch.zeros((1, 5, 2), dtype=torch.int32),
+                          "pallas", impl="cuda"),
 ])
 def test_wrappers_refuse_cuda_impl_on_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):

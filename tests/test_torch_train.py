@@ -50,14 +50,16 @@ torch.set_num_threads(1)
 TINY = dict(num_points=32, knn=8, refine_nsample=8)
 
 
-def _cfgs(**data):
-    """(JAX, port) experiment configs of one tiny setting."""
+def _cfgs(generator=None, **data):
+    """(JAX, port) experiment configs of one tiny setting; ``generator``
+    holds further GeneratorConfig fields."""
     data = dict(dict(num_point=32), **data)
+    gen = dict(TINY, **(generator or {}))
     loss = dict(repulsion_nsample=8, repulsion_radius=0.3)
-    j = JExperimentConfig(generator=JGeneratorConfig(**TINY),
+    j = JExperimentConfig(generator=JGeneratorConfig(**gen),
                           train=JTrainConfig(batch_size=4),
                           data=JDataConfig(**data), loss=JLossConfig(**loss))
-    t = ExperimentConfig(generator=GeneratorConfig(**TINY),
+    t = ExperimentConfig(generator=GeneratorConfig(**gen),
                          train=TrainConfig(batch_size=4),
                          data=DataConfig(**data), loss=LossConfig(**loss))
     return j, t
@@ -221,9 +223,14 @@ def _leaf_map(tree):
 
 @pytest.fixture(scope="module")
 def step_pair():
+    return make_step_pair()
+
+
+def make_step_pair(generator=None):
     """A perturbed JAX state, two JAX steps from it (the raw step,
-    jitted), and the port's state carried over from it."""
-    jcfg, tcfg = _cfgs(random_input=False, augment=False)
+    jitted), and the port's state carried over from it; ``generator``
+    holds further GeneratorConfig fields of both packages."""
+    jcfg, tcfg = _cfgs(generator, random_input=False, augment=False)
     js = jcreate_state(jax.random.PRNGKey(0), jcfg.generator, jcfg.train)
     tree = perturbed_numpy_tree({"params": js.params,
                                  "batch_stats": js.batch_stats}, 5)
@@ -267,6 +274,12 @@ def test_train_step_matches_jax(step_pair):
     lr·3e-3 a step where both moments agreed to 1e-3 relative at every
     step so far (u = mu/sqrt(nu) then agrees to ~2e-3 of |u| ≲ 1), which
     must be ≥ 99% of them."""
+    check_steps_match_jax(step_pair)
+
+
+def check_steps_match_jax(step_pair):
+    """The assertions of :func:`test_train_step_matches_jax` on a
+    :func:`make_step_pair`."""
     tcfg, ts, batch = step_pair["tcfg"], step_pair["ts"], step_pair["batch"]
     step = make_train_step(tcfg, device="cpu")
     model = ts.model
@@ -419,12 +432,16 @@ def test_checkpoint_round_trip_bit_equal(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_gan=True), dict(train=dict(fake_pool_size=4)),
+    # GAN training and the fake pool are ported; with a turbo flag they
+    # still raise
+    dict(use_gan=True, generator=dict(fast_gather=True)),
+    dict(train=dict(fake_pool_size=4), generator=dict(dense_impl="split")),
     dict(train=dict(remat=True)), dict(train=dict(compute_dtype="bfloat16")),
     dict(train=dict(visualize=True)), dict(train=dict(profile=True)),
     dict(mesh=dict(num_devices=2)), dict(generator=dict(fast_knn=True)),
+    dict(generator=dict(fused_grouping=True, fast_gather_backbone=True)),
 ], ids=["use_gan", "fake_pool", "remat", "bf16", "visualize", "profile",
-        "mesh", "turbo"])
+        "mesh", "turbo", "fused_with_turbo"])
 def test_unported_training_settings_raise(change):
     _, cfg = _cfgs()
     fields = {}
@@ -434,6 +451,24 @@ def test_unported_training_settings_raise(change):
         fields[name] = value
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_train_supported(dataclasses.replace(cfg, **fields))
+
+
+@pytest.mark.parametrize("change", [
+    dict(use_gan=True), dict(train=dict(fake_pool_size=4)),
+    dict(generator=dict(fused_grouping=True)),
+    dict(generator=dict(gather_impl="pallas")),
+    dict(use_gan=True, generator=dict(fused_grouping=True),
+         discriminator=dict(fused_grouping=True)),
+], ids=["use_gan", "fake_pool", "fused_grouping", "pallas_gather",
+        "gan_fused"])
+def test_ported_training_settings_pass(change):
+    _, cfg = _cfgs()
+    fields = {}
+    for name, value in change.items():
+        if isinstance(value, dict):
+            value = dataclasses.replace(getattr(cfg, name), **value)
+        fields[name] = value
+    check_train_supported(dataclasses.replace(cfg, **fields))
 
 
 def test_training_entry_points_default_to_cuda(tmp_path):
