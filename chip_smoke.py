@@ -9,8 +9,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. the card's name and power limit (nvidia-smi) and the CUDA version;
   2. build every kernel from ``dispu_tpu_torch/kernels/csrc`` with nvcc,
      all sources at once, into ``dispu_tpu_torch/_build/``;
-  3. hold each kernel against its plain PyTorch version on the card, at
-     the shapes the serving paths give it for 2048-point clouds (the 4×
+  3. hold each kernel against its plain PyTorch version on the card, at the
+     shapes the serving paths give it for 2048-point clouds (the 4×
      request, pass 2 of the 16× request, the 16× merge of one cloud and of
      two) and the train step gives it at batch 28 (backbone, refiner and
      chamfer kNN; the attention forward and its backward rule; the ball
@@ -21,12 +21,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      blocks; the turbo path's kernels at its shapes: the fused kNN + gather
      (backbone and refiner, turbo and exact; its distances and indices
      bit-equal to the kNN kernel's), the packed kNN selection (pass 2's
-     refiner) and the bucketed merge FPS (4×, 16×, two clouds); the lite
-     FPS entry (the critic's seed shape and the 4× merge); the gather
-     kernel bit-equal to ``torch.gather`` and the scatter-add kernel
-     bit-equal run to run (and to the CPU's ``index_add_``) at the train
-     step's gather shapes; ``knn_group``'s backward rule at the backbone's
-     and the refiner's train shapes;
+     refiner; and its fixed-selection gradient) and the bucketed merge FPS
+     (4×, 16×, two clouds); the lite FPS entry (the critic's seed shape and
+     the 4× merge); the gather kernel bit-equal to ``torch.gather`` and the
+     scatter-add kernel bit-equal run to run (and to the CPU's
+     ``index_add_``) at the train step's gather shapes; ``knn_group``'s
+     backward rule at the backbone's and the refiner's train shapes; the
+     fused refiner kernels (``refine_local`` on grouped rows,
+     ``refine_block`` with its own kNN, whose indices are bit-equal to the
+     kNN kernel's) at the refiner's pass-1 and pass-2 shapes;
   4. drive each serving path at full GeneratorConfig() width from the
      port's own seeded init, on demo/gt/Icosahedron.xyz and
      demo/gt/fandisk.xyz, with the launch counts set to 0 just before each
@@ -37,7 +40,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      serving configuration (``dispu_tpu_torch.cli.build_config`` of
      ``--phase test --turbo true``): 4× and 16× requests on both clouds
      and ``upsample_many`` of both at 4× and 16×, each beside the exact
-     path's Chamfer and time.  Then CD training at the
+     path's Chamfer and time.  The same for ``refine_local_impl``
+     'fused' and 'megafused' (two 4× and two 16× requests on each cloud,
+     one ``upsample_many`` at each ratio), against the composed path
+     through the plain versions, timed beside 'xla'.  Then CD training at the
      same width with the training defaults (batch 28, random input,
      augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
      steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
@@ -48,7 +54,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``gather_impl='pallas'`` (the gather pair) and with
      ``fused_grouping`` (``knn_group`` and its backward rule), each
      against the plain versions, repeated bit for bit, and timed beside
-     the default step.  ``python -m dispu_tpu_torch.cli --phase test
+     the default step; one step with ``refine_local_impl='megafused'``
+     (the composed refiner: the default step's launches and metrics).
+     ``python -m dispu_tpu_torch.cli --phase test
      --turbo true`` restores the training's checkpoint and upsamples both
      demo clouds into files.  Then GAN training at full width with
      ``dispu.py --use_gan true``'s defaults: ``GANTrainer.train(epochs=2)``
@@ -99,6 +107,10 @@ QB_DIST_RTOL = 1e-5
 # backward) vs autograd of the plain bf16 version (bf16-rounded operands
 # and map): max |d| over max |grad| of each of dq, dk, dv
 ATTN_BWD_REL = 2e-2
+# KnnGroupFunction's backward, and the packed kNN's gradient, against
+# autograd of the plain distance and gathers at the kernel's indices: max
+# |d| over each gradient's max |g|
+KNN_GROUP_BWD_REL = 1e-5
 # one train step through the kernels vs through the plain versions on the
 # card: each metric (relative) and each gradient (max |d| over the leaf's
 # max |g|, floored at 1e-3 of the largest leaf's); the two differ by f32
@@ -723,9 +735,11 @@ def check_knn_packed(dev):
     turbo request's one launch."""
     import torch
 
-    from dispu_tpu_torch.kernels.knn import (knn_cuda, knn_packed_cuda,
+    from dispu_tpu_torch.kernels.knn import (knn_cuda, knn_packed,
+                                             knn_packed_cuda,
                                              knn_packed_torch,
                                              packed_lane_bits)
+    from dispu_tpu_torch.kernels.knn_group import rows_at
 
     gen = torch.Generator(device="cpu").manual_seed(6)
     pts = torch.randn(32, 4096, 3, generator=gen).to(dev)
@@ -752,6 +766,21 @@ def check_knn_packed(dev):
     swaps = _near_tie_swaps("knn_packed", i, pi, pts, pts, None,
                             2 * step + KNN_SWAP_RTOL)
     max_abs = float(torch.abs(d - pd).max())
+    # the fixed-selection gradient through the kernel (knn_packed's
+    # KnnFunction) against autograd of the plain distances at the kernel's
+    # own indices: max |d| over each gradient's max |g|
+    wts = torch.randn(d.shape, generator=gen).to(dev)
+    leaves = [pts.clone().requires_grad_(True) for _ in range(2)]
+    gd, gi = knn_packed(k, *leaves, impl="cuda")
+    got = torch.autograd.grad(torch.sum(wts * gd), leaves)
+    ref_leaves = [pts.clone().requires_grad_(True) for _ in range(2)]
+    nbr = rows_at(ref_leaves[0], gi)
+    ref_d = torch.sum((ref_leaves[1][:, :, None, :] - nbr) ** 2, dim=-1)
+    want = torch.autograd.grad(torch.sum(wts * ref_d), ref_leaves)
+    grad_rels = [float((a - w).abs().max() / w.abs().max())
+                 for a, w in zip(got, want)]
+    require(max(grad_rels) <= KNN_GROUP_BWD_REL,
+            f"knn_packed gradient: {grad_rels}")
     b, n, c = pts.shape
     ms = timed_ms(lambda: knn_packed_cuda(k, pts, pts), reps=20)
     plain_ms = timed_ms(lambda: knn_packed_torch(k, pts, pts), reps=5)
@@ -762,7 +791,10 @@ def check_knn_packed(dev):
     bms, by = bound(nbytes, ops, F32_FLOPS)
     log(f"knn_packed (b={b} n=m={n} c={c} k={k}, {lb} lane bits): distances "
         f"= the kNN kernel's truncated; {trunc_swaps} swaps at truncation "
-        f"ties; vs plain: swaps {swaps}, max|d|err {max_abs:.3e}; kernel "
+        f"ties; gradient (points, queries) vs autograd of the plain "
+        f"distances at its indices, max|d|/max|g| "
+        f"{['%.2e' % r for r in grad_rels]} (bound {KNN_GROUP_BWD_REL}); "
+        f"vs plain: swaps {swaps}, max|d|err {max_abs:.3e}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk "
         f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -978,11 +1010,6 @@ def check_scatter_rows(dev):
     return agg
 
 
-# KnnGroupFunction's backward against autograd of the plain distance and
-# gathers at the kernel's indices: max |d| over each gradient's max |g|
-KNN_GROUP_BWD_REL = 1e-5
-
-
 def check_knn_group_backward(dev):
     """``KnnGroupFunction``'s backward rule (its gather transposes through
     the scatter kernel) at the train step's shapes: the backbone's aliased
@@ -1037,7 +1064,190 @@ def check_knn_group_backward(dev):
             f"backward {bwd_ms:.4f} ms")
 
 
+# the fused refiner kernels against their plain versions on the card: every
+# output row within this share of max(max |plain output|, 1); f32 sums in
+# another order than cuBLAS's over K up to 2048 terms
+REFINE_REL = 1e-5
+# the refiner's shapes at GeneratorConfig() width: (label, clouds, points,
+# launches of a 2048-point 4x request with the setting); pass 2 of a 16x
+# request is checked and timed, not counted
+REFINE_SHAPES = [("pass 1", 32, 1024, 1), ("pass 2", 32, 4096, 0)]
+REFINE_K, REFINE_C, REFINE_MLP = 16, 128, (128, 128, 256)
+
+
+def _refine_params(gen, dev, k=REFINE_K, cf=6 + REFINE_C, mlp=REFINE_MLP):
+    """Random full-width LocalParams, each kernel scaled by 1/sqrt(fan-in)
+    so that every layer's output stays O(1)."""
+    import torch
+
+    from dispu_tpu_torch.kernels.refine_local import LocalParams
+
+    c1, c2, co = mlp
+
+    def w(*shape):
+        fan_in = shape[-2] * (shape[0] if len(shape) == 3 else 1)
+        return (torch.randn(*shape, generator=gen) / math.sqrt(fan_in)).to(dev)
+
+    def bias(c):
+        return (0.1 * torch.randn(c, generator=gen)).to(dev)
+
+    return LocalParams(w(cf, c1), bias(c1), w(c1, c2), bias(c2), w(3, k),
+                       bias(k), w(cf, co), bias(co), w(k, c2, co), bias(co))
+
+
+def _refine_ops(b, n, k, cf, p):
+    """f32 operations of the local and skip branches on b·n queries."""
+    c1, c2, co = p.w0.shape[-1], p.w1.shape[-1], p.wsk.shape[-1]
+    per_row = 2 * (cf * c1 + c1 * c2 + 3 * k) + 2 * k * c2
+    return b * n * (k * per_row + 2 * k * c2 * co + 2 * cf * co)
+
+
+def _refine_library(p):
+    """The composed chain as one would write it with PyTorch's own calls
+    (no single call computes the branch): F.linear for conv0, conv1, the
+    weight net, after_conv and skip (cuBLAS, TF32 off), a batched matmul
+    for the pooling, amax for the skip's max."""
+    import torch
+    import torch.nn.functional as F
+
+    wt = [t.t().contiguous() for t in (p.w0, p.w1, p.ww, p.wsk)]
+    waf = p.waf.reshape(-1, p.waf.shape[-1]).t().contiguous()
+
+    def run(g):
+        b, n = g.shape[:2]
+        h = F.relu(F.linear(F.relu(F.linear(g, wt[0], p.b0)), wt[1], p.b1))
+        w = F.relu(F.linear(g[..., :3], wt[2], p.bw))
+        pool = torch.matmul(w.transpose(-1, -2), h).reshape(b, n, -1)
+        return (F.relu(F.linear(pool, waf, p.baf))
+                + F.relu(F.linear(torch.amax(g, dim=2), wt[3], p.bsk)))
+
+    return run
+
+
+def check_refine_local(dev):
+    """The fused local + skip kernel against ``refine_local_torch`` on the
+    card at the refiner's pass-1 and pass-2 shapes, on random grouped
+    rows and full-width parameters: every row within ``REFINE_REL`` of
+    the output's scale.  The aggregate is a 4× 'fused' request's one
+    launch (pass 1)."""
+    import torch
+
+    from dispu_tpu_torch.kernels.refine_local import (refine_local_cuda,
+                                                      refine_local_torch)
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    k, cf = REFINE_K, 6 + REFINE_C
+    p = _refine_params(gen, dev)
+    library = _refine_library(p)
+    agg = None
+    for label, b, n, per_req in REFINE_SHAPES:
+        g = torch.randn(b, n, k, cf, generator=gen).to(dev)
+        got = refine_local_cuda(g, p)
+        want = refine_local_torch(g, p)
+        torch.cuda.synchronize()
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= REFINE_REL * scale,
+                f"refine_local {label}: max|d| {err} over scale {scale}")
+        ms = timed_ms(lambda: refine_local_cuda(g, p), reps=10)
+        plain_ms = timed_ms(lambda: refine_local_torch(g, p), reps=5)
+        library_ms = timed_ms(lambda: library(g), reps=5)
+        nbytes = 4 * (g.numel() + sum(t.numel() for t in p)
+                      + b * n * p.wsk.shape[-1])
+        ops = _refine_ops(b, n, k, cf, p)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        log(f"refine_local {label} (b={b} n={n} k={k} cf={cf} mlp="
+            f"{REFINE_MLP}): max|d| {err:.3e} of scale {scale:.3f} (bound "
+            f"{REFINE_REL} of it); kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"cuBLAS chain {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if per_req:
+            agg = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                       t_ops=ops / F32_FLOPS, max_abs_err=err)
+    return agg
+
+
+def check_refine_block(dev):
+    """The mega-fused kernel at the refiner's pass-1 and pass-2 shapes on
+    random points and features: its selection (``idx_out``) bit-equal to
+    the kNN kernel's on the same points, its output within
+    ``REFINE_REL`` of the output's scale on every row from
+    ``refine_block_torch`` fed those indices; with the plain version's
+    own selection (cuBLAS distances), the rows that move at near-ties are
+    counted.  The aggregate is a 4× 'megafused' request's one launch."""
+    import torch
+
+    from dispu_tpu_torch.kernels.knn import knn_cuda
+    from dispu_tpu_torch.kernels.refine_block import (grouped_rows,
+                                                      refine_block_cuda,
+                                                      refine_block_torch)
+
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    k, c = REFINE_K, REFINE_C
+    p = _refine_params(gen, dev)
+    library = _refine_library(p)
+    agg = None
+    for label, b, n, per_req in REFINE_SHAPES:
+        xyz = torch.randn(b, n, 3, generator=gen).to(dev)
+        feats = torch.randn(b, n, c, generator=gen).to(dev)
+        got, idx = refine_block_cuda(xyz, feats, p, with_idx=True)
+        _, kidx = knn_cuda(k, xyz, xyz)
+        want = refine_block_torch(xyz, feats, p, idx=idx)
+        own = refine_block_torch(xyz, feats, p)
+        torch.cuda.synchronize()
+        require(torch.equal(idx, kidx),
+                f"refine_block {label}: selection differs from knn.cu's")
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= REFINE_REL * scale,
+                f"refine_block {label}: max|d| {err} over scale {scale}")
+        moved = int(((got - own).abs().amax(-1) > REFINE_REL * scale).sum())
+
+        def lib():
+            sel = torch.topk(torch.cdist(xyz, xyz) ** 2, k, dim=-1,
+                             largest=False)[1]
+            return library(grouped_rows(xyz, feats, sel))
+
+        ms = timed_ms(lambda: refine_block_cuda(xyz, feats, p), reps=10)
+        plain_ms = timed_ms(lambda: refine_block_torch(xyz, feats, p),
+                            reps=5)
+        library_ms = timed_ms(lib, reps=5)
+        nbytes = 4 * (xyz.numel() + feats.numel()
+                      + sum(t.numel() for t in p) + b * n * p.wsk.shape[-1])
+        ops = _refine_ops(b, n, k, 6 + c, p) + b * n * n * (2 * 3 + 4)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        log(f"refine_block {label} (b={b} n={n} k={k} c={c} mlp="
+            f"{REFINE_MLP}): idx bit-equal to knn.cu; max|d| {err:.3e} of "
+            f"scale {scale:.3f} at those indices (bound {REFINE_REL} of "
+            f"it); rows that move with the plain version's own selection "
+            f"{moved} of {b * n}; kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"cdist+topk+gather+cuBLAS chain {library_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        if per_req:
+            agg = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                       t_ops=ops / F32_FLOPS, max_abs_err=err)
+    return agg
+
+
 # --------------------------------------------------------------- phase 4
+
+
+def refine_route(g, points: int) -> str:
+    """The refiner's local-branch route at inference for ``points`` a
+    patch, by the JAX package's gates (``dispu_tpu/nn/refine.py``):
+    'megafused' and 'fused' need no batch norm and a three-layer
+    ``refine_mlp``; 'megafused' also the local branch and k ≤ 16, 'fused'
+    points % 128 == 0; otherwise 'xla'."""
+    fusable = not g.use_bn and len(g.refine_mlp) == 3
+    if (g.refine_local_impl == "megafused" and fusable and g.use_local
+            and g.refine_nsample <= 16):
+        return "megafused"
+    if g.refine_local_impl == "fused" and fusable and points % 128 == 0:
+        return "fused"
+    return "xla"
 
 
 def expected_counts(up, n: int, b: int = 1) -> dict:
@@ -1047,7 +1257,9 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
     attention and a kNN in each dense block and in the refiner, each in
     the kernel its gate picks (the fused kNN + gather at n ≤ 2048 with
     ``fused_grouping``, else the packed selection at 64 ≤ n ≤ 4096 with
-    ``fast_knn``, else the exact kNN); one merge FPS, bucketed or in the
+    ``fast_knn``, else the exact kNN); the refiner's 'fused' route adds
+    ``refine_local`` to its kNN, its 'megafused' route replaces the kNN by
+    ``refine_block`` (``refine_route``); one merge FPS, bucketed or in the
     kernel that takes its candidates."""
     from dispu_tpu_torch import kernels
     from dispu_tpu_torch.inference import plan_counts
@@ -1072,7 +1284,13 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
         # refiner's (grouping) at 1
         counts[knn_kernel(points, 64, g.knn + 1)] += g.dense_block * chunks
         points *= g.up_ratio
-        counts[knn_kernel(points, 1, g.refine_nsample)] += chunks
+        route = refine_route(g, points)
+        if route == "megafused":
+            counts["refine_block"] += chunks
+        else:
+            counts[knn_kernel(points, 1, g.refine_nsample)] += chunks
+        if route == "fused":
+            counts["refine_local"] += chunks
         counts["attention"] += chunks
     if inf.merge_fps == "bucketed" and out_num >= inf.merge_fps_buckets:
         counts["fps_bucketed"] += 1
@@ -1396,6 +1614,122 @@ def serve_turbo(card: str):
     return total
 
 
+def serve_refine(card: str):
+    """The fused refiner settings (``refine_local_impl`` 'fused' and
+    'megafused') at full width from the port's seeded init: two 4× and
+    two 16× requests on each demo cloud and one ``upsample_many`` of both
+    clouds at each ratio, each path with exact launch counts and
+    bit-equal repeats; each output against the composed path within the
+    exact path's Chamfer limits: 'fused' against the default 'xla' path
+    through the plain versions; 'megafused' against the composed path
+    whose refiner gathers its features rounded to bf16 (``fast_gather``,
+    whose values it takes; the backbone stays exact) through the kernels,
+    so that both take ``knn.cu``'s selection.  Against that path through
+    the plain versions the two differ where a kNN near-tie falls on a
+    selection boundary, as the composed path's kernels and plain versions
+    do, so that reading is logged beside the composed path's own.  Then ms
+    per request of each setting beside 'xla', in turns."""
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import GeneratorConfig, InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+
+    clouds = {name: load_cloud(name)
+              for name in ("Icosahedron.xyz", "fandisk.xyz")}
+    pcs = np.stack(list(clouds.values()))
+    b, n, _ = pcs.shape
+    # (reference configuration, its impl)
+    refs = {"fused": (GeneratorConfig(), "torch"),
+            "megafused": (GeneratorConfig(fast_gather=True), "auto")}
+    total = {}
+    for ratio in (4, 16):
+        inf = InferenceConfig(final_ratio=ratio)
+        ups = {"xla": PatchUpsampler(inf_cfg=inf, seed=0)}
+        for setting, (ref_cfg, ref_impl) in refs.items():
+            up = PatchUpsampler(gen_cfg=GeneratorConfig(
+                refine_local_impl=setting), inf_cfg=inf, seed=0)
+            ups[setting] = up
+            expected = {}
+            for pc in clouds.values():
+                expected = add_counts(expected,
+                                      expected_counts(up, pc.shape[0]), 2)
+            outs = {}
+            kernels.reset_launch_counts()
+            for name, pc in clouds.items():
+                for rep in range(2):
+                    out = up.upsample(pc)
+                    require(out.shape == (pc.shape[0] * ratio, 3)
+                            and np.isfinite(out).all(),
+                            f"{setting} {ratio}x {name}: shape or values")
+                    if rep:
+                        require(np.array_equal(out, outs[name]),
+                                f"{setting} {ratio}x {name}: repeated "
+                                "request differs")
+                    outs[name] = out
+            counts = kernels.launch_counts()
+            log(f"{setting}: launches over 4 {ratio}x requests: {counts} "
+                f"(expected {expected})")
+            require(counts == expected,
+                    f"{setting} {ratio}x launch counts {counts}")
+            total = add_counts(total, counts)
+            expected = expected_counts(up, n, b)
+            kernels.reset_launch_counts()
+            many = up.upsample_many(pcs)
+            counts = kernels.launch_counts()
+            log(f"{setting}: launches of one {ratio}x upsample_many call "
+                f"(B={b}): {counts} (expected {expected})")
+            require(counts == expected,
+                    f"{setting} {ratio}x stream launch counts {counts}")
+            require(many.shape == (b, n * ratio, 3)
+                    and np.isfinite(many).all(),
+                    f"{setting} {ratio}x stream: shape or values")
+            total = add_counts(total, counts)
+
+            ref = PatchUpsampler(gen_cfg=ref_cfg, inf_cfg=inf, seed=0,
+                                 impl=ref_impl)
+            with torch.inference_mode():
+                ref_outs = [ref.upsample(pc) for pc in clouds.values()]
+                ref_outs += list(ref.upsample_many(pcs))
+            got = list(outs.values()) + list(many)
+            cds = [chamfer(a, r) for a, r in zip(got, ref_outs)]
+            via = "kernels" if ref_impl == "auto" else "plain versions"
+            log(f"{setting} {ratio}x: Chamfer against the composed path "
+                f"({'fast_gather' if setting == 'megafused' else 'xla'}) "
+                f"through the {via}, requests and upsample_many: "
+                f"{['%.3e' % c for c in cds]} (bound {CHAMFER_MAX[ratio]})")
+            require(max(cds) <= CHAMFER_MAX[ratio],
+                    f"{setting} {ratio}x: Chamfer {cds}")
+            if ref_impl == "auto":
+                plain = PatchUpsampler(gen_cfg=ref_cfg, inf_cfg=inf, seed=0,
+                                       impl="torch")
+                with torch.inference_mode():
+                    p_outs = [plain.upsample(pc) for pc in clouds.values()]
+                    p_outs += list(plain.upsample_many(pcs))
+                mine = [chamfer(a, r) for a, r in zip(got, p_outs)]
+                theirs = [chamfer(a, r) for a, r in zip(ref_outs, p_outs)]
+                log(f"{setting} {ratio}x: Chamfer against the same path "
+                    f"through the plain versions {['%.3e' % c for c in mine]}"
+                    f"; the path's kernels against its plain versions "
+                    f"{['%.3e' % c for c in theirs]}")
+        pc = clouds["Icosahedron.xyz"]
+        laps = {name: [] for name in ups}
+        for up in ups.values():
+            up.upsample(pc)  # warm
+        for turn in range(2):
+            order = list(ups) if turn == 0 else list(ups)[::-1]
+            for name in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ups[name].upsample(pc)
+                laps[name].append((time.perf_counter() - t0) * 1e3)
+        log(f"ms per 2048-point {ratio}x request, refine_local_impl in "
+            "turns: " + "; ".join(f"{name} {', '.join('%.2f' % t for t in ts)}"
+                                  for name, ts in laps.items())
+            + f"; on {card}")
+    return total
+
+
 def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),
               name: str = "cli_smoke"):
     """``python -m dispu_tpu_torch.cli --phase test`` with ``flags`` on the
@@ -1702,6 +2036,26 @@ def train_phase(card: str, profile: bool):
             run("auto", 8, times=times, c=vcfg)
             laps[name] += times[1:]
     total_counts = add_counts(total_counts, kernels.launch_counts())
+    # (f) refine_local_impl='megafused' trains on the composed refiner, as
+    # in the JAX package: one step launches what the default step does,
+    # none of the refine kernels, and its metrics are the default step's
+    # bits from the same state and seed
+    mcfg = dataclasses.replace(cfg, generator=dataclasses.replace(
+        cfg.generator, refine_local_impl="megafused"))
+    kernels.reset_launch_counts()
+    _, _, m_mega = run("auto", 1, c=mcfg)
+    counts = kernels.launch_counts()
+    log(f"training, refine_local_impl=megafused: launches of one step "
+        f"{counts} (expected the default step's {per_step})")
+    require(counts == per_step, f"megafused train launch counts {counts}")
+    total_counts = add_counts(total_counts, counts)
+    kernels.reset_launch_counts()
+    _, _, m_def = run("auto", 1)
+    total_counts = add_counts(total_counts, kernels.launch_counts())
+    same = all(float(m_mega[k]) == float(m_def[k]) for k in m_def)
+    log(f"training, refine_local_impl=megafused: metrics bit-equal to the "
+        f"default step's: {same}")
+    require(same, "megafused train step differs from the default step")
     log("training: ms per warm step at batch 28, two turns of 7 each: "
         + "; ".join(f"{name} median {statistics.median(t):.3f} (min "
                     f"{min(t):.3f}, max {max(t):.3f})"
@@ -2040,9 +2394,10 @@ def profile_request(up, pc):
         stages[name] = (time.perf_counter() - t0) * 1e3
         return out
 
-    log(f"profile of one {up.inf_cfg.final_ratio}x request "
-        f"({'turbo' if up.gen_cfg.fused_grouping else 'exact'} generator, "
-        f"{up.inf_cfg.merge_fps} merge):")
+    kind = ("turbo" if up.gen_cfg.fused_grouping else
+            f"exact, refine_local_impl={up.gen_cfg.refine_local_impl}")
+    log(f"profile of one {up.inf_cfg.final_ratio}x request ({kind} "
+        f"generator, {up.inf_cfg.merge_fps} merge):")
     with torch.inference_mode():
         up.upsample(pc)  # warm
         pc_n, _, _ = stage("normalize", lambda: normalize_point_cloud(
@@ -2092,7 +2447,8 @@ def profile_request(up, pc):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="in phase 4, break one request and one train "
+                        help="in phase 4, break one request (exact, turbo, "
+                             "each fused refiner setting) and one train "
                              "step down by stage and by device kernel")
     args = parser.parse_args()
 
@@ -2140,7 +2496,9 @@ def main() -> int:
             "query_ball": check_query_ball(dev),
             "fps_lite": check_fps_lite(dev),
             "gather_rows": check_gather_rows(dev),
-            "scatter_rows": check_scatter_rows(dev)}
+            "scatter_rows": check_scatter_rows(dev),
+            "refine_local": check_refine_local(dev),
+            "refine_block": check_refine_block(dev)}
     check_knn_group_backward(dev)
     train_knn = [TRAIN_KNN_MS[k] for k in ("train bb c24", "train bb c48",
                                            "train refiner", "chamfer k1")]
@@ -2155,6 +2513,7 @@ def main() -> int:
     counts = add_counts(serve(card), serve_16x(card))
     counts = add_counts(counts, serve_stream(card))
     counts = add_counts(counts, serve_turbo(card))
+    counts = add_counts(counts, serve_refine(card))
     counts = add_counts(counts, train_phase(card, args.profile))
     cli_phase(card, os.path.join(REPO, "chiprun_out", "train_smoke"))
     gan_counts, gan_dir = gan_phase(card, args.profile)
@@ -2166,12 +2525,18 @@ def main() -> int:
         from dispu_tpu_torch import InferenceConfig
         from dispu_tpu_torch.inference import PatchUpsampler
 
+        from dispu_tpu_torch import GeneratorConfig
+
         turbo = turbo_config()
         for ratio in (4, 16):
             for gen_cfg, inf in (
                     (None, InferenceConfig(final_ratio=ratio)),
                     (turbo.generator, dataclasses.replace(
-                        turbo.inference, final_ratio=ratio))):
+                        turbo.inference, final_ratio=ratio)),
+                    (GeneratorConfig(refine_local_impl="fused"),
+                     InferenceConfig(final_ratio=ratio)),
+                    (GeneratorConfig(refine_local_impl="megafused"),
+                     InferenceConfig(final_ratio=ratio))):
                 kw = {} if gen_cfg is None else dict(gen_cfg=gen_cfg)
                 profile_request(PatchUpsampler(seed=0, inf_cfg=inf, **kw),
                                 load_cloud("Icosahedron.xyz"))
@@ -2183,7 +2548,8 @@ def main() -> int:
     # there); per train step for query_ball, and for gather_rows and
     # scatter_rows with gather_impl='pallas' (five launches each); the
     # critic's seed FPS (28 x 1024 -> 128) for fps_lite, which no path
-    # calls
+    # calls; a 4x request with refine_local_impl 'fused' / 'megafused' for
+    # refine_local / refine_block (one launch at the pass-1 shape)
     meta = {
         "knn": ("dispu_tpu_torch/kernels/csrc/knn.cu",
                 "dispu_tpu/ops/pallas_kernels.py:867"),
@@ -2209,6 +2575,10 @@ def main() -> int:
                         "dispu_tpu/ops/pallas_kernels.py:1265"),
         "scatter_rows": ("dispu_tpu_torch/kernels/csrc/gather_rows.cu",
                          "dispu_tpu/ops/pallas_kernels.py:1365"),
+        "refine_local": ("dispu_tpu_torch/kernels/csrc/refine_local.cu",
+                         "dispu_tpu/ops/pallas_kernels.py:2447"),
+        "refine_block": ("dispu_tpu_torch/kernels/csrc/refine_block.cu",
+                         "dispu_tpu/ops/pallas_kernels.py:2621"),
     }
     line = []
     for name, (source, replaces) in meta.items():

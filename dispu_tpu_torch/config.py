@@ -200,6 +200,9 @@ class ExperimentConfig:
 
 
 EXACT_GATHERS = ("gather", "onehot_hp", "onehot3", "pallas")
+#: the refiner's local-branch evaluations: composed, the fused kernel on
+#: the grouped tensor, the mega-fused kNN + gather + MLP kernel
+REFINE_LOCAL_IMPLS = ("xla", "fused", "megafused")
 #: every gather_impl the port runs: the exact ones, the bf16 turbo gather
 #: and the fused kNN + gather kernel (exact or bf16 features)
 GATHERS = EXACT_GATHERS + ("onehot", "fused", "fused_turbo")
@@ -219,12 +222,13 @@ def check_supported(gen_cfg: GeneratorConfig,
     Each message names the ROADMAP.md queue item that will bring it.  The
     turbo serving flags are ported: ``fast_knn``, ``fast_gather``,
     ``fast_gather_backbone``, ``fused_grouping``, ``dense_impl='split'``,
-    ``gather_impl='onehot'`` and the bucketed merge with the argsort rank.
+    ``gather_impl='onehot'`` and the bucketed merge with the argsort rank;
+    so is every ``refine_local_impl`` (the fused refiner kernels).
     """
     turbo = "turbo and opt-in paths"
-    if gen_cfg.refine_local_impl != "xla":
-        _unsupported(f"refine_local_impl={gen_cfg.refine_local_impl!r} "
-                     "(queue 2 items 12 and 13)", turbo)
+    if gen_cfg.refine_local_impl not in REFINE_LOCAL_IMPLS:
+        raise ValueError("unknown refine_local_impl "
+                         f"{gen_cfg.refine_local_impl!r}")
     if gen_cfg.dense_impl not in ("concat", "split"):
         raise ValueError(f"unknown dense_impl {gen_cfg.dense_impl!r}")
     if gen_cfg.gather_impl not in GATHERS:
@@ -250,7 +254,9 @@ def check_train_supported(cfg: ExperimentConfig) -> None:
     device in f32, with any exact ``gather_impl`` ('pallas' through the
     gather and scatter-add kernels) or with ``fused_grouping`` alone (the
     ``knn_group`` kernel and its backward rule), for the generator and
-    the critic.  The other turbo flags serve only."""
+    the critic.  The other turbo flags serve only.  Any
+    ``refine_local_impl`` trains: training takes the composed refiner, as
+    in the JAX package."""
     check_supported(cfg.generator)
     g, turbo = cfg.generator, "turbo and opt-in paths"
     if g.fast_knn:

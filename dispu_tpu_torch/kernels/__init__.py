@@ -15,7 +15,7 @@ from __future__ import annotations
 LAUNCHES = {"knn": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
             "fps_lite": 0, "fps_chunked": 0, "fps_bucketed": 0,
             "attention": 0, "query_ball": 0, "gather_rows": 0,
-            "scatter_rows": 0}
+            "scatter_rows": 0, "refine_local": 0, "refine_block": 0}
 
 IMPLS = ("auto", "cuda", "torch")
 

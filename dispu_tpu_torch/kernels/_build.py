@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NAMES = ("knn", "fps", "fps_chunked", "attention", "query_ball",
-         "knn_group", "fps_bucketed", "gather_rows")
+         "knn_group", "fps_bucketed", "gather_rows", "refine_local",
+         "refine_block")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,0 +1,156 @@
+// The refiner's mega-fused block: exact self-kNN, the neighbourhood
+// gathers, and the local + skip branches, in one kernel.
+//
+// Replaces refine_block_pallas (dispu_tpu/ops/pallas_kernels.py): from the
+// coarse points xyz (b, n, 3), their features (b, n, c) and the
+// pre-folded parameters of refine_local.cu, out (b, n, co) =
+// relu(after_conv(pool)) + relu(skip), where each query's neighbourhood is
+// its k <= 16 nearest points of its own cloud, grouped as
+// [p - q | p | bf16(feature of p)], the features rounded once to bf16 (to
+// nearest even, __float2bfloat16_rn), the xyz exact.  No (b, n, k, .)
+// tensor is ever written to device memory.
+//
+// One block per (cloud, tile of T queries), in two phases:
+//   A. one warp per query (queries w, w + 8, ... of the tile) runs
+//      knn_common.cuh's row_distances, select_min and knock_out for k
+//      rounds, so the indices are knn.cu's bits on the same inputs; they
+//      go to shared memory (and, when idx_out is given, to device memory).
+//   B. the distance rows' shared memory is reused for the tile's grouped
+//      rows, one warp per row, lanes over the feature row (coalesced);
+//      then refine_common.cuh's tile_mlp, the same code as
+//      refine_local.cu's.
+//
+// What bounds it on an H100: operations, as for refine_local.cu (74 GFLOP
+// at the pass-1 shape, 1.1 ms at the f32 rate); the distances and
+// selection add n (2 c + 4) flops and k passes over an n-float row per
+// query.  Limits: phase A holds min(T, 8) distance rows of n + 3 floats in
+// shared memory, phase B the tile of refine_common.cuh; the larger of the
+// two must fit one block's 232,448 bytes (n <= 7,245 at T = 8).
+
+#include <cuda_bf16.h>
+
+#include "knn_common.cuh"
+#include "refine_common.cuh"
+
+namespace {
+
+using namespace refine_common;
+
+__global__ void __launch_bounds__(kThreads)
+    refine_block_kernel(const float* __restrict__ xyz,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ feats, Params p, Dims d,
+                        int n, int T, int* __restrict__ idx_out,
+                        float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  int* sidx = reinterpret_cast<int*>(smem4);
+  const int k = d.k, c = d.cf - 6;
+  float* work = reinterpret_cast<float*>(smem4) + round4((size_t)T * k);
+  const int tiles = (n + T - 1) / T;
+  const int cloud = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - cloud * tiles) * T;
+  const int valid = min(T, n - q0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* pts = xyz + (size_t)cloud * n * 3;
+
+  // phase A: the selection, as knn.cu
+  float* drow = work + (size_t)warp * (n + 3);
+  for (int q = warp; q < valid; q += kWarps) {
+    knn_common::row_distances(pts + (size_t)(q0 + q) * 3, pts,
+                              bias + (size_t)cloud * n, drow, drow + n, n, 3,
+                              lane);
+    for (int r = 0; r < k; ++r) {
+      float bv;
+      int bj;
+      knn_common::select_min(drow, n, lane, bv, bj);
+      if (lane == 0) {
+        sidx[q * k + r] = bj;
+        if (idx_out != nullptr)
+          idx_out[((size_t)cloud * n + q0 + q) * k + r] = bj;
+      }
+      knn_common::knock_out(drow, n, lane, bj);
+    }
+  }
+  __syncthreads();
+
+  // phase B: the grouped rows [p - q | p | bf16(f_p)] over the spent rows
+  const int ldg = pad(d.cf);
+  float* G = tile_rows(work, T, d);
+  for (int r = warp; r < T * k; r += kWarps) {
+    float* g = G + (size_t)r * ldg;
+    const int q = r / k;
+    if (q >= valid) {
+      for (int t = lane; t < d.cf; t += 32) g[t] = 0.f;
+      continue;
+    }
+    const int j = sidx[r];
+    const bool in = j >= 0 && j < n;  // not so only for overflowed inputs
+    const float* pj = pts + (size_t)(in ? j : 0) * 3;
+    if (lane < 3) {
+      const float v = in ? pj[lane] : 0.f;
+      g[lane] = __fsub_rn(v, pts[(size_t)(q0 + q) * 3 + lane]);
+      g[3 + lane] = v;
+    }
+    const float* f = feats + ((size_t)cloud * n + (in ? j : 0)) * c;
+    for (int t0 = lane; t0 < c; t0 += 32 * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = t0 + 32 * u;
+        v[u] = (in && t < c) ? f[t] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = t0 + 32 * u;
+        if (t < c) g[6 + t] = __bfloat162float(__float2bfloat16_rn(v[u]));
+      }
+    }
+  }
+  __syncthreads();
+  tile_mlp(work, T, valid, d, p, out + ((size_t)cloud * n + q0) * d.co);
+}
+
+}  // namespace
+
+// Shared-memory bytes of one block, or 0 when it exceeds a block's limit.
+extern "C" size_t dispu_refine_block_smem(int n, int k, int cf, int c1,
+                                          int c2, int co, int T) {
+  const Dims d{k, cf, c1, c2, co};
+  const int rows = T < kWarps ? T : kWarps;
+  const size_t floats =
+      round4((size_t)T * k) +
+      zmax((size_t)rows * (n + 3), mlp_floats(T, d));
+  const size_t bytes = floats * sizeof(float);
+  return bytes <= kMaxSmem ? bytes : 0;
+}
+
+// xyz (b, n, 3), bias (b, n) (zeros: the kNN's column bias), feats (b, n,
+// cf - 6); the weights as dispu_refine_local's with w0 and wsk of cf = 6 +
+// c rows; idx_out (b, n, k) int32 or null; out (b, n, co).
+extern "C" int dispu_refine_block(const float* xyz, const float* bias,
+                                  const float* feats, const float* w0,
+                                  const float* b0, const float* w1,
+                                  const float* b1, const float* ww,
+                                  const float* bw, const float* wsk,
+                                  const float* bsk, const float* waf,
+                                  const float* baf, int* idx_out, float* out,
+                                  int b, int n, int k, int cf, int c1, int c2,
+                                  int co, int T, void* stream) {
+  const Dims d{k, cf, c1, c2, co};
+  if (b < 1 || n < 1 || k < 1 || k > n || cf < 7 || c1 < 1 || c2 < 1 ||
+      co < 1 || T < 1 || T > kMaxT)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dispu_refine_block_smem(n, k, cf, c1, c2, co, T);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      refine_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const Params p{w0, b0, w1, b1, ww, bw, wsk, bsk, waf, baf};
+  const long long blocks = (long long)b * ((n + T - 1) / T);
+  refine_block_kernel<<<(unsigned)blocks, kThreads, smem,
+                        (cudaStream_t)stream>>>(xyz, bias, feats, p, d, n, T,
+                                                idx_out, out);
+  return (int)cudaGetLastError();
+}

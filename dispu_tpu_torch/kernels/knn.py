@@ -7,7 +7,8 @@ selection of ``variant="packed"`` (:func:`knn_packed`, count
 selection rounds over each query's distance row, which they keep in shared
 memory; see the note at the top of the source.  :func:`knn` is
 differentiable through :class:`KnnFunction`, which carries
-``knn_pallas_diff``'s backward rule in torch ops.
+``knn_pallas_diff``'s backward rule in torch ops; so is :func:`knn_packed`,
+by the same rule.
 """
 
 from __future__ import annotations
@@ -111,12 +112,18 @@ def knn_backward(points: torch.Tensor, queries: torch.Tensor,
 
 class KnnFunction(torch.autograd.Function):
     """kNN whose distances are differentiable in the points and queries:
-    forward by the kernel (``use_cuda``) or by :func:`knn_torch`, backward
-    by :func:`knn_backward`.  Indices and the bias carry no gradient."""
+    forward by the kernel (``use_cuda``) or by its plain version, the
+    exact selection or with ``packed`` the packed one; backward by
+    :func:`knn_backward` for both, the selection held fixed, as
+    ``knn_pallas_diff`` does for every variant.  Indices and the bias
+    carry no gradient."""
 
     @staticmethod
-    def forward(ctx, k, points, queries, bias, use_cuda):
-        run = knn_cuda if use_cuda else knn_torch
+    def forward(ctx, k, points, queries, bias, use_cuda, packed=False):
+        if packed:
+            run = knn_packed_cuda if use_cuda else knn_packed_torch
+        else:
+            run = knn_cuda if use_cuda else knn_torch
         dists, idx = run(k, points, queries, bias)
         ctx.save_for_backward(points, queries, idx)
         ctx.mark_non_differentiable(idx)
@@ -126,7 +133,7 @@ class KnnFunction(torch.autograd.Function):
     def backward(ctx, g_dist, _g_idx):
         points, queries, idx = ctx.saved_tensors
         d_points, d_queries = knn_backward(points, queries, idx, g_dist)
-        return None, d_points, d_queries, None, None
+        return None, d_points, d_queries, None, None, None
 
 
 def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
@@ -136,7 +143,7 @@ def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
     for CPU tensors (see :func:`dispu_tpu_torch.kernels.use_kernel`);
     differentiable in ``points`` and ``queries``."""
     return KnnFunction.apply(k, points, queries, bias,
-                             use_kernel(impl, points))
+                             use_kernel(impl, points), False)
 
 
 # ----------------------------------------------------- packed-key variant
@@ -200,8 +207,9 @@ def knn_packed(k: int, points: torch.Tensor, queries: torch.Tensor,
     """The packed (turbo) selection of ``knn_pallas(variant='packed')``:
     near-ties whose distances agree above the low lane bits resolve by
     index, and the distances come back truncated.  The kernel for CUDA
-    tensors, the plain version for CPU tensors.  Serving only: nothing
-    here carries a gradient (training refuses ``fast_knn``)."""
-    run = knn_packed_cuda if use_kernel(impl, points) else knn_packed_torch
-    return run(k, points.detach(), queries.detach(),
-               None if bias is None else bias.detach())
+    tensors, the plain version for CPU tensors.  The truncated distances
+    carry ``knn_pallas_diff``'s fixed-selection gradient in ``points``
+    and ``queries`` (:class:`KnnFunction`), the exact selection's rule."""
+    return KnnFunction.apply(k, points, queries,
+                             None if bias is None else bias.detach(),
+                             use_kernel(impl, points), True)

@@ -39,7 +39,8 @@ class DisPUGenerator(nn.Module):
 
     The turbo flags (``fast_knn``, ``fast_gather``,
     ``fast_gather_backbone``, ``fused_grouping``, ``dense_impl='split'``)
-    reach the modules as the JAX package's generator passes them.
+    and ``refine_local_impl`` reach the modules as the JAX package's
+    generator passes them.
 
     impl: how the kNN and attention kernels are reached — 'auto' (the
     kernels for CUDA tensors, their plain versions for CPU tensors),
@@ -78,7 +79,8 @@ class DisPUGenerator(nn.Module):
                 width, nsample=cfg.refine_nsample, mlp=tuple(cfg.refine_mlp),
                 use_nonlocal=cfg.use_nonlocal, use_local=cfg.use_local,
                 gather_impl=_gather_impl(cfg, cfg.fast_gather),
-                knn_variant=knn_variant, **kw)
+                knn_variant=knn_variant, local_impl=cfg.refine_local_impl,
+                **kw)
             self.fine_coordinate_regressor = CoordinateRegressor(
                 cfg.refine_mlp[-1],
                 offset_range=cfg.offset_range if cfg.is_off else None)

@@ -107,11 +107,15 @@ class _PermutedRowDense(nn.Module):
         self.weight = nn.Parameter(torch.zeros(features, a * b))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def effective_weight(self) -> torch.Tensor:
+        """The (features, b·a) weight the apply uses: column j·a + i holds
+        stored row i·b + j."""
         a, b = self.inner
         f = self.weight.shape[0]
-        w = self.weight.reshape(f, a, b).transpose(1, 2).reshape(f, a * b)
-        return F.linear(x, w, self.bias)
+        return self.weight.reshape(f, a, b).transpose(1, 2).reshape(f, a * b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.effective_weight(), self.bias)
 
 
 class PointConv(nn.Module):

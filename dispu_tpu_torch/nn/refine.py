@@ -1,5 +1,5 @@
 """The spatial refiner core, ``PointShuffle2`` (counterpart of
-``nn/refine.py``), composed path only.
+``nn/refine.py``).
 
   1. kNN-group xyz + features (k = ``nsample``; on the card the kNN
      kernel and one combined ``[xyz | feature]`` gather, or with
@@ -13,6 +13,12 @@
   4. non-local branch: global attention over the whole cloud (the
      attention kernel on the card);
   5. the branches summed, then ``aggregation``.
+
+At inference, ``local_impl`` 'fused' runs steps 2 and 3 on the grouped
+tensor in one kernel (``kernels/refine_local.py``), and 'megafused' steps
+1 to 3 in one kernel with no grouped tensor (``kernels/refine_block.py``),
+inside the JAX package's gates; elsewhere, training included, the composed
+path runs.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from dispu_tpu_torch.config import REFINE_LOCAL_IMPLS
+from dispu_tpu_torch.kernels.refine_block import refine_block
+from dispu_tpu_torch.kernels.refine_local import LocalParams, refine_local
 from dispu_tpu_torch.nn.attention import PointNonLocalCell
 from dispu_tpu_torch.nn.layers import PointConv, WeightNetHidden
 from dispu_tpu_torch.ops.grouping import grouping
@@ -29,18 +38,30 @@ from dispu_tpu_torch.ops.grouping import grouping
 
 class PointShuffle2(nn.Module):
     """Local + non-local refinement: xyz (b, n, 3), feature (b, n, c) →
-    (xyz, (b, n, mlp[-1]))."""
+    (xyz, (b, n, mlp[-1])).
+
+    local_impl: the local and skip branches' evaluation, as
+    ``GeneratorConfig.refine_local_impl``: 'xla' (the composed path),
+    'fused' or 'megafused'.  Both kernels take the same parameters, folded
+    from the module's own at each call (:meth:`local_params`); the stored
+    layout stays the composed path's.
+    """
 
     def __init__(self, in_features: int, nsample: int = 16,
                  mlp: Tuple[int, ...] = (128, 128, 256), use_bn: bool = False,
                  bn_momentum: float = 0.95, use_nonlocal: bool = True,
                  use_local: bool = True, gather_impl: str = "gather",
-                 impl: str = "auto", knn_variant: str = "auto"):
+                 impl: str = "auto", knn_variant: str = "auto",
+                 local_impl: str = "xla"):
         super().__init__()
+        if local_impl not in REFINE_LOCAL_IMPLS:
+            raise ValueError(f"local_impl must be one of {REFINE_LOCAL_IMPLS}"
+                             f", got {local_impl!r}")
         c, k, out_c = in_features, nsample, mlp[-1]
         kw = dict(use_bn=use_bn, bn_momentum=bn_momentum)
         self.nsample, self.gather_impl, self.impl = k, gather_impl, impl
-        self.knn_variant = knn_variant
+        self.knn_variant, self.local_impl, self.use_bn = (knn_variant,
+                                                          local_impl, use_bn)
         self.use_nonlocal, self.use_local = use_nonlocal, use_local
         if use_nonlocal:
             # 'nonlocal' is a Python keyword: the flax name needs add_module
@@ -61,29 +82,75 @@ class PointShuffle2(nn.Module):
                                     kernel_row_perm=(width, k), **kw)
         self.aggregation = PointConv(out_c, out_c, **kw)
 
+    def local_route(self, feature: torch.Tensor) -> str:
+        """Which path the local and skip branches take for ``feature``:
+        the JAX package's gates (``dispu_tpu/nn/refine.py``).  'fused' and
+        'megafused' need inference (``.eval()``), no batch norm, two hidden
+        convs and f32; 'megafused' also the local branch and k ≤ 16 (the
+        port's refiner always groups by kNN, never refines the points),
+        'fused' n % 128 == 0.  Otherwise 'xla', the composed path."""
+        fusable = (not self.training and not self.use_bn
+                   and self.num_convs == 2
+                   and feature.dtype == torch.float32)
+        if (self.local_impl == "megafused" and fusable and self.use_local
+                and self.nsample <= 16):
+            return "megafused"
+        if (self.local_impl == "fused" and fusable
+                and feature.shape[1] % 128 == 0):
+            return "fused"
+        return "xla"
+
+    def local_params(self) -> LocalParams:
+        """The local and skip branches' parameters as the kernels take
+        them, from the module's own at call time: dense kernels as (in,
+        out); the weight net's inference batch norm folded into its dense
+        layer (``sc = scale · rsqrt(var + eps)``); ``after_conv``'s kernel
+        as (k, c', c_out) t-major blocks of the weight its apply uses."""
+        conv0, conv1 = self.conv0.dense, self.conv1.dense
+        wconv = self.weight_net.wconv0
+        bn = wconv.bn
+        sc = bn.scale * torch.rsqrt(bn.var + bn.epsilon)
+        after = self.after_conv.dense
+        waf = after.effective_weight().t().reshape(
+            self.nsample, conv1.weight.shape[0], -1)
+        return LocalParams(
+            conv0.weight.t(), conv0.bias, conv1.weight.t(), conv1.bias,
+            wconv.dense.weight.t() * sc, (wconv.dense.bias - bn.mean) * sc
+            + bn.bias, self.skip.dense.weight.t(), self.skip.dense.bias, waf,
+            after.bias)
+
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor):
         b, n, _ = feature.shape
-        grouped_xyz, grouped_feat, _ = grouping(
-            feature, self.nsample, xyz, xyz, use_xyz=True,
-            gather_impl=self.gather_impl, impl=self.impl,
-            knn_variant=self.knn_variant,
-        )
-        centered = grouped_xyz - xyz[:, :, None, :]
-        grouped_feat = torch.cat([centered, grouped_feat], dim=-1)
+        route = self.local_route(feature)
+        if route != "megafused":
+            grouped_xyz, grouped_feat, _ = grouping(
+                feature, self.nsample, xyz, xyz, use_xyz=True,
+                gather_impl=self.gather_impl, impl=self.impl,
+                knn_variant=self.knn_variant,
+            )
+            centered = grouped_xyz - xyz[:, :, None, :]
+            grouped_feat = torch.cat([centered, grouped_feat], dim=-1)
 
         if self.use_nonlocal:
             nl = getattr(self, "nonlocal")(feature, feature[:, None])[:, 0]
         if self.use_nonlocal and not self.use_local:
             y = nl
         else:
-            skip = self.skip(torch.amax(grouped_feat, dim=2))
-            y = grouped_feat
-            for i in range(self.num_convs):
-                y = getattr(self, f"conv{i}")(y)
-            w = self.weight_net(centered)                  # (b, n, k, k)
-            y = torch.einsum("bnkt,bnkc->bntc", w, y)
-            y = self.after_conv(y.reshape(b, n, -1))       # k-major flatten
-            y = y + skip
+            if route == "megafused":
+                y = refine_block(xyz, feature, self.local_params(),
+                                 impl=self.impl)
+            elif route == "fused":
+                y = refine_local(grouped_feat, self.local_params(),
+                                 impl=self.impl)
+            else:
+                skip = self.skip(torch.amax(grouped_feat, dim=2))
+                y = grouped_feat
+                for i in range(self.num_convs):
+                    y = getattr(self, f"conv{i}")(y)
+                w = self.weight_net(centered)              # (b, n, k, k)
+                y = torch.einsum("bnkt,bnkc->bntc", w, y)
+                y = self.after_conv(y.reshape(b, n, -1))   # k-major flatten
+                y = y + skip
             if self.use_nonlocal:
                 y = y + nl
         return xyz, self.aggregation(y)

@@ -60,8 +60,9 @@ def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
         impl: str = "auto", variant: str = "auto"):
     """(b, n, c) points, (b, m, c) queries → ((b, m, k) squared distances
     ascending, (b, m, k) int32 indices); ties go to the lower index.  The
-    exact distances are differentiable (``kernels.knn.KnnFunction``); the
-    packed ones are truncated and carry no gradient."""
+    distances are differentiable with the selection held fixed
+    (``kernels.knn.KnnFunction``); the packed ones are truncated, and
+    their gradient is the exact rule's at the packed selection."""
     return _select(k, points, queries, None, impl, variant)
 
 

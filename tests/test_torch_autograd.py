@@ -75,6 +75,38 @@ def test_knn_function_matches_knn_pallas_diff(b, n, m, c, k, dup):
     _close(tq.grad, jgq, 1e-6)
 
 
+@pytest.mark.parametrize("c", [3, 24])
+def test_knn_packed_gradient_matches_knn_pallas_diff(c):
+    """The packed selection's truncated distances carry the exact rule's
+    gradient at the packed selection (``_knn_diff_bwd`` for every
+    variant): torch.autograd.grad of sum(w * dist) against jax.grad
+    through ``knn_pallas_diff(variant='packed')`` in interpret mode."""
+    from dispu_tpu_torch.kernels.knn import knn_packed
+
+    b, n, m, k = 2, 128, 64, 8
+    rng = np.random.RandomState(c)
+    pts = rng.randn(b, n, c).astype(np.float32)
+    qs = rng.randn(b, m, c).astype(np.float32)
+    w = rng.randn(b, m, k).astype(np.float32)
+    bias = jnp.zeros((b, n), jnp.float32)
+
+    def loss(p, q):
+        d = knn_pallas_diff(k, p, q, bias, True, "packed")[0]
+        return jnp.sum(jnp.asarray(w) * d)
+
+    jgp, jgq = jax.grad(loss, argnums=(0, 1))(jnp.asarray(pts),
+                                              jnp.asarray(qs))
+    _, jidx = knn_pallas_diff(k, jnp.asarray(pts), jnp.asarray(qs), bias,
+                              True, "packed")
+    tp, tq = _t(pts), _t(qs)
+    td, tidx = knn_packed(k, tp, tq)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    tgp, tgq = torch.autograd.grad(torch.sum(torch.from_numpy(w) * td),
+                                   (tp, tq))
+    _close(tgp, jgp, 1e-5)
+    _close(tgq, jgq, 1e-5)
+
+
 def test_attention_function_matches_attention_pallas_diff():
     rng = np.random.RandomState(7)
     b, nq, nk, c, cv = 2, 48, 40, 16, 12

@@ -27,9 +27,11 @@ pytestmark = pytest.mark.cuda
 
 SMALL = dict(num_points=64, knn=8, refine_nsample=8)
 #: the kernels the default exact paths never launch: the turbo path's,
-#: the lite FPS (no caller) and the gather pair (gather_impl='pallas')
+#: the lite FPS (no caller), the gather pair (gather_impl='pallas') and
+#: the fused refiner's (refine_local_impl 'fused' / 'megafused')
 NO_TURBO = {"knn_packed": 0, "knn_group": 0, "fps_bucketed": 0,
-            "fps_lite": 0, "gather_rows": 0, "scatter_rows": 0}
+            "fps_lite": 0, "gather_rows": 0, "scatter_rows": 0,
+            "refine_local": 0, "refine_block": 0}
 
 
 @pytest.fixture
@@ -476,7 +478,7 @@ def test_turbo_upsampler_goes_through_the_kernels(dev, final_ratio, patch, n,
     out = up.upsample(pc)
     assert kernels.launch_counts() == dict(
         counts, fps_chunked=0, query_ball=0, fps_lite=0, gather_rows=0,
-        scatter_rows=0)
+        scatter_rows=0, refine_local=0, refine_block=0)
     assert out.shape == (n * final_ratio, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf, impl="torch").upsample(pc)
     # against the plain versions on the card: the bucketed merge moves
@@ -701,3 +703,90 @@ def test_gan_step_on_the_card(dev, gen_kw, disc_kw, counts):
     for n, g in gp.items():
         if g is not None and bool(g.abs().max() > 0):
             assert gk[n] is not None and bool(gk[n].abs().max() > 0), n
+
+
+# ----------------------------------------------------- the fused refiner
+
+
+def _local_params(seed, dev, k, cf, mlp):
+    from dispu_tpu_torch.kernels.refine_local import LocalParams
+
+    rng = np.random.RandomState(seed)
+    c1, c2, co = mlp
+    shapes = [(cf, c1), (c1,), (c1, c2), (c2,), (3, k), (k,), (cf, co),
+              (co,), (k, c2, co), (co,)]
+    return LocalParams(*(torch.from_numpy(
+        (0.2 * rng.randn(*s)).astype(np.float32)).to(dev) for s in shapes))
+
+
+@pytest.mark.parametrize("b,n,k,c,mlp", [
+    (2, 256, 8, 32, (32, 32, 64)),    # 16 queries a block, aligned
+    (1, 200, 12, 20, (24, 40, 48)),   # 10 queries a block, a ragged tile
+    (2, 128, 16, 128, (128, 128, 256)),
+])
+def test_refine_kernels_match_plain(dev, b, n, k, c, mlp):
+    """Both refiner kernels against their plain versions on the card at
+    f32 round-off; refine_block's selection bit-equal to the kNN
+    kernel's."""
+    from dispu_tpu_torch.kernels.refine_block import (refine_block_cuda,
+                                                      refine_block_torch)
+    from dispu_tpu_torch.kernels.refine_local import (refine_local_cuda,
+                                                      refine_local_torch)
+
+    p = _local_params(n + k, dev, k, 6 + c, mlp)
+    g = _randn(1, b, n, k, 6 + c).to(dev)
+    got, want = refine_local_cuda(g, p), refine_local_torch(g, p)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    xyz, feats = _randn(2, b, n, 3).to(dev), _randn(3, b, n, c).to(dev)
+    got, idx = refine_block_cuda(xyz, feats, p, with_idx=True)
+    assert torch.equal(idx, knn_cuda(k, xyz, xyz)[1])
+    want = refine_block_torch(xyz, feats, p, idx=idx)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_refine_kernels_refuse_beyond_their_limits(dev):
+    from dispu_tpu_torch.kernels.refine_block import refine_block_cuda
+    from dispu_tpu_torch.kernels.refine_local import refine_local
+
+    p = _local_params(0, dev, 16, 134, (128, 128, 256))
+    with pytest.raises(ValueError, match="multiple of"):
+        refine_local(_randn(0, 1, 200, 16, 134).to(dev), p)
+    # 8 distance rows of n + 3 floats do not fit 232,448 bytes past 7,245
+    with pytest.raises(ValueError, match="shared memory"):
+        refine_block_cuda(_randn(1, 1, 7300, 3).to(dev),
+                          _randn(2, 1, 7300, 128).to(dev), p)
+    refine_block_cuda(_randn(1, 1, 7245, 3).to(dev),
+                      _randn(2, 1, 7245, 128).to(dev), p)
+
+
+@pytest.mark.parametrize("setting,counts", [
+    # 14 seeds → 2 chunks of 8 (refiner n = 512): 'fused' adds one
+    # refine_local a chunk to the refiner's kNN; 'megafused' replaces it
+    ("fused", {"knn": 11, "refine_local": 2}),
+    ("megafused", {"knn": 9, "refine_block": 2}),
+])
+def test_upsampler_goes_through_the_refine_kernels(dev, setting, counts):
+    inf = InferenceConfig(patch_num_point=128, patch_batch=8)
+    up = PatchUpsampler(gen_cfg=GeneratorConfig(
+        refine_local_impl=setting, **SMALL), inf_cfg=inf)
+    pc = _randn(0, 600, 3).numpy()
+    kernels.reset_launch_counts()
+    out = up.upsample(pc)
+    assert kernels.launch_counts() == {
+        "fps": 2, "fps_chunked": 0, "attention": 2, "query_ball": 0,
+        **NO_TURBO, **counts}
+    # 'megafused' takes the refiner's features rounded to bf16, as
+    # fast_gather's composed refiner does (the backbone stays exact)
+    ref_cfg = GeneratorConfig(fast_gather=setting == "megafused", **SMALL)
+    ref = PatchUpsampler(gen_cfg=ref_cfg, inf_cfg=inf, impl="torch")
+    assert out.shape == (2400, 3) and np.isfinite(out).all()
+    assert _chamfer(out, ref.upsample(pc)) <= 1e-6
+    x = torch.from_numpy(pc[None, :128]).to(dev)
+    model = up.model
+    for prm in model.parameters():
+        prm.requires_grad_(True)
+    # an eval-mode forward through a refine kernel cannot be differentiated
+    with pytest.raises(RuntimeError, match="inference only"):
+        model(x)[1].sum().backward()

@@ -98,12 +98,19 @@ def test_own_init_full_width_cpu():
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("field,value", [
-    ("refine_local_impl", "fused"), ("refine_local_impl", "megafused"),
-])
-def test_unported_settings_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DisPUGenerator(GeneratorConfig(**{field: value}))
+@pytest.mark.parametrize("value", ["fused", "megafused"])
+def test_refine_local_settings_build_and_run(value):
+    """Each fused refiner setting builds and runs on the CPU through its
+    kernel's plain version (the refiner's n = 256 passes 'fused''s 128
+    gate); against flax: tests/test_torch_refine.py."""
+    model = DisPUGenerator(GeneratorConfig(refine_local_impl=value, **SMALL))
+    assert model.PointShuffle.local_route(torch.zeros(1, 256, 8)) == value
+    x = torch.from_numpy(
+        np.random.RandomState(1).randn(1, 64, 3).astype(np.float32))
+    with torch.inference_mode():
+        coarse, fine = model(x)
+    assert coarse.shape == fine.shape == (1, 256, 3)
+    assert torch.isfinite(fine).all()
 
 
 @pytest.mark.parametrize("field,value", [

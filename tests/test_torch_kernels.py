@@ -28,6 +28,8 @@ from dispu_tpu_torch.kernels.knn import knn as knn_kernel
 from dispu_tpu_torch.kernels.knn import knn_packed
 from dispu_tpu_torch.kernels.knn_group import knn_group
 from dispu_tpu_torch.kernels.query_ball import query_ball
+from dispu_tpu_torch.kernels.refine_block import refine_block
+from dispu_tpu_torch.kernels.refine_local import LocalParams, refine_local
 from dispu_tpu_torch.nn.attention import global_attention
 from dispu_tpu_torch.ops import knn as tknn
 from dispu_tpu_torch.ops.grouping import group_point
@@ -281,6 +283,16 @@ def test_attention_plain_bf16_matches_pallas():
 
 # ------------------------------------------------------------------ wrappers
 
+def _local_params(k=4, cf=9, widths=(8, 8, 8)):
+    """Small random LocalParams for k neighbours of cf-wide rows."""
+    rng = np.random.RandomState(0)
+    c1, c2, co = widths
+    shapes = [(cf, c1), (c1,), (c1, c2), (c2,), (3, k), (k,), (cf, co),
+              (co,), (k, c2, co), (co,)]
+    return LocalParams(*(torch.from_numpy(rng.randn(*s).astype(np.float32))
+                         for s in shapes))
+
+
 def test_wrappers_take_plain_version_on_cpu_without_launching():
     kernels.reset_launch_counts()
     x = torch.from_numpy(_cloud(0, (1, 64, 3)))
@@ -296,10 +308,14 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     idx = torch.zeros((1, 5), dtype=torch.int32)
     torch.sum(gather_rows(x.requires_grad_(True), idx)).backward()
     group_point(x, idx[..., None], "pallas")
+    grouped = torch.from_numpy(_cloud(1, (1, 128, 4, 9)))
+    refine_local(grouped, _local_params())
+    refine_block(x.detach(), x.detach(), _local_params())
     assert kernels.launch_counts() == {
         "knn": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
         "fps_lite": 0, "fps_chunked": 0, "fps_bucketed": 0, "attention": 0,
-        "query_ball": 0, "gather_rows": 0, "scatter_rows": 0}
+        "query_ball": 0, "gather_rows": 0, "scatter_rows": 0,
+        "refine_local": 0, "refine_block": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -318,6 +334,9 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
                                 8),
     lambda x: group_point(x, torch.zeros((1, 5, 2), dtype=torch.int32),
                           "pallas", impl="cuda"),
+    lambda x: refine_local(torch.zeros(1, 128, 4, 9), _local_params(),
+                           impl="cuda"),
+    lambda x: refine_block(x, x, _local_params(), impl="cuda"),
 ])
 def test_wrappers_refuse_cuda_impl_on_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
