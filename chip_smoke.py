@@ -13,7 +13,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      shapes the serving paths give it for 2048-point clouds (the 4×
      request, pass 2 of the 16× request, the 16× merge of one cloud and of
      two) and the train step gives it at batch 28 (backbone, refiner and
-     chamfer kNN; the attention forward and its backward rule; the ball
+     chamfer kNN; the attention forward, each shape beside SDPA, and its
+     backward rule; the ball
      query in all three output modes, and at the critic's ball grouping),
      and time the kernel, the plain version and one PyTorch library call
      for the same function where there is one; the cluster FPS kernel also
@@ -43,7 +44,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      path's Chamfer and time.  The same for ``refine_local_impl``
      'fused' and 'megafused' (two 4× and two 16× requests on each cloud,
      one ``upsample_many`` at each ratio), against the composed path
-     through the plain versions, timed beside 'xla'.  Then CD training at the
+     ('megafused' at 4× by its generator rows before the merge, and its
+     output against the plain merge of its own candidates), timed beside
+     'xla'.  Then CD training at the
      same width with the training defaults (batch 28, random input,
      augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
      steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
@@ -143,6 +146,16 @@ CHAMFER_MAX = {4: 1e-9, 16: 1e-7}
 # candidates so.  Readings on an H100 at 700 W: 4x 7.1e-12 to 7.9e-12
 # (requests and upsample_many); 16x 1.8e-2 to 6.5e-2.
 TURBO_CHAMFER_REL = {4: 1e-9, 16: 0.5}
+# refine_local_impl='megafused' against the composed fast_gather path
+# through the kernels at 4x, before the merge: both refiners take knn.cu's
+# selection on bit-equal inputs and differ only in the f32 sum order of
+# the local branch, so every generator row (patch units) must agree within
+# the refine kernels' own 1e-5.  Their outputs are not compared as sets
+# here: the exact merge FPS is a chain of argmaxes, and a last-bit move of
+# one candidate can change one pick of 8,192 (a Chamfer of ~5e-9, past
+# CHAMFER_MAX[4]); instead each output must be bit-equal to the plain merge
+# FPS of its own candidates.
+MEGA_GEN_ABS = 1e-5
 
 
 def log(*args):
@@ -328,6 +341,11 @@ def check_knn(dev):
 
 
 def check_fps(dev):
+    """The FPS kernel bit-equal to the plain FPS at the 4× request's seed
+    FPS (2048 → 24) and merge (24,576 → 8,192), the aggregate; and, timed
+    beside them, the critic's (28 × 1024 → 128) and the ``uniform``
+    metric's (28 × 1024 → 51) FPS in training, ``upsample_many``'s merge
+    of two clouds, and a merge on a lattice, where every round ties."""
     import torch
 
     from dispu_tpu_torch.kernels.fps import fps_cuda, fps_torch
@@ -338,26 +356,33 @@ def check_fps(dev):
         torch.from_numpy(load_cloud("fandisk.xyz")))
     merged = torch.randn(1, 24576, 3, generator=gen)
     merged[:, 20000:20100] = merged[:, :100]  # duplicated points
+    merged2 = torch.randn(2, 24576, 3, generator=gen)
+    merged2[:, 20000:20100] = merged2[:, :100]
+    lattice = torch.stack(torch.meshgrid(
+        torch.arange(32.0), torch.arange(32.0), torch.arange(24.0),
+        indexing="ij"), -1).reshape(1, -1, 3)
     # (label, xyz, npoint, launches per 4x request)
-    cases = [("seeds", cloud[None], 24, 1), ("merge", merged, 8192, 1)]
+    cases = [("seeds", cloud[None], 24, 1), ("merge", merged, 8192, 1),
+             ("critic", torch.randn(28, 1024, 3, generator=gen), 128, 0),
+             ("uniform", torch.randn(28, 1024, 3, generator=gen), 51, 0),
+             ("merge b2", merged2, 8192, 0),
+             ("lattice", lattice, 8192, 0)]
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
                t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
     for label, xyz, npoint, per_req in cases:
         xyz = xyz.contiguous().to(dev)
         got = fps_cuda(npoint, xyz)
-        want = fps_torch(npoint, xyz)
-        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: fps_torch(npoint, xyz))
         n_diff = int((got != want).sum())
         require(n_diff == 0, f"fps {label}: {n_diff} indices differ")
         b, n, _ = xyz.shape
         ms = timed_ms(lambda: fps_cuda(npoint, xyz), reps=10)
-        plain_ms = timed_ms(lambda: fps_torch(npoint, xyz), reps=1,
-                            warmup=1)
         nbytes = 12 * b * n + 4 * b * npoint
         ops = 9 * b * n * (npoint - 1)
         bms, by = bound(nbytes, ops, F32_FLOPS)
-        log(f"fps {label:6s} (b={b} n={n} -> {npoint}): bit-equal; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        log(f"fps {label:8s} (b={b} n={n} -> {npoint}): bit-equal; kernel "
+            f"{ms:.4f} ms ({ms / (npoint - 1) * 1e3:.3f} us a round), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
         agg["ms"] += per_req * ms
         agg["plain_ms"] += per_req * plain_ms
         agg["bound_ms"] += per_req * bms
@@ -428,9 +453,12 @@ def check_fps_chunked(dev):
 
 
 def check_attention(dev):
-    """Kernel vs plain at the NL cell's shapes: the 4× request's map
-    (1024 × 1024, counted in the aggregate) and pass 2 of a 16× request
-    (4096 × 4096, checked and timed only); and the widest instantiation."""
+    """Kernel (tensor-core ``mma.sync``) vs plain at the NL cell's shapes:
+    the 4× request's map (1024 × 1024, counted in the aggregate), pass 2
+    of a 16× request (4096 × 4096) and the train step's (28 clouds of
+    1024 × 1024), each timed beside SDPA; the backward rule at the train
+    shape; and the widths and sizes past those (c = cv = 184 and 256,
+    ragged, nk = 8192)."""
     import torch
     import torch.nn.functional as F
 
@@ -438,10 +466,11 @@ def check_attention(dev):
                                                    attention_torch)
 
     gen = torch.Generator(device="cpu").manual_seed(3)
-    b, c = 32, 64
+    c = 64
     scale = 1.0 / math.sqrt(c)
     agg = None
-    for n in (1024, 4096):
+    for label, b, n in (("4x", 32, 1024), ("pass 2", 32, 4096),
+                        ("train", 28, 1024)):
         q, k, v = (torch.randn(b, n, c, generator=gen).to(dev)
                    for _ in range(3))
         got = attention_cuda(q, k, v, scale)
@@ -452,7 +481,7 @@ def check_attention(dev):
         max_abs, mean_abs = float(err.max()), float(err.mean())
         dev_f32 = float(torch.abs(got - f32).max())
         require(max_abs <= ATTN_MAX_ABS and mean_abs <= ATTN_MEAN_ABS,
-                f"attention n={n}: max|d| {max_abs}, mean {mean_abs}")
+                f"attention {label}: max|d| {max_abs}, mean {mean_abs}")
         ms = timed_ms(lambda: attention_cuda(q, k, v, scale), reps=10)
         plain_ms = timed_ms(
             lambda: attention_torch(q, k, v, scale, bf16_operands=True),
@@ -463,14 +492,17 @@ def check_attention(dev):
         nbytes = 4 * (3 * b * n * c + b * n * c)
         ops = 2 * b * n * n * (c + c)
         bms, by = bound(nbytes, ops, BF16_FLOPS)
-        log(f"attention (b={b} nq=nk={n} c=cv={c}): max|d| {max_abs:.3e} "
-            f"(bound {ATTN_MAX_ABS}), mean {mean_abs:.3e}, vs f32 plain "
-            f"{dev_f32:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        log(f"attention {label} (b={b} nq=nk={n} c=cv={c}): max|d| "
+            f"{max_abs:.3e} (bound {ATTN_MAX_ABS}), mean {mean_abs:.3e}, vs "
+            f"f32 plain {dev_f32:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
         if agg is None:
             agg = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
                        t_ops=ops / BF16_FLOPS, max_abs_err=max_abs)
+        if label == "train":
+            agg["train_fwd_ms"] = ms
     # the backward at the train step's shape: the Function (kernel forward,
     # the JAX package's rule in f32 torch ops) against autograd of the
     # plain bf16 version
@@ -495,24 +527,29 @@ def check_attention(dev):
     out = AttentionFunction.apply(*leaves, scale, True)
     bwd_ms = timed_ms(lambda: torch.autograd.grad(out, leaves, do,
                                                   retain_graph=True), reps=5)
-    fwd_ms = timed_ms(lambda: attention_cuda(q, k, v, scale), reps=10)
-    agg["train_fwd_ms"], agg["train_bwd_ms"] = fwd_ms, bwd_ms
-    log(f"attention train shape (b={bt} nq=nk=1024 c=cv={c}): kernel "
-        f"forward {fwd_ms:.4f} ms; backward (f32 torch ops, map "
-        f"recomputed) {bwd_ms:.4f} ms; dq, dk, dv vs autograd of the bf16 "
-        f"plain version: max|d|/max|g| {['%.2e' % r for r in rels]} (bound "
-        f"{ATTN_BWD_REL})")
-    # the widest instantiation (cv > 128), which fine_extractor=True reaches
-    # at c = cv = 184; checked here, timed nowhere
-    n = 1024
-    qw, kw, vw = (torch.randn(4, n, 184, generator=gen).to(dev)
-                  for _ in range(3))
-    wide = float(torch.abs(
-        attention_cuda(qw, kw, vw, 184 ** -0.5)
-        - attention_torch(qw, kw, vw, 184 ** -0.5, bf16_operands=True)).max())
-    require(wide <= ATTN_MAX_ABS, f"attention c=cv=184: max|d| {wide}")
-    log(f"attention (b=4 nq=nk={n} c=cv=184): max|d| {wide:.3e} "
-        f"(bound {ATTN_MAX_ABS})")
+    agg["train_bwd_ms"] = bwd_ms
+    log(f"attention train shape (b={bt} nq=nk=1024 c=cv={c}): backward "
+        f"(f32 torch ops, map recomputed) {bwd_ms:.4f} ms; dq, dk, dv vs "
+        f"autograd of the bf16 plain version: max|d|/max|g| "
+        f"{['%.2e' % r for r in rels]} (bound {ATTN_BWD_REL})")
+    # the widths past the 4x shape's: c = cv = 184 (fine_extractor=True)
+    # and 256, a ragged nq != nk with cv off the tile, and nk = 8192 (the
+    # gate's limit); checked here, timed nowhere
+    for label, bw, nq, nk, cw, cvw in (("c=cv=184", 4, 1024, 1024, 184, 184),
+                                      ("c=cv=256", 2, 1000, 1100, 256, 256),
+                                      ("ragged", 3, 700, 650, 64, 40),
+                                      ("nk=8192", 2, 512, 8192, 64, 64)):
+        qw = torch.randn(bw, nq, cw, generator=gen).to(dev)
+        kw = torch.randn(bw, nk, cw, generator=gen).to(dev)
+        vw = torch.randn(bw, nk, cvw, generator=gen).to(dev)
+        want = attention_torch(qw, kw, vw, cw ** -0.5, bf16_operands=True)
+        err = torch.abs(attention_cuda(qw, kw, vw, cw ** -0.5) - want)
+        wide, wide_mean = float(err.max()), float(err.mean())
+        require(wide <= ATTN_MAX_ABS and wide_mean <= ATTN_MEAN_ABS,
+                f"attention {label}: max|d| {wide}, mean {wide_mean}")
+        log(f"attention {label} (b={bw} nq={nq} nk={nk} c={cw} cv={cvw}): "
+            f"max|d| {wide:.3e} (bound {ATTN_MAX_ABS}), mean "
+            f"{wide_mean:.3e}")
     return agg
 
 
@@ -1624,11 +1661,13 @@ def serve_refine(card: str):
     through the plain versions; 'megafused' against the composed path
     whose refiner gathers its features rounded to bf16 (``fast_gather``,
     whose values it takes; the backbone stays exact) through the kernels,
-    so that both take ``knn.cu``'s selection.  Against that path through
-    the plain versions the two differ where a kNN near-tie falls on a
-    selection boundary, as the composed path's kernels and plain versions
-    do, so that reading is logged beside the composed path's own.  Then ms
-    per request of each setting beside 'xla', in turns."""
+    so that both take ``knn.cu``'s selection: at 16× by Chamfer, at 4×
+    row by row before the merge and then the merge itself
+    (:func:`hold_merge_candidates`, ``MEGA_GEN_ABS``).  Against that path
+    through the plain versions the two differ where a kNN near-tie falls
+    on a selection boundary, as the composed path's kernels and plain
+    versions do, so that reading is logged beside the composed path's
+    own.  Then ms per request of each setting beside 'xla', in turns."""
     import numpy as np
     import torch
 
@@ -1694,15 +1733,25 @@ def serve_refine(card: str):
             got = list(outs.values()) + list(many)
             cds = [chamfer(a, r) for a, r in zip(got, ref_outs)]
             via = "kernels" if ref_impl == "auto" else "plain versions"
+            held = setting == "megafused" and ratio == 4
             log(f"{setting} {ratio}x: Chamfer against the composed path "
                 f"({'fast_gather' if setting == 'megafused' else 'xla'}) "
                 f"through the {via}, requests and upsample_many: "
-                f"{['%.3e' % c for c in cds]} (bound {CHAMFER_MAX[ratio]})")
-            require(max(cds) <= CHAMFER_MAX[ratio],
-                    f"{setting} {ratio}x: Chamfer {cds}")
+                f"{['%.3e' % c for c in cds]}"
+                + (" (logged; held before the merge below)" if held else
+                   f" (bound {CHAMFER_MAX[ratio]})"))
+            if not held:
+                require(max(cds) <= CHAMFER_MAX[ratio],
+                        f"{setting} {ratio}x: Chamfer {cds}")
             if ref_impl == "auto":
                 plain = PatchUpsampler(gen_cfg=ref_cfg, inf_cfg=inf, seed=0,
                                        impl="torch")
+                if held:
+                    hold_merge_candidates(
+                        up, ref, plain,
+                        [(name, pc[None], outs[name][None])
+                         for name, pc in clouds.items()]
+                        + [("upsample_many", pcs, many)])
                 with torch.inference_mode():
                     p_outs = [plain.upsample(pc) for pc in clouds.values()]
                     p_outs += list(plain.upsample_many(pcs))
@@ -1728,6 +1777,57 @@ def serve_refine(card: str):
                                   for name, ts in laps.items())
             + f"; on {card}")
     return total
+
+
+def merge_candidates(up, pcs):
+    """``upsample_many``'s stages up to its merge for (B, n, 3) clouds:
+    (generator rows (B·s, p·r, 3) in patch units, merge candidates (B,
+    N, 3), the output's point count, the clouds' centroid and furthest
+    distance)."""
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch.inference import plan_counts
+    from dispu_tpu_torch.ops.geometry import normalize_point_cloud
+
+    seed_num, out_num = plan_counts(pcs.shape[1], up.inf_cfg)
+    with torch.inference_mode():
+        pcs_n, centroid, furthest = normalize_point_cloud(
+            torch.from_numpy(np.asarray(pcs, np.float32)).to(up.device))
+        patches, p_centroid, p_furthest, _ = up.prepare(pcs_n, seed_num)
+        rows = up.generate(patches)
+        cand = (rows * p_furthest + p_centroid).reshape(pcs.shape[0], -1, 3)
+    return rows, cand, out_num, centroid, furthest
+
+
+def hold_merge_candidates(up, ref, plain, cases):
+    """'megafused' (``up``) against the composed path through the kernels
+    (``ref``) before the merge, for each (label, clouds, output of
+    ``up``): every generator row within ``MEGA_GEN_ABS``; and the output
+    bit-equal to the plain merge FPS (``plain.merge``, the FPS one round
+    at a time) of ``up``'s own candidates."""
+    import numpy as np
+    import torch
+
+    worst = []
+    for label, pcs, out in cases:
+        rows, cand, out_num, centroid, furthest = merge_candidates(up, pcs)
+        rows_ref = merge_candidates(ref, pcs)[0]
+        gen = float(torch.abs(rows - rows_ref).amax())
+        with torch.inference_mode():
+            merged = (plain.merge(cand, out_num) * furthest
+                      + centroid).cpu().numpy()
+        same = np.array_equal(merged, out)
+        log(f"megafused 4x {label}: generator rows against the composed "
+            f"path through the kernels: max|d| {gen:.3e} (bound "
+            f"{MEGA_GEN_ABS}); output bit-equal to the plain merge FPS of "
+            f"its candidates: {same}")
+        require(gen <= MEGA_GEN_ABS, f"megafused 4x {label}: generator "
+                f"rows max|d| {gen}")
+        require(same, f"megafused 4x {label}: output is not the merge of "
+                "its candidates")
+        worst.append(gen)
+    return max(worst)
 
 
 def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),

@@ -2,8 +2,10 @@
 
 Replaces ``attention_pallas`` (``dispu_tpu/ops/pallas_kernels.py``).  On
 an H100 the function is bound by its bytes (the map must never reach
-device memory); the first kernel runs its products on the CUDA cores and
-is far from that bound.  See the note at the top of the source.
+device memory).  The kernel rounds q, k and v to bf16 once a call, into
+scratch that :func:`attention_cuda` allocates, and runs both products on
+the tensor cores (``mma.sync``, f32 accumulators), keeping the TPU
+kernel's rounding points; see the note at the top of the source.
 :func:`attention` is differentiable through :class:`AttentionFunction`,
 which carries ``attention_pallas_diff``'s backward rule in torch ops.
 """
@@ -71,13 +73,22 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention kernel takes c <= {MAX_C} and "
                          f"cv <= {MAX_CV}, got c={c}, cv={cv}")
     out = torch.empty((b, nq, cv), dtype=torch.float32, device=q.device)
-    fn = _build.load("attention").dispu_attention
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    lib = _build.load("attention")
+    size = lib.dispu_attention_scratch_bytes
+    size.argtypes = [_I, _I, _I, _I, _I]
+    size.restype = ctypes.c_longlong
+    # q, k and v in bf16, zero-padded to the kernel's tiles
+    scratch = torch.empty(size(b, nq, nk, c, cv), dtype=torch.uint8,
+                          device=q.device)
+    fn = lib.dispu_attention
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+                   _P]
     fn.restype = _I
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, nq, nk, c, cv, float(scale), stream)
+                    scratch.data_ptr(), b, nq, nk, c, cv, float(scale),
+                    stream)
     _build.check(status, "attention kernel launch")
     LAUNCHES["attention"] += 1
     return out

@@ -4,15 +4,17 @@ Replaces ``fps_pallas`` and ``fps_pallas_lite``
 (``dispu_tpu/ops/pallas_kernels.py``).  The TPU's lite form cuts the wide
 kernel's per-round VMEM sweeps: it reads only the selected point's row,
 drops the re-mask of the padding and writes one output row.  ``fps.cu``
-already works so (it loads the selected point's three coordinates, has no
-padding and writes each index to its slot), so :func:`fps_lite` launches
-the same kernel under its own count, ``LAUNCHES["fps_lite"]``; as in the
-JAX package no path calls it.  On an H100
-the kernel is bound by the latency of its serial argmax chain: one block
-per cloud, min-distances in registers, two block barriers a round; see the
-note at the top of the source.  It takes clouds of up to
-:data:`FPS_MAX_N` points: the seed FPS and the 4× merge of the serving
-path.  Larger clouds (the 16× merge) go to the cluster kernel in
+already works so (the selected point's coordinates ride its reduction, it
+has no padding and writes each index to its slot), so :func:`fps_lite`
+launches the same kernel under its own count, ``LAUNCHES["fps_lite"]``;
+as in the JAX package no path calls it.  On an H100 the kernel is bound
+by the latency of its serial argmax chain: the cloud's coordinates and
+min-distances stay in registers (one block for up to 8,192 points, a
+cluster of 2, 3 or 4 blocks beyond), one reduction instruction a level
+and one barrier a round; see the note at the top of the source.  It
+takes clouds of up to :data:`FPS_MAX_N` points: the seed FPS and the 4×
+merge of the serving path, the critic's and the ``uniform`` metric's FPS
+in training.  Larger clouds (the 16× merge) go to the cluster kernel in
 ``fps_chunked.py``, which :func:`fps_torch` is the plain version of too.
 """
 
@@ -27,8 +29,8 @@ from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: the largest cloud ``fps.cu`` takes: 32 min-distances in registers for
-#: each of a block's 1024 threads
+#: the largest cloud ``fps.cu`` takes: a cluster of 4 blocks of 1024
+#: threads, 8 points a thread in registers
 FPS_MAX_N = 32 * 1024
 
 

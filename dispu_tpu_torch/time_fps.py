@@ -18,7 +18,8 @@ kernel's wrapper instead of the route, at any n it takes.  Two trees are
 compared only within one such call.  This is how the device-scratch form
 of ``fps.cu``, which the cluster kernel ``fps_chunked.cu`` replaced at the
 16× merge shape, was timed: on a checkout of the commit before the
-replacement.
+replacement; and so was the one-block ``fps.cu`` that its register and
+cluster forms replaced.
 """
 
 from __future__ import annotations

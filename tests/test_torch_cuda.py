@@ -82,6 +82,47 @@ def test_fps_kernel_bit_equal_to_plain(dev, b, n, npoint):
     assert torch.equal(fps_cuda(npoint, xyz), fps_torch(npoint, xyz))
 
 
+def _lattice(nx, ny, nz):
+    """Integer lattice points: every round of FPS ties exactly."""
+    axes = [torch.arange(float(m)) for m in (nx, ny, nz)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"),
+                       -1).reshape(1, -1, 3).contiguous()
+
+
+@pytest.mark.parametrize("cloud", ["lattice", "duplicated"])
+def test_fps_kernel_bit_equal_at_the_merge_shape_with_ties(dev, cloud):
+    # the 4x merge of a 2048-point cloud: 24,576 points -> 8,192
+    if cloud == "lattice":
+        xyz = _lattice(32, 32, 24)
+    else:
+        xyz = _randn(7, 1, 24576, 3)
+        xyz[:, 12288:] = xyz[:, :12288]  # every point twice
+    xyz = xyz.to(dev)
+    assert torch.equal(fps_cuda(8192, xyz), fps_torch(8192, xyz))
+
+
+@pytest.mark.parametrize("b,n,npoint", [
+    (1, 24576, 2000), (2, 24576, 2000), (28, 1024, 128), (28, 1024, 51),
+])
+def test_fps_kernel_bit_equal_across_batches(dev, b, n, npoint):
+    xyz = _randn(b + n, b, n, 3)
+    xyz[:, n // 2:n // 2 + 50] = xyz[:, :50]
+    xyz = xyz.to(dev)
+    assert torch.equal(fps_cuda(npoint, xyz), fps_torch(npoint, xyz))
+
+
+# n at each edge of the forms: one block of 256 threads up to 2,048
+# points, one of 1024 up to 8,192, clusters of 2, 3 and 4 blocks of 1024
+# up to 16,384, 24,576 and FPS_MAX_N
+@pytest.mark.parametrize("n", [2048, 2049, 8192, 8193, 16384, 16385, 24576,
+                               24577, FPS_MAX_N])
+def test_fps_kernel_bit_equal_where_its_form_changes(dev, n):
+    xyz = _randn(n, 1, n, 3)
+    xyz[:, n - 64:] = xyz[:, :64]  # ties between the first and last block
+    xyz = xyz.to(dev)
+    assert torch.equal(fps_cuda(300, xyz), fps_torch(300, xyz))
+
+
 def test_fps_kernel_refuses_clouds_past_its_limit(dev):
     with pytest.raises(ValueError, match=str(FPS_MAX_N)):
         fps_cuda(8, torch.zeros((1, FPS_MAX_N + 1, 3), device=dev))
@@ -125,6 +166,26 @@ def test_attention_kernel_matches_plain_bf16(dev):
     want = attention_torch(q, k, v, 0.125, bf16_operands=True)
     # same rounding points; the f32 sum order differs
     assert float(torch.abs(got - want).max()) <= 1e-3
+
+
+@pytest.mark.parametrize("b,nq,nk,c,cv", [
+    (32, 1024, 1024, 64, 64),   # a 4x request
+    (32, 4096, 4096, 64, 64),   # pass 2 of a 16x request
+    (2, 512, 8192, 64, 64),     # the gate's largest key count
+    (2, 700, 650, 64, 40),      # ragged, cv off the tensor-core tile
+    (3, 1000, 77, 48, 24),      # fewer keys than one tile
+    (2, 300, 330, 184, 184),    # fine_extractor=True
+    (2, 300, 330, 256, 256),    # the widest the gate sends
+])
+def test_attention_kernel_matches_plain_at_its_shapes(dev, b, nq, nk, c, cv):
+    q = _randn(nq, b, nq, c).to(dev)
+    k = _randn(nk, b, nk, c).to(dev)
+    v = _randn(cv, b, nk, cv).to(dev)
+    got = attention_cuda(q, k, v, c ** -0.5)
+    want = attention_torch(q, k, v, c ** -0.5, bf16_operands=True)
+    err = torch.abs(got - want)
+    # chip_smoke.py's ATTN_MAX_ABS and ATTN_MEAN_ABS
+    assert float(err.max()) <= 1e-3 and float(err.mean()) <= 1e-5
 
 
 def test_attention_kernel_takes_cv_up_to_256(dev):
@@ -646,6 +707,13 @@ def test_fps_lite_kernel_bit_equal_and_counted(dev):
     assert kernels.launch_counts()["fps_lite"] == 1
     assert kernels.launch_counts()["fps"] == 0
     assert torch.equal(got, fps_torch(200, x))
+    # its shapes in chip_smoke.py: the critic's seeds and the 4x merge
+    for b, n, npoint in ((28, 1024, 128), (1, 24576, 8192)):
+        x = _randn(n, b, n, 3)
+        x[:, n - 100:] = x[:, :100]
+        x = x.to(dev)
+        assert torch.equal(fps_lite(npoint, x), fps_torch(npoint, x))
+    assert kernels.launch_counts()["fps_lite"] == 3
 
 
 @pytest.mark.parametrize("gen_kw,disc_kw,counts", [

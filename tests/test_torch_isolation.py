@@ -32,7 +32,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]), ids=str)
+    [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py",
+     REPO / "refine_sweep.py"]), ids=str)
 def test_no_jax_flax_or_reference_import(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path} imports {bad}"

@@ -20,7 +20,8 @@ from dispu_tpu.ops.pallas_kernels import (attention_pallas, attention_xla,
 from dispu_tpu.ops.sampling import _fps_xla
 from dispu_tpu_torch import kernels
 from dispu_tpu_torch.kernels.attention import attention, attention_torch
-from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps, fps_cuda, fps_lite
+from dispu_tpu_torch.kernels.fps import (FPS_MAX_N, fps, fps_cuda, fps_lite,
+                                         fps_torch)
 from dispu_tpu_torch.kernels.fps_chunked import fps_chunked, fps_chunked_cuda
 from dispu_tpu_torch.kernels.fps_bucketed import fps_bucketed
 from dispu_tpu_torch.kernels.gather_rows import gather_rows, scatter_rows_cuda
@@ -164,6 +165,18 @@ def test_fps_bit_equal(b, n, npoint, n_dup):
         got, np.asarray(fps_pallas(npoint, jnp.asarray(x), interpret=True)))
 
 
+def test_fps_bit_equal_at_the_merge_shape_on_a_lattice():
+    """The plain FPS the kernel is held to on the card, against
+    ``_fps_xla`` at the 4× merge of a 2048-point cloud (24,576 → 8,192)
+    on an integer lattice, where every round ties exactly."""
+    axes = np.meshgrid(np.arange(32), np.arange(32), np.arange(24),
+                       indexing="ij")
+    x = np.stack(axes, -1).reshape(1, -1, 3).astype(np.float32)
+    got = fps_torch(8192, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(_fps_xla(8192,
+                                                           jnp.asarray(x))))
+
+
 @pytest.mark.parametrize("n,npoint", [(100, 16), (128, 32), (300, 64),
                                       (1500, 200)])
 def test_fps_lite_bit_equal(n, npoint):
@@ -279,6 +292,23 @@ def test_attention_plain_bf16_matches_pallas():
     # 2.3e-3 apart here), which the two bounds above tell apart
     f32 = attention_torch(*map(torch.from_numpy, (q, k, v)), 0.125).numpy()
     assert np.abs(got - f32).mean() > 10 * np.abs(got - want).mean()
+
+
+def test_attention_plain_bf16_matches_pallas_at_pass_2_map():
+    """Pass 2's map of a 16× request (4096 × 4096, c = cv = 64) for one
+    cloud: the yardstick the kernel is held to on the card, against
+    ``attention_pallas`` in interpret mode."""
+    rng = np.random.RandomState(2)
+    q, k, v = (rng.randn(1, 4096, 64).astype(np.float32) for _ in range(3))
+    got = attention_torch(*map(torch.from_numpy, (q, k, v)), 0.125,
+                          bf16_operands=True).numpy()
+    want = np.asarray(attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), 0.125,
+                                       interpret=True))
+    # as at 512 keys: the f32 sum order and exp's last bit can move a p
+    # across a bf16 rounding boundary; over 4096 keys each p weighs less
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-4)
+    assert np.abs(got - want).mean() < 1e-6
 
 
 # ------------------------------------------------------------------ wrappers
