@@ -18,8 +18,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      query in all three output modes, and at the critic's ball grouping),
      and time the kernel, the plain version and one PyTorch library call
      for the same function where there is one; the cluster FPS kernel also
-     past its on-chip capacity and at a ragged n with ties across its
-     blocks; the turbo path's kernels at its shapes: the fused kNN + gather
+     past its on-chip capacity, at a ragged n with ties across its
+     blocks and at each edge of its forms; the turbo path's kernels at
+     its shapes: the fused kNN + gather
      (backbone and refiner, turbo and exact; its distances and indices
      bit-equal to the kNN kernel's), the packed kNN selection (pass 2's
      refiner; and its fixed-selection gradient) and the bucketed merge FPS
@@ -395,15 +396,20 @@ def check_fps_chunked(dev):
     """The cluster FPS kernel bit-equal to the plain FPS at (a) the 16×
     merge of a 2048-point cloud, (b) the same for two clouds (the
     streaming merge), (c) one cloud past the cluster's on-chip capacity
-    (the 16× merge of a 10k-point cloud, cut to 512 samples) and (d) a
-    ragged n with tied distances across the blocks' index ranges and more
-    samples than distinct points.  Times (a) and (b); the aggregate is (a),
-    the kernel's one launch in a 16× request."""
+    (the 16× merge of a 10k-point cloud, cut to 512 samples), (d) n =
+    120,000 (the shared-memory form) and (e) a ragged n with tied
+    distances across the blocks' index ranges and more samples than
+    distinct points; then at each edge of the kernel's forms (a form's
+    limit and one past it, ``fps_chunked.forms_from``) with ties between
+    the first and the last block.  Times (a), (b) and (d), each with the form
+    that ran; the aggregate is (a), the kernel's one launch in a 16×
+    request."""
     import torch
 
     from dispu_tpu_torch.kernels import fps_chunked
-    from dispu_tpu_torch.kernels.fps import fps_torch
-    from dispu_tpu_torch.kernels.fps_chunked import fps_chunked_cuda
+    from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps_torch
+    from dispu_tpu_torch.kernels.fps_chunked import (fps_chunked_cuda,
+                                                     form_for, forms_from)
 
     gen = torch.Generator(device="cpu").manual_seed(4)
 
@@ -412,18 +418,22 @@ def check_fps_chunked(dev):
         x[:, n - 1000:] = x[:, :1000]  # duplicated points
         return x
 
-    n_d = 40003  # 8 blocks of 5001 points, the last one of 4996
+    n_d = 40003  # 5 blocks of 8001 points, the last one of 7999
     ragged = torch.randn(2, n_d, 3, generator=gen)
     ragged[0] = torch.randn(37, 3, generator=gen).repeat(n_d // 37 + 1, 1)[
         :n_d]  # 37 distinct points, ties in every block
-    ragged[1, 5001:5101] = ragged[1, 4901:5001]  # ties across blocks 0 and 1
+    ragged[1, 8001:8101] = ragged[1, 7901:8001]  # ties across blocks 0 and 1
     # (label, xyz, npoint, timed)
     cases = [("16x merge", merged(1, 98304), 32768, True),
              ("16x stream", merged(2, 98304), 32768, True),
              ("past capacity", merged(1, 479232), 512, False),
              ("n=120000", torch.randn(2, 120000, 3, generator=gen), 256,
-              False),
+              True),
              ("ragged ties", ragged, 64, False)]
+    edges = [n for form in forms_from(FPS_MAX_N + 1)[:-1]
+             for n in (form.capacity, form.capacity + 1)]
+    for i, n in enumerate(edges):
+        cases.append((f"edge n={n}", merged(1 + i % 2, n), 96, False))
     agg = None
     for label, xyz, npoint, timed in cases:
         xyz = xyz.contiguous().to(dev)
@@ -432,23 +442,27 @@ def check_fps_chunked(dev):
         n_diff = int((got != want).sum())
         require(n_diff == 0, f"fps_chunked {label}: {n_diff} indices differ")
         b, n, _ = xyz.shape
+        form = form_for(n)
         if not timed:
-            log(f"fps_chunked {label} (b={b} n={n} -> {npoint}): bit-equal")
+            log(f"fps_chunked {label} (b={b} n={n} -> {npoint}; {form}): "
+                "bit-equal")
             continue
         ms = timed_ms(lambda: fps_chunked_cuda(npoint, xyz), reps=3,
                       warmup=1)
         nbytes = 12 * b * n + 4 * b * npoint
         ops = 9 * b * n * (npoint - 1)
         bms, by = bound(nbytes, ops, F32_FLOPS)
-        log(f"fps_chunked {label} (b={b} n={n} -> {npoint}): bit-equal; "
-            f"kernel {ms:.4f} ms ({ms / (npoint - 1) * 1e3:.3f} us a round), "
-            f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        log(f"fps_chunked {label} (b={b} n={n} -> {npoint}; {form}): "
+            f"bit-equal; kernel {ms:.4f} ms ({ms / (npoint - 1) * 1e3:.3f} "
+            f"us a round), plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+            f"({by})")
         if agg is None:
             agg = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                        bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
                        t_ops=ops / F32_FLOPS, max_abs_err=0.0)
     log("fps_chunked clusters the card holds at once, by (device, form): "
-        f"{fps_chunked.MAX_CLUSTERS}")
+        + ", ".join(f"({d}, {f}): {c}"
+                    for (d, f), c in fps_chunked.MAX_CLUSTERS.items()))
     return agg
 
 
@@ -922,44 +936,35 @@ def check_fps_lite(dev):
     return agg
 
 
-# the gather pair's shapes in a train step at batch 28 with
-# gather_impl='pallas': (label, n, c, rows gathered per point, launches a
-# step): the backbone's first block (c 24) and its three later ones (c 48),
-# the refiner's combined [xyz | feature] gather (c 131)
-GATHER_CASES = [("backbone c24", 256, 24, 16, 1),
-                ("backbone c48", 256, 48, 16, 3),
-                ("refiner c131", 1024, 131, 16, 1)]
 # the scatter kernel against index_add_ on the card (another sum order):
 # |d| over each row's sum of |g|; f32 round-off of sums of a few to a few
 # dozen terms
 SCATTER_SUM_REL = 1e-6
 
 
-def _gather_inputs(gen, n, c, per_point, b=28):
-    import torch
-
-    table = torch.randn(b, n, c, generator=gen)
-    idx = torch.randint(0, n, (b, n * per_point), generator=gen,
-                        dtype=torch.int32)
-    idx[:, ::per_point] = torch.arange(n, dtype=torch.int32)  # self rows
-    return table, idx
-
-
 def check_gather_rows(dev):
     """The gather kernel bit-equal to ``torch.gather`` at the train step's
-    shapes (``GATHER_CASES``); the aggregate is a train step's five
+    shapes (``measure.GATHER_CASES``); the aggregate is a train step's five
     launches.  The library call is ``torch.gather`` itself, which is also
-    the plain version."""
+    the plain version (with the indices widened to int64 first).  ``ms``,
+    ``plain_ms`` and ``library_ms`` are CUDA events around back-to-back
+    calls, as for every kernel: at the small widths that is the host's
+    work a call, which the path pays.  ``device_ms`` and
+    ``library_device_ms`` are the profiler's device time of the kernels
+    alone."""
     import torch
 
     from dispu_tpu_torch.kernels.gather_rows import (gather_rows_cuda,
                                                      gather_rows_torch)
+    from dispu_tpu_torch.kernels.measure import (GATHER_CASES, device_ms,
+                                                 gather_inputs)
 
     gen = torch.Generator(device="cpu").manual_seed(9)
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+               device_ms=0.0, library_device_ms=0.0, t_bytes=0.0,
+               t_ops=0.0, max_abs_err=0.0)
     for label, n, c, per_point, per_step in GATHER_CASES:
-        table, idx = _gather_inputs(gen, n, c, per_point)
+        table, idx = gather_inputs(gen, n, c, per_point)
         table, idx = table.to(dev), idx.to(dev)
         got = gather_rows_cuda(table, idx)
         torch.cuda.synchronize()
@@ -970,13 +975,21 @@ def check_gather_rows(dev):
         ms = timed_ms(lambda: gather_rows_cuda(table, idx), reps=20)
         plain_ms = timed_ms(lambda: gather_rows_torch(table, idx), reps=20)
         library_ms = timed_ms(lambda: torch.gather(table, 1, flat), reps=20)
+        dev_ms = device_ms(lambda: gather_rows_cuda(table, idx), reps=20)
+        library_dev_ms = device_ms(lambda: torch.gather(table, 1, flat),
+                                   reps=20)
         nbytes = 4 * (b * n * c + b * q + b * q * c)
         bms, by = bound(nbytes, 0, F32_FLOPS)
         log(f"gather_rows {label} (b={b} n={n} c={c} q={q}): bit-equal to "
-            f"torch.gather; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.gather {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"torch.gather; kernel {ms:.4f} ms a call, {dev_ms:.4f} on the "
+            f"device ({bms / dev_ms:.1%} of its bound), plain "
+            f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms a call, "
+            f"{library_dev_ms:.4f} on the device "
+            f"({bms / library_dev_ms:.1%}), bound {bms:.4f} ms ({by})")
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", library_ms), ("bound_ms", bms)):
+                         ("library_ms", library_ms), ("bound_ms", bms),
+                         ("device_ms", dev_ms),
+                         ("library_device_ms", library_dev_ms)):
             agg[key] += per_step * val
         agg["t_bytes"] += per_step * nbytes / HBM_BYTES_PER_S
     return agg
@@ -984,7 +997,8 @@ def check_gather_rows(dev):
 
 def check_scatter_rows(dev):
     """The scatter kernel at the train step's shapes (the cotangents of
-    ``GATHER_CASES``): bit-equal run to run and to the CPU's sequential
+    ``measure.GATHER_CASES``): bit-equal run to run and to the CPU's
+    sequential
     ``index_add_``, and within ``SCATTER_SUM_REL`` of each row's sum of
     |g| from ``index_add_`` on the card.  Plain: ``index_add_`` on the
     card (atomics); library: ``scatter_add_`` under deterministic
@@ -995,6 +1009,8 @@ def check_scatter_rows(dev):
 
     from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
                                                      scatter_rows_torch)
+    from dispu_tpu_torch.kernels.measure import (GATHER_CASES,
+                                                 gather_inputs)
     from dispu_tpu_torch.train.steps import deterministic
 
     gen = torch.Generator(device="cpu").manual_seed(10)
@@ -1002,7 +1018,7 @@ def check_scatter_rows(dev):
                t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
     worst = 0.0
     for label, n, c, per_point, per_step in GATHER_CASES:
-        _, idx = _gather_inputs(gen, n, c, per_point)
+        _, idx = gather_inputs(gen, n, c, per_point)
         b, q = idx.shape
         g_cpu = torch.randn(b, q, c, generator=gen)
         g, idx = g_cpu.to(dev), idx.to(dev)
@@ -2646,7 +2662,8 @@ def main() -> int:
     # fps_chunked (its one launch there); a 4x turbo request for knn_group
     # and fps_bucketed, a 16x turbo request for knn_packed (its one launch
     # there); per train step for query_ball, and for gather_rows and
-    # scatter_rows with gather_impl='pallas' (five launches each); the
+    # scatter_rows with gather_impl='pallas' (five launches each;
+    # gather_rows also with the profiler's device time, see its check); the
     # critic's seed FPS (28 x 1024 -> 128) for fps_lite, which no path
     # calls; a 4x request with refine_local_impl 'fused' / 'megafused' for
     # refine_local / refine_block (one launch at the pass-1 shape)
@@ -2691,6 +2708,8 @@ def main() -> int:
             "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"]
             else "operations",
             "library_ms": a["library_ms"],
+            **{key: a[key] for key in ("device_ms", "library_device_ms")
+               if key in a},
         })
     log(json.dumps({"kernels": line}))
     # phase 6

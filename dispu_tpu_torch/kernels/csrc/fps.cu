@@ -1,209 +1,23 @@
 // Exact farthest-point sampling for clouds of up to 32,768 points.
 //
-// Replaces fps_pallas (dispu_tpu/ops/pallas_kernels.py).  Semantics: the
-// first sample is index 0; every running min-distance starts at 1e38; each
-// round takes the first-occurrence argmax of the updated min-distances;
-// the distance is (x-px)^2 + (y-py)^2 + (z-pz)^2 in that order, with
-// round-to-nearest intrinsics so nvcc cannot contract it into FMAs (an FMA
-// changes the bits of the distances and so the order of near-ties).
-// Padding does not exist here: only indices < n are ever candidates.
-//
-// What bounds it on an H100: latency, not bytes or FLOPs.  The argmax
-// chain is serial (round j needs round j-1's winner), so the merge of a
-// 2048-point cloud (24,576 points -> 8,192 samples) is 8,191 dependent
-// rounds.  A round is a pass over the points, a reduction of (value,
-// index) over every thread, and a barrier; its length is what counts.
-// Design:
-//  - The cloud lives on chip.  A cloud of up to 32,768 points goes to a
-//    cluster of CL = 1 to 4 CTAs (a form, chosen by n in dispu_fps); CTA
-//    r owns points [r*chunk, (r+1)*chunk), and thread t of it the points
-//    t + k*T (k < P), whose coordinates and min-distances stay in
-//    registers.  A copy of the chunk's coordinates in shared memory gives
-//    a warp's winner its coordinates.  Small clouds take a one-CTA form.
-//  - One reduction instruction a level.  Min-distances are >= 0, so their
-//    f32 bits order as unsigned integers; key = bits + 1 (0: no point).
-//    A warp takes redux.sync max over the keys, then redux.sync min over
-//    the indices of the lanes that tie it: the (value descending, index
-//    ascending) winner, which is the first-occurrence argmax.
-//  - One barrier a round.  The lane that wins its warp pushes its
-//    candidate (key, index, coordinates) into the slot of its warp in
-//    every CTA of the cluster, double-buffered by round parity; after one
-//    block (CL == 1) or cluster barrier every warp reduces all the slots
-//    from its own CTA's copy the same way, so every warp holds the winner
-//    and its coordinates: no second barrier, no broadcast, and no round
-//    starts on a load from device memory.  (Pulling the slots instead,
-//    every warp reading every other CTA's, was slower and grew with the
-//    cluster: its remote reads scale with warps x CTAs.)
-//    A warp may write round j+1's slots while another still reads round
-//    j's: they are the other parity, and round j+2's writes wait behind
-//    round j+1's barrier, which the reader must have reached.
+// Replaces fps_pallas (dispu_tpu/ops/pallas_kernels.py:87) and, under its
+// own count, fps_pallas_lite (:211).  The semantics, what bounds the
+// kernel on an H100 and the design of its round are in fps_common.cuh,
+// which fps_chunked.cu shares.  Here a cloud lives in registers: 8 points
+// a thread, one block of 256 or 1024 threads up to 8,192 points, a
+// cluster of 2, 3 or 4 blocks of 1024 beyond.
 
-#include <climits>
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
+#include "fps_common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float sq_dist(float x, float y, float z, float px,
-                                         float py, float pz) {
-  const float dx = __fsub_rn(x, px);
-  const float dy = __fsub_rn(y, py);
-  const float dz = __fsub_rn(z, pz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-// The candidates of one round: each warp's, pushed by the warp into
-// every CTA of the cluster.  key: (bits(v) + 1) << 32 | (0xFFFFFFFF - i),
-// whose maximum is the (value descending, index ascending) winner; 0: no
-// point.  xyz: the candidate's coordinates.
-template <int S>
-struct Slots {
-  unsigned long long key[2][S];
-  float4 xyz[2][S];
-};
-
-// CL CTAs a cloud (1: a plain block), T threads a CTA, P points a thread.
-template <int CL, int T, int P>
-__global__ void __launch_bounds__(T, 1)
-fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
-           int npoint) {
-  constexpr int W = T / 32;      // warps a CTA
-  constexpr int S = CL * W;      // candidates a round
-  constexpr int SL = (S + 31) / 32;  // of them a lane reads
-  extern __shared__ float s_pts[];  // x, y, z planes of the chunk
-  __shared__ Slots<S> s_slot;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int rank = 0;
-  if constexpr (CL > 1) rank = (int)cg::this_cluster().block_rank();
-  const long long cloud = blockIdx.x / CL;
-  const int chunk = (n + CL - 1) / CL;
-  const int base = rank * chunk;
-  const int cnt = max(0, min(n - base, chunk));
-  const float* pts = xyz + cloud * n * 3;
-  int* o = out + cloud * npoint;
-  float* s_x = s_pts;
-  float* s_y = s_pts + chunk;
-  float* s_z = s_pts + 2 * chunk;
-
-  float x[P], y[P], z[P], md[P];
-#pragma unroll
-  for (int r = 0; r < P; ++r) {
-    const int l = tid + r * T;
-    x[r] = y[r] = z[r] = 0.f;
-    md[r] = 1e38f;
-    if (l < cnt) {
-      const float* p = pts + 3LL * (base + l);
-      x[r] = p[0];
-      y[r] = p[1];
-      z[r] = p[2];
-      s_x[l] = x[r];
-      s_y[l] = y[r];
-      s_z[l] = z[r];
-    }
-  }
-  if (rank == 0 && tid == 0) o[0] = 0;
-  float px = pts[0], py = pts[1], pz = pts[2];
-  // a thread reads back only the copies of its own points: no block
-  // barrier; but every CTA of the cluster must have started before the
-  // first round writes into its shared memory
-  if constexpr (CL > 1) cg::this_cluster().sync();
-  for (int j = 1; j < npoint; ++j) {
-    const int par = j & 1;
-    unsigned key = 0;
-    int bl = -1;
-#pragma unroll
-    for (int r = 0; r < P; ++r) {
-      const int l = tid + r * T;
-      if (l < cnt) {
-        const float v = fminf(md[r], sq_dist(x[r], y[r], z[r], px, py, pz));
-        md[r] = v;
-        const unsigned k = __float_as_uint(v) + 1u;
-        if (k > key) { key = k; bl = l; }  // ascending l: keeps the first
-      }
-    }
-    // the warp's winner: the largest key, then the least index among the
-    // lanes that hold it
-    const unsigned idx = bl >= 0 ? (unsigned)(base + bl) : UINT_MAX;
-    const unsigned wkey = __reduce_max_sync(kFull, key);
-    const unsigned widx =
-        __reduce_min_sync(kFull, key == wkey ? idx : UINT_MAX);
-    if (key == wkey && idx == widx && (wkey != 0 || lane == 0)) {
-      const int slot = rank * W + warp;
-      const unsigned long long k64 =
-          (unsigned long long)wkey << 32 | (0xFFFFFFFFu - widx);
-      const float4 c = bl >= 0 ? make_float4(s_x[bl], s_y[bl], s_z[bl], 0.f)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      if constexpr (CL > 1) {
-        cg::cluster_group cluster = cg::this_cluster();
-#pragma unroll
-        for (int q = 0; q < CL; ++q) {
-          *cluster.map_shared_rank(&s_slot.key[par][slot], q) = k64;
-          *cluster.map_shared_rank(&s_slot.xyz[par][slot], q) = c;
-        }
-      } else {
-        s_slot.key[par][slot] = k64;
-        s_slot.xyz[par][slot] = c;
-      }
-    }
-    // the one barrier of the round: it releases the pushed candidates
-    if constexpr (CL > 1)
-      cg::this_cluster().sync();
-    else
-      __syncthreads();
-    // every warp reduces all S candidates from its own CTA's copy
-    unsigned long long best = 0;
-    int bs = 0;
-#pragma unroll
-    for (int i = 0; i < SL; ++i) {
-      const int sl = lane + 32 * i;
-      if (sl < S) {
-        const unsigned long long k64 = s_slot.key[par][sl];
-        if (k64 > best) { best = k64; bs = sl; }
-      }
-    }
-    const unsigned hi = (unsigned)(best >> 32), lo = (unsigned)best;
-    const unsigned h = __reduce_max_sync(kFull, hi);
-    const unsigned lmax = __reduce_max_sync(kFull, hi == h ? lo : 0u);
-    const int win = __ffs(__ballot_sync(kFull, hi == h && lo == lmax)) - 1;
-    const float4 c = s_slot.xyz[par][__shfl_sync(kFull, bs, win)];
-    px = c.x;
-    py = c.y;
-    pz = c.z;
-    if (rank == 0 && tid == 0) o[j] = (int)(0xFFFFFFFFu - lmax);
-  }
-  // no CTA leaves while another may still write into its slots
-  if constexpr (CL > 1) cg::this_cluster().sync();
-}
-
-template <int CL, int T, int P>
-int run(const float* xyz, int* out, int b, int n, int npoint,
-        cudaStream_t stream) {
-  const int chunk = (n + CL - 1) / CL;
-  const size_t smem = 3 * sizeof(float) * (size_t)chunk;
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel<CL, T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(3 * sizeof(float) * T * P));
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(b * CL);
-  cfg.blockDim = dim3(T);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, fps_kernel<CL, T, P>, xyz, out, n, npoint);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+// the forms of this kernel: CL CTAs of T threads, 8 points a thread in
+// registers
+template <int CL, int T>
+int form(const float* xyz, int* out, int b, int n, int npoint,
+         cudaStream_t stream) {
+  return fps_round::run<CL, T, 8, fps_round::kRegisters>(
+      xyz, out, nullptr, b, n, npoint, stream, nullptr);
 }
 
 }  // namespace
@@ -217,9 +31,9 @@ extern "C" int dispu_fps(const float* xyz, int* out, int b, int n, int npoint,
   if (b < 1 || n < 1 || npoint < 1 || n > 4 * 1024 * 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (n <= 256 * 8) return run<1, 256, 8>(xyz, out, b, n, npoint, s);
-  if (n <= 1024 * 8) return run<1, 1024, 8>(xyz, out, b, n, npoint, s);
-  if (n <= 2 * 1024 * 8) return run<2, 1024, 8>(xyz, out, b, n, npoint, s);
-  if (n <= 3 * 1024 * 8) return run<3, 1024, 8>(xyz, out, b, n, npoint, s);
-  return run<4, 1024, 8>(xyz, out, b, n, npoint, s);
+  if (n <= 256 * 8) return form<1, 256>(xyz, out, b, n, npoint, s);
+  if (n <= 1024 * 8) return form<1, 1024>(xyz, out, b, n, npoint, s);
+  if (n <= 2 * 1024 * 8) return form<2, 1024>(xyz, out, b, n, npoint, s);
+  if (n <= 3 * 1024 * 8) return form<3, 1024>(xyz, out, b, n, npoint, s);
+  return form<4, 1024>(xyz, out, b, n, npoint, s);
 }

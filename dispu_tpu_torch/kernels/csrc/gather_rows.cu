@@ -7,9 +7,17 @@
 // Gather: out[b, r, :] = table[b, idx[b, r], :].  On the TPU the gather is a
 // one-hot contraction on the MXU with the table split into three bf16
 // terms, so that the sum reproduces each f32 row exactly.  On this card a
-// load is exact: one warp per output row, consecutive lanes on consecutive
-// floats of the row (coalesced loads and stores).  Indices outside [0, n)
-// give a row of zeros, as the one-hot gives there.
+// load is exact, so the gather is a copy, bound by its bytes; what it must
+// do is keep enough of them in flight for each index it waits on.  A warp
+// takes a group of 32 consecutive output rows, which are contiguous in
+// `out`: lane l loads row l's index (one coalesced access), and the lanes
+// then walk the group's flattened (row, element) range, each element's
+// source row broadcast from its lane with __shfl_sync, so no lane idles
+// whatever the width c, every store is coalesced, and each lane issues
+// several loads before its stores.  When c % 4 == 0 and both `table` and
+// `out` are 16-byte aligned the elements are float4s, else floats (the
+// refiner's c = 131).  Indices outside [0, n) give a row of zeros, as the
+// one-hot gives there.
 //
 // Scatter-add: out[b, j, :] = sum over r with idx[b, r] == j of g[b, r, :],
 // deterministic and with no float atomics: every sum is taken in ascending
@@ -35,6 +43,8 @@
 // bytes) and writes b*n*c*4, plus 4 int passes over the indices, which are
 // c times smaller.
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,20 +52,68 @@ namespace {
 constexpr int kWarps = 8;       // warps a block in the gather and the sum
 constexpr int kSeg = 1024;      // positions a segment; threads a block
 constexpr int kChan = 8;        // channels a lane holds in the sum
+constexpr int kGroup = 32;      // rows a warp of the gather takes at once
 
-__global__ void gather_kernel(const float* __restrict__ table,
-                              const int* __restrict__ idx,
-                              float* __restrict__ out, int b, int n, int q,
-                              int c) {
+// V: float4 or float; cv: elements of V a row; U: loads a lane has in
+// flight before its stores.  Lane l's u-th element of a pass is e = e0 +
+// l + 32u of the group's flattened range: row r = e / cv, column e % cv,
+// divided once and then stepped by 32U elements a pass with no division.
+template <typename V, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+gather_kernel(const V* __restrict__ table, const int* __restrict__ idx,
+              V* __restrict__ out, long long rows, int n, int q, int cv) {
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= (long long)b * q) return;
-  const long long cloud = row / q;
-  const int j = idx[row];
-  const bool ok = j >= 0 && j < n;
-  const float* src = table + (cloud * n + (ok ? j : 0)) * c;
-  float* dst = out + row * c;
-  for (int t = lane; t < c; t += 32) dst[t] = ok ? src[t] : 0.f;
+  const long long row0 =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kGroup;
+  if (row0 >= rows) return;
+  const int nrows = (int)min((long long)kGroup, rows - row0);
+  // lane l: the offset of row l's source row in `table`, -1 for zeros
+  long long src = -1;
+  if (lane < nrows) {
+    const long long row = row0 + lane;
+    const int j = idx[row];
+    if (j >= 0 && j < n) src = (row / q * n + j) * cv;
+  }
+  const int total = nrows * cv;
+  const int step_r = 32 * U / cv, step_c = 32 * U % cv;
+  int r[U], col[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    r[u] = (lane + 32 * u) / cv;
+    col[u] = lane + 32 * u - r[u] * cv;
+  }
+  V* dst = out + row0 * cv;
+  for (int e0 = 0; e0 < total; e0 += 32 * U) {
+    V v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long s = __shfl_sync(0xffffffffu, src, r[u] & 31);
+      v[u] = V{};
+      if (e0 + lane + 32 * u < total && s >= 0) v[u] = table[s + col[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + lane + 32 * u;
+      if (e < total) dst[e] = v[u];
+      r[u] += step_r;
+      col[u] += step_c;
+      if (col[u] >= cv) {
+        col[u] -= cv;
+        ++r[u];
+      }
+    }
+  }
+}
+
+template <typename V, int U>
+int launch_gather(const float* table, const int* idx, float* out,
+                  long long rows, int n, int q, int cv, cudaStream_t stream) {
+  const long long warps = (rows + kGroup - 1) / kGroup;
+  gather_kernel<V, U><<<(unsigned)((warps + kWarps - 1) / kWarps),
+                        kWarps * 32, 0, stream>>>(
+      reinterpret_cast<const V*>(table), idx, reinterpret_cast<V*>(out), rows,
+      n, q, cv);
+  return (int)cudaGetLastError();
 }
 
 // counts[(cloud * nseg + seg) * n + j]: positions of the segment at row j
@@ -192,9 +250,11 @@ extern "C" int dispu_gather_rows(const float* table, const int* idx,
                                  void* stream) {
   if (b < 1 || n < 1 || q < 1 || c < 1) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)b * q;
-  gather_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kWarps * 32, 0,
-                  (cudaStream_t)stream>>>(table, idx, out, b, n, q, c);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    return launch_gather<float4, 4>(table, idx, out, rows, n, q, c / 4, s);
+  return launch_gather<float, 8>(table, idx, out, rows, n, q, c, s);
 }
 
 // counts: b * ceil(q / 1024) * n ints, rowptr: b * (n + 1) ints, perm:

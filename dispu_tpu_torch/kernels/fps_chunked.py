@@ -2,11 +2,15 @@
 
 Replaces ``fps_pallas_chunked`` and ``fps_pallas_chunked_batch``
 (``dispu_tpu/ops/pallas_kernels.py``): exact FPS for clouds past one SM,
-one cluster of 8 thread blocks per cloud, so a batch of clouds is the
-grid.  Up to 147,456 points a cloud the coordinates stay in the cluster's
-shared memory and the min-distances in registers; beyond, in device
-memory.  It is bound by the latency of its serial argmax chain; see the
-note at the top of the source.
+one thread block cluster per cloud, so a batch of clouds is the grid.  It
+takes ``fps.cu``'s round (``csrc/fps_common.cuh``: ``redux.sync`` a
+level, each warp's winner pushed into every block, one cluster barrier a
+round) and is bound by the latency of that serial argmax chain.  The
+kernel picks the form for an n-point cloud (:func:`form_for` asks it):
+the coordinates and min-distances in registers up to 98,304 points (the
+16× merge of a 2048-point cloud), the coordinates in the cluster's shared
+memory up to 147,456, both in device memory beyond, with a scratch of
+min-distances that the wrapper allocates.
 
 Its plain version is :func:`dispu_tpu_torch.kernels.fps.fps_torch`, which
 computes this same function (seed index 0, min-distances from 1e38,
@@ -18,6 +22,7 @@ sends this kernel the clouds past ``fps.cu``'s limit
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,30 +32,87 @@ from dispu_tpu_torch.kernels.fps import fps_torch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: clusters of each (device index, kernel form) the card holds at once,
-#: as asked of ``cudaOccupancyMaxActiveClusters`` at the first launch
-MAX_CLUSTERS: dict[tuple[int, int], int] = {}
+#: where a form keeps its points, in the order of ``fps_round::Storage``
+STORAGES = ("registers", "shared", "device")
 
 
-def _check_schedulable(lib, n: int, device: torch.device) -> None:
-    """Raise when the card cannot hold one cluster of the kernel's form for
-    ``n`` points (asked of ``cudaOccupancyMaxActiveClusters`` once)."""
-    form = lib.dispu_fps_chunked_form(n)
+class Form(NamedTuple):
+    """A cluster of ``cluster`` blocks of ``threads`` threads, each thread
+    holding ``points`` points (0 for the device form) where ``storage``
+    says."""
+
+    cluster: int
+    threads: int
+    points: int
+    storage: str
+
+    @property
+    def capacity(self) -> int:
+        """The largest cloud the form holds (0 for the device form, which
+        holds any)."""
+        return self.cluster * self.threads * self.points
+
+    def __str__(self) -> str:
+        per = f" x {self.points} points" if self.points else ""
+        return (f"{self.cluster} blocks x {self.threads} threads{per} "
+                f"({self.storage})")
+
+
+#: clusters of each (device index, form) the card holds at once, as asked
+#: of ``cudaOccupancyMaxActiveClusters`` at the form's first launch
+MAX_CLUSTERS: dict[tuple[int, Form], int] = {}
+
+
+def _lib():
+    from dispu_tpu_torch.kernels import _build
+
+    lib = _build.load("fps_chunked")
+    lib.dispu_fps_chunked_form.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.dispu_fps_chunked_max_clusters.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.dispu_fps_chunked.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    for fn in (lib.dispu_fps_chunked_form, lib.dispu_fps_chunked_max_clusters,
+               lib.dispu_fps_chunked):
+        fn.restype = _I
+    return lib
+
+
+def form_for(n: int) -> Form:
+    """The form the kernel takes for an ``n``-point cloud (builds it)."""
+    from dispu_tpu_torch.kernels import _build
+
+    shape = (_I * 4)()
+    _build.check(_lib().dispu_fps_chunked_form(n, shape),
+                 f"fps_chunked form for n = {n}")
+    cluster, threads, points, storage = shape
+    return Form(cluster, threads, points, STORAGES[storage])
+
+
+def forms_from(n: int) -> list[Form]:
+    """The forms the kernel takes for clouds of ``n`` points and more, in
+    order: each on-chip form up to its capacity, then the device form."""
+    forms = [form_for(n)]
+    while forms[-1].storage != "device":
+        forms.append(form_for(forms[-1].capacity + 1))
+    return forms
+
+
+def _check_schedulable(lib, form: Form, n: int, device: torch.device) -> None:
+    """Raise when the card cannot hold one cluster of ``form``, the form for
+    ``n`` points (asked of ``cudaOccupancyMaxActiveClusters`` once a device
+    and form)."""
+    from dispu_tpu_torch.kernels import _build
+
     key = (device.index, form)
     if key not in MAX_CLUSTERS:
-        from dispu_tpu_torch.kernels import _build
-
         count = _I(0)
-        fn = lib.dispu_fps_chunked_max_clusters
-        fn.argtypes = [_I, ctypes.POINTER(_I)]
-        fn.restype = _I
-        _build.check(fn(n, ctypes.byref(count)),
-                     "fps_chunked cudaOccupancyMaxActiveClusters")
+        status = lib.dispu_fps_chunked_max_clusters(n, ctypes.byref(count))
+        _build.check(status,
+                     f"fps_chunked cudaOccupancyMaxActiveClusters ({form})")
         MAX_CLUSTERS[key] = count.value
     if MAX_CLUSTERS[key] < 1:
         raise RuntimeError(
-            f"fps_chunked: the card holds {MAX_CLUSTERS[key]} clusters of 8 "
-            f"blocks x 1024 threads (form {form}); the kernel cannot run here")
+            f"fps_chunked: the card holds {MAX_CLUSTERS[key]} clusters of "
+            f"{form}; the kernel cannot run here")
 
 
 def fps_chunked_cuda(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
@@ -67,23 +129,20 @@ def fps_chunked_cuda(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
     if b < 1 or n < 1 or npoint < 1:
         raise ValueError(f"fps_chunked kernel needs b, n, npoint >= 1, got "
                          f"{(b, n, npoint)}")
-    lib = _build.load("fps_chunked")
-    lib.dispu_fps_chunked_form.argtypes = [_I]
-    lib.dispu_fps_chunked_form.restype = _I
-    fn = lib.dispu_fps_chunked
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-    fn.restype = _I
+    lib = _lib()
+    form = form_for(n)
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     scratch = None
-    if lib.dispu_fps_chunked_form(n) == 0:  # past the on-chip capacity
+    if form.storage == "device":
         scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
     with torch.cuda.device(xyz.device):
-        _check_schedulable(lib, n, xyz.device)
+        _check_schedulable(lib, form, n, xyz.device)
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(xyz.data_ptr(), out.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(),
-                    b, n, npoint, stream)
-    _build.check(status, "fps_chunked kernel launch")
+        status = lib.dispu_fps_chunked(
+            xyz.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, n, npoint,
+            stream)
+    _build.check(status, f"fps_chunked kernel launch ({form})")
     LAUNCHES["fps_chunked"] += 1
     return out
 

@@ -1,25 +1,42 @@
-"""Time ``farthest_point_sample`` of one or more checkouts on the card.
+"""Time the FPS route, a kernel or a whole request of one or more
+checkouts on the card, in turns.
 
     python3 -m dispu_tpu_torch.time_fps [--b 1] [--n 98304] [--npoint 32768]
-                                        [--reps 3] [--kernel fps_chunked]
+                                        [--reps 3]
+                                        [--kernel fps_chunked | --request R]
                                         [TREE ...]
 
 Each TREE is the root of a checkout of this repository (default: the one
-this module lies in).  Every tree's own
-``dispu_tpu_torch.ops.sampling.farthest_point_sample`` runs in a process of
-its own on the same input (``torch.randn`` from seed 0, with the first
-100 points copied further on, so that tied distances occur), first in the
-order given and then in reverse (a, b, b, a), and is timed with CUDA
-events after one warm-up call.  Prints the card's name and power limit,
-then one JSON line a run with the mean milliseconds a call and a digest of
-the indices, which must agree between trees that compute the same
-function.  ``--kernel fps`` or ``--kernel fps_chunked`` times that
-kernel's wrapper instead of the route, at any n it takes.  Two trees are
-compared only within one such call.  This is how the device-scratch form
-of ``fps.cu``, which the cluster kernel ``fps_chunked.cu`` replaced at the
-16× merge shape, was timed: on a checkout of the commit before the
-replacement; and so was the one-block ``fps.cu`` that its register and
-cluster forms replaced.
+this module lies in).  Every tree's own code runs in a process of its own
+on the same input, first in the order given and then in reverse (a, b, b,
+a).  Prints the card's name and power limit, then one JSON line a run with
+the mean milliseconds a call and a digest of the output, which must agree
+between trees that compute the same function.  Two trees are compared
+only within one such call.
+
+- Default (``--kernel route``): ``ops.sampling.farthest_point_sample`` on
+  ``torch.randn(b, n, 3)`` from seed 0, with the first 100 points copied
+  to the end so that tied distances occur, timed with CUDA events after
+  one warm-up call.  ``--kernel fps`` or ``--kernel fps_chunked`` times
+  that kernel's wrapper instead, at any n it takes.  This is how the
+  device-scratch form of ``fps.cu``, which the cluster kernel
+  ``fps_chunked.cu`` replaced at the 16× merge shape, was timed: on a
+  checkout of the commit before the replacement; and so were the forms of
+  ``fps_chunked.cu``, each in a checkout whose list of forms
+  (``with_form``) held only it.
+- ``--kernel gather_rows``: ``gather_rows_cuda`` and, beside it,
+  ``torch.gather`` at the train step's three gather shapes
+  (``measure.GATHER_CASES``, b = 28, loaded from this checkout into every
+  tree): ``ms`` by CUDA events around ``--reps`` back-to-back calls (at
+  the small widths that is the host's time a call), ``kernel_ms`` the
+  device time of their kernels in a ``torch.profiler`` trace
+  (``measure.device_ms``), a call each; the top-level numbers are a train
+  step's aggregate (1 × c 24, 3 × c 48, 1 × c 131), ``shapes`` each
+  shape's.
+- ``--request R``: ``PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
+  final_ratio=R)).upsample`` of ``demo/gt/fandisk.xyz``, host wall
+  milliseconds a call (the result is on the host when it returns) over
+  ``--reps`` calls after one warm-up; ``ms_each`` lists every call.
 """
 
 from __future__ import annotations
@@ -32,28 +49,82 @@ import subprocess
 import sys
 
 CHILD = r"""
-import hashlib, importlib, json, sys, torch
+import hashlib, importlib, json, sys, time, torch
 b, n, npoint, reps = map(int, sys.argv[1:5])
-if sys.argv[5] == "route":
-    from dispu_tpu_torch.ops.sampling import farthest_point_sample
+mode = sys.argv[5]
+
+
+def digest(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def event_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+if mode.startswith("request"):
+    import numpy as np
+    from dispu_tpu_torch import InferenceConfig
+    from dispu_tpu_torch.inference import PatchUpsampler
+    up = PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
+        final_ratio=int(mode[len("request"):])))
+    pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
+    out = up.upsample(pc)
+    each = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        up.upsample(pc)
+        each.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"ms": sum(each) / reps, "ms_each": each,
+                      "digest": digest(out)}))
+elif mode == "gather_rows":
+    import importlib.util
+    from dispu_tpu_torch.kernels.gather_rows import gather_rows_cuda
+    spec = importlib.util.spec_from_file_location("measure", sys.argv[6])
+    measure = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(measure)
+    gen = torch.Generator().manual_seed(0)
+    shapes, total, outs = {}, {}, []
+    for label, n, c, per, launches in measure.GATHER_CASES:
+        table, idx = measure.gather_inputs(gen, n, c, per)
+        table, idx = table.cuda(), idx.cuda()
+        flat = idx.long()[..., None].expand(-1, -1, c)
+        outs.append(gather_rows_cuda(table, idx).cpu().numpy())
+        shapes[label] = {
+            "ms": event_ms(lambda: gather_rows_cuda(table, idx)),
+            "kernel_ms": measure.device_ms(
+                lambda: gather_rows_cuda(table, idx), reps),
+            "torch_gather_ms": event_ms(lambda: torch.gather(table, 1, flat)),
+            "torch_gather_kernel_ms": measure.device_ms(
+                lambda: torch.gather(table, 1, flat), reps)}
+        for key, val in shapes[label].items():
+            total[key] = total.get(key, 0.0) + launches * val
+    print(json.dumps({**total, "shapes": shapes, "digest": digest(*outs)}))
 else:
-    module = importlib.import_module("dispu_tpu_torch.kernels." + sys.argv[5])
-    farthest_point_sample = getattr(module, sys.argv[5] + "_cuda")
-gen = torch.Generator().manual_seed(0)
-xyz = torch.randn(b, n, 3, generator=gen)
-xyz[:, n - 100:] = xyz[:, :100]
-xyz = xyz.cuda()
-out = farthest_point_sample(npoint, xyz)
-torch.cuda.synchronize()
-start = torch.cuda.Event(enable_timing=True)
-end = torch.cuda.Event(enable_timing=True)
-start.record()
-for _ in range(reps):
-    farthest_point_sample(npoint, xyz)
-end.record()
-end.synchronize()
-digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
-print(json.dumps({"ms": start.elapsed_time(end) / reps, "digest": digest}))
+    if mode == "route":
+        from dispu_tpu_torch.ops.sampling import farthest_point_sample
+    else:
+        module = importlib.import_module("dispu_tpu_torch.kernels." + mode)
+        farthest_point_sample = getattr(module, mode + "_cuda")
+    gen = torch.Generator().manual_seed(0)
+    xyz = torch.randn(b, n, 3, generator=gen)
+    xyz[:, n - 100:] = xyz[:, :100]
+    xyz = xyz.cuda()
+    out = farthest_point_sample(npoint, xyz)
+    ms = event_ms(lambda: farthest_point_sample(npoint, xyz))
+    print(json.dumps({"ms": ms, "digest": digest(out.cpu().numpy())}))
 """
 
 
@@ -66,28 +137,39 @@ def main() -> int:
     parser.add_argument("--npoint", type=int, default=32768)
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--kernel", default="route",
-                        choices=("route", "fps", "fps_chunked"))
+                        choices=("route", "fps", "fps_chunked",
+                                 "gather_rows"))
+    parser.add_argument("--request", type=int, default=None, metavar="R",
+                        help="time whole upsample requests at final "
+                             "ratio R instead of a kernel")
     args = parser.parse_args()
+    mode = args.kernel if args.request is None else f"request{args.request}"
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     print(card, flush=True)
+    if args.request is not None:
+        shape = {"ratio": args.request}
+    elif args.kernel == "gather_rows":
+        shape = {"kernel": args.kernel}
+    else:
+        shape = {"kernel": args.kernel, "b": args.b, "n": args.n,
+                 "npoint": args.npoint}
     trees = [str(pathlib.Path(t).resolve()) for t in args.trees]
     for tree in trees + trees[::-1]:
         env = dict(os.environ, PYTHONPATH=tree)
         run = subprocess.run(
             [sys.executable, "-c", CHILD, str(args.b), str(args.n),
-             str(args.npoint), str(args.reps), args.kernel],
+             str(args.npoint), str(args.reps), mode,
+             str(pathlib.Path(__file__).parent / "kernels" / "measure.py")],
             cwd=tree, env=env, capture_output=True, text=True)
         if run.returncode != 0:
             print(run.stdout + run.stderr, file=sys.stderr)
             return run.returncode
         result = json.loads(run.stdout.strip().splitlines()[-1])
-        print(json.dumps({"tree": tree, "kernel": args.kernel, "b": args.b,
-                          "n": args.n, "npoint": args.npoint, **result}),
-              flush=True)
+        print(json.dumps({"tree": tree, **shape, **result}), flush=True)
     return 0
 
 

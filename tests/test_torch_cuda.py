@@ -16,7 +16,8 @@ from dispu_tpu_torch import GeneratorConfig, InferenceConfig, kernels
 from dispu_tpu_torch.inference import PatchUpsampler, pin_f32
 from dispu_tpu_torch.kernels.attention import attention_cuda, attention_torch
 from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps_cuda, fps_torch
-from dispu_tpu_torch.kernels.fps_chunked import fps_chunked_cuda
+from dispu_tpu_torch.kernels.fps_chunked import (fps_chunked_cuda, form_for,
+                                                 forms_from)
 from dispu_tpu_torch.kernels.knn import MAX_ROW_FLOATS, knn_cuda, knn_torch
 from dispu_tpu_torch.kernels.query_ball import (MAX_C, MAX_N, MAX_NSAMPLE,
                                                 query_ball_cuda,
@@ -128,27 +129,54 @@ def test_fps_kernel_refuses_clouds_past_its_limit(dev):
         fps_cuda(8, torch.zeros((1, FPS_MAX_N + 1, 3), device=dev))
 
 
-# n across the kernel's forms: 8 blocks of ceil(n / 8) points, with 6, 12
-# or 18 min-distances a thread in registers up to 49,152, 98,304 and
-# 147,456 points (the cluster's on-chip capacity), device memory beyond
+# the forms csrc/fps_chunked.cu picks from n, and their limits
+FORM_EDGES = [
+    (5, 512, 16, "registers", 40960), (6, 512, 16, "registers", 49152),
+    (8, 512, 16, "registers", 65536), (8, 512, 20, "registers", 81920),
+    (8, 512, 24, "registers", 98304), (8, 512, 36, "shared", 147456),
+]
+
+
+def test_fps_chunked_forms_cover_every_cloud_past_fps_cu(dev):
+    """From just past fps.cu's limit every n takes the smallest on-chip
+    form that holds it, with no gap; past the last, device memory."""
+    forms = forms_from(FPS_MAX_N + 1)
+    assert [tuple(f) + (f.capacity,) for f in forms[:-1]] == FORM_EDGES
+    assert tuple(forms[-1]) == (8, 1024, 0, "device")
+    lower = FPS_MAX_N
+    for form in forms[:-1]:
+        for n in [*range(lower + 1, form.capacity, 997), form.capacity]:
+            assert form_for(n) == form
+        lower = form.capacity
+
+
+# n at each edge of the kernel's forms (FORM_EDGES), a form's limit and
+# one past it, and ragged chunks between
 @pytest.mark.parametrize("b,n,npoint", [
-    (1, 40000, 64), (3, 49152, 50), (1, 49153, 50), (3, 98309, 100),
-    (1, 147456, 64), (3, 147457, 40), (1, 100, 100),
+    (1, FPS_MAX_N + 1, 64), (3, 40960, 50), (1, 40961, 50), (1, 40000, 64),
+    (3, 49152, 50), (1, 49153, 50), (1, 57344, 40), (3, 57345, 40),
+    (1, 65536, 40), (1, 65537, 40), (3, 81920, 40), (1, 81921, 40),
+    (3, 98304, 100), (1, 98305, 50), (3, 98309, 100), (1, 147456, 64),
+    (3, 147457, 40), (1, 479232, 30), (1, 100, 100),
 ])
 def test_fps_chunked_kernel_bit_equal_to_plain(dev, b, n, npoint):
-    xyz = _randn(n, b, n, 3).to(dev)
+    xyz = _randn(n, b, n, 3)
     xyz[:, n // 2:n // 2 + 3] = xyz[:, :3]
+    if n > 1100:  # ties between the first and the last block
+        xyz[:, n - 50:] = xyz[:, 1000:1050]
+    xyz = xyz.to(dev)
     assert torch.equal(fps_chunked_cuda(npoint, xyz), fps_torch(npoint, xyz))
 
 
-def test_fps_chunked_kernel_more_samples_than_distinct_points(dev):
-    # 37 distinct points tiled over 40,003 (blocks of 5,001): exact ties
+@pytest.mark.parametrize("b", [1, 3])
+def test_fps_chunked_kernel_more_samples_than_distinct_points(dev, b):
+    # 37 distinct points tiled over 40,003 (blocks of 8,001): exact ties
     # within and across blocks, then every min-distance 0 and index 0
-    xyz = _randn(37, 1, 37, 3).repeat(1, 1082, 1)[:, :40003].to(dev)
+    xyz = _randn(37, b, 37, 3).repeat(1, 1082, 1)[:, :40003].to(dev)
     got = fps_chunked_cuda(64, xyz.contiguous())
     assert torch.equal(got, fps_torch(64, xyz))
-    assert sorted(got[0, :37].tolist()) == list(range(37))
-    assert (got[0, 37:] == 0).all()
+    assert all(sorted(row[:37].tolist()) == list(range(37)) for row in got)
+    assert (got[:, 37:] == 0).all()
 
 
 def _chamfer(a, b):
@@ -558,9 +586,12 @@ def _rows_idx(seed, b, q, n, lo=0, hi=None):
                                         (b, q)).astype(np.int32))
 
 
+# the train step's three shapes; then c in {1, 3, 4, 24, 48, 128, 131},
+# float4 rows where c % 4 == 0, floats else, q past a group of 32 rows
 @pytest.mark.parametrize("b,n,c,q", [
     (28, 256, 24, 4096), (28, 256, 48, 4096), (4, 1024, 131, 16384),
-    (3, 100, 3, 77), (2, 4096, 128, 5000),
+    (3, 100, 3, 77), (2, 4096, 128, 5000), (2, 300, 1, 1000),
+    (3, 300, 4, 1001), (3, 70, 24, 33), (1, 50, 48, 31), (2, 333, 131, 95),
 ])
 def test_gather_rows_kernel_bit_equal(dev, b, n, c, q):
     from dispu_tpu_torch.kernels.gather_rows import (gather_rows_cuda,
@@ -573,17 +604,34 @@ def test_gather_rows_kernel_bit_equal(dev, b, n, c, q):
     assert torch.equal(got, gather_rows_torch(table, idx))
 
 
-def test_gather_rows_kernel_zeroes_rows_outside_the_table(dev):
+@pytest.mark.parametrize("c", [7, 8])
+def test_gather_rows_kernel_zeroes_rows_outside_the_table(dev, c):
     from dispu_tpu_torch.kernels.gather_rows import gather_rows_cuda
 
-    table = _randn(1, 2, 50, 7).to(dev)
+    table = _randn(1, 2, 50, c).to(dev)
     idx = _rows_idx(2, 2, 40, 50, lo=-5, hi=60).to(dev)
     got = gather_rows_cuda(table, idx)
     out = (idx < 0) | (idx >= 50)
     assert bool(out.any()) and bool((got[out] == 0).all())
     inside = torch.where(out, 0, idx)
-    want = torch.gather(table, 1, inside.long()[..., None].expand(-1, -1, 7))
+    want = torch.gather(table, 1, inside.long()[..., None].expand(-1, -1, c))
     assert torch.equal(got[~out], want[~out])
+
+
+@pytest.mark.parametrize("c", [4, 24, 48, 131])
+def test_gather_rows_kernel_bit_equal_from_an_unaligned_table(dev, c):
+    """A contiguous table that starts one float into its storage is not
+    16-byte aligned: the kernel takes floats, not float4s, and is exact."""
+    from dispu_tpu_torch.kernels.gather_rows import (gather_rows_cuda,
+                                                     gather_rows_torch)
+
+    b, n, q = 3, 200, 700
+    table = _randn(c, b * n * c + 1).to(dev)[1:].view(b, n, c).contiguous()
+    assert table.data_ptr() % 16 != 0
+    idx = _rows_idx(c + 1, b, q, n).to(dev)
+    got = gather_rows_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_torch(table, idx))
 
 
 @pytest.mark.parametrize("b,n,c,q", [

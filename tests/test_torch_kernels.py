@@ -7,6 +7,7 @@ both packages.
 """
 
 import importlib
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +23,10 @@ from dispu_tpu_torch import kernels
 from dispu_tpu_torch.kernels.attention import attention, attention_torch
 from dispu_tpu_torch.kernels.fps import (FPS_MAX_N, fps, fps_cuda, fps_lite,
                                          fps_torch)
-from dispu_tpu_torch.kernels.fps_chunked import fps_chunked, fps_chunked_cuda
+from dispu_tpu_torch.kernels.fps_chunked import (MAX_CLUSTERS, Form,
+                                                 _check_schedulable,
+                                                 fps_chunked,
+                                                 fps_chunked_cuda)
 from dispu_tpu_torch.kernels.fps_bucketed import fps_bucketed
 from dispu_tpu_torch.kernels.gather_rows import gather_rows, scatter_rows_cuda
 from dispu_tpu_torch.kernels.knn import knn as knn_kernel
@@ -237,6 +241,25 @@ def test_fps_chunked_ties_across_chunks():
 def test_fps_routes_by_cloud_size(n, kernel):
     assert FPS_MAX_N == 32768
     assert fps_kernel_for(n) == kernel
+
+
+def test_fps_chunked_refuses_a_form_the_card_cannot_schedule():
+    """``cudaOccupancyMaxActiveClusters`` answering 0 raises, naming the
+    form; it never falls back to another form."""
+
+    def max_clusters(n, count):
+        assert n == 98304
+        count._obj.value = 0
+        return 0
+
+    lib = types.SimpleNamespace(dispu_fps_chunked_max_clusters=max_clusters)
+    form = Form(8, 512, 24, "registers")
+    MAX_CLUSTERS.pop((7, form), None)
+    with pytest.raises(RuntimeError,
+                       match="0 clusters of 8 blocks x 512 threads x 24 "
+                             r"points \(registers\)"):
+        _check_schedulable(lib, form, 98304, torch.device("cuda", 7))
+    assert MAX_CLUSTERS.pop((7, form)) == 0
 
 
 def test_fps_batch_impl_routes_as_auto():
