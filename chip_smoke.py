@@ -241,10 +241,10 @@ def chamfer(a, b, rows: int = 4096) -> float:
 def check_knn(dev):
     """Kernel vs plain at the serving path's kNN shapes.  Returns the
     per-request aggregate for the JSON line."""
-    import numpy as np
     import torch
 
     from dispu_tpu_torch.kernels.knn import knn_cuda, knn_torch
+    from dispu_tpu_torch.kernels.measure import KNN_CASES, knn_inputs
     from dispu_tpu_torch.ops.geometry import (normalize_point_cloud,
                                               pairwise_sq_dist)
     from dispu_tpu_torch.ops.knn import mask_duplicate_rows
@@ -252,36 +252,18 @@ def check_knn(dev):
     gen = torch.Generator(device="cpu").manual_seed(1)
     cloud, _, _ = normalize_point_cloud(
         torch.from_numpy(load_cloud("Icosahedron.xyz")))
-
-    def feats(b, n, c, n_dup):
-        x = torch.randn(b, n, c, generator=gen)
-        x[:, n - n_dup:] = x[:, :n_dup]  # duplicated rows, as in patches
-        return x
-
-    # (label, points, queries, k, duplicate bias, launches per 4x request);
-    # the rest are the shapes of a 16x request's second pass and of a train
-    # step at batch 28 (backbone, refiner, and the chamfer argmin at k = 1,
-    # whose library call is cdist + argmin), checked and timed but not
-    # counted in the 4x request's aggregate
-    cases = [
-        ("patch k256", cloud[None], cloud[None, ::85][:, :24], 256, False, 1),
-        ("backbone c24", feats(32, 256, 24, 8), None, 17, True, 1),
-        ("backbone c48", feats(32, 256, 48, 8), None, 17, True, 3),
-        ("refiner", feats(32, 1024, 3, 0), None, 16, False, 1),
-        ("p2 bbone c24", feats(32, 1024, 24, 8), None, 17, True, 0),
-        ("p2 bbone c48", feats(32, 1024, 48, 8), None, 17, True, 0),
-        ("p2 refiner", feats(32, 4096, 3, 0), None, 16, False, 0),
-        ("train bb c24", feats(28, 256, 24, 8), None, 17, True, 0),
-        ("train bb c48", feats(28, 256, 48, 8), None, 17, True, 0),
-        ("train refiner", feats(28, 1024, 3, 0), None, 16, False, 0),
-        ("chamfer k1", feats(28, 1024, 3, 0), feats(28, 1024, 3, 0), 1,
-         False, 0),
-    ]
+    # measure.KNN_CASES: the shapes of a 4x request (its launches, the
+    # aggregate), of a 16x request's second pass and of a train step at
+    # batch 28 (backbone, refiner, and the chamfer argmin at k = 1, whose
+    # library call is cdist + argmin), checked and timed
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
-    for label, pts, qs, k, dup, per_req in cases:
-        pts = pts.contiguous().to(dev)
-        qs = pts if qs is None else qs.contiguous().to(dev)
+    for case, (pts, qs) in zip(KNN_CASES, knn_inputs(gen, KNN_CASES,
+                                                      cloud)):
+        label, k, dup, per_req = (case.label, case.k, case.dup,
+                                  case.per_request)
+        pts = pts.to(dev)
+        qs = pts if qs is None else qs.to(dev)
         bias = (mask_duplicate_rows(pts).float() * 1e30) if dup else None
         dk, ik = knn_cuda(k, pts, qs, bias)
         dp, ip = knn_torch(k, pts, qs, bias)
@@ -689,34 +671,20 @@ def check_knn_group(dev):
     from dispu_tpu_torch.kernels.knn_group import (bf16_round,
                                                    knn_group_cuda,
                                                    knn_group_torch)
+    from dispu_tpu_torch.kernels.measure import (KNN_GROUP_CASES,
+                                                 knn_group_inputs)
     from dispu_tpu_torch.ops.knn import mask_duplicate_rows
 
     gen = torch.Generator(device="cpu").manual_seed(5)
-
-    def feats(b, n, c, n_dup):
-        x = torch.randn(b, n, c, generator=gen)
-        x[:, n - n_dup:] = x[:, :n_dup]
-        return x
-
-    xyz = feats(32, 1024, 3, 0)
-    nl = feats(32, 1024, 128, 0)
-    # (label, keys, features (None: the keys), k, exact, with_xyz,
-    # drop_first and duplicate bias, launches per 4x turbo request)
-    cases = [("bbone c24", feats(32, 256, 24, 8), None, 16, False, False,
-              True, 1),
-             ("bbone c48", feats(32, 256, 48, 8), None, 16, False, False,
-              True, 3),
-             ("refiner", xyz, nl, 16, False, True, False, 1),
-             ("refiner exact", xyz, nl, 16, True, True, False, 0),
-             ("p2 bbone c24", feats(32, 1024, 24, 8), None, 16, False, False,
-              True, 0),
-             ("p2 bbone c48", feats(32, 1024, 48, 8), None, 16, False, False,
-              True, 0)]
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
-    for label, pts, ft, k, exact, with_xyz, drop, per_req in cases:
-        pts = pts.contiguous().to(dev)
-        ft = pts if ft is None else ft.contiguous().to(dev)
+    for case, (pts, ft) in zip(KNN_GROUP_CASES,
+                               knn_group_inputs(gen, KNN_GROUP_CASES)):
+        label, k, exact, with_xyz, drop, per_req = (
+            case.label, case.k, case.exact, case.with_xyz, case.drop_first,
+            case.per_request)
+        pts = pts.to(dev)
+        ft = pts if ft is None else ft.to(dev)
         bias = (mask_duplicate_rows(pts).float() * 1e30) if drop else None
         kw = dict(exact=exact, with_xyz=with_xyz, drop_first=drop)
         d, i, gx, gf = knn_group_cuda(k, pts, pts, ft, bias, **kw)
@@ -2616,12 +2584,14 @@ def main() -> int:
             "refine_local": check_refine_local(dev),
             "refine_block": check_refine_block(dev)}
     check_knn_group_backward(dev)
-    train_knn = [TRAIN_KNN_MS[k] for k in ("train bb c24", "train bb c48",
-                                           "train refiner", "chamfer k1")]
+    from dispu_tpu_torch.kernels.measure import KNN_CASES
+
+    train_knn = {case.label: (case.per_step, TRAIN_KNN_MS[case.label])
+                 for case in KNN_CASES if case.per_step}
     log(f"kernel ms per train step, by the phase-3 timings: knn "
-        f"{train_knn[0] + 3 * train_knn[1] + train_knn[2] + 8 * train_knn[3]:.4f}"
-        f" (backbone 1 x {train_knn[0]:.4f} + 3 x {train_knn[1]:.4f}, "
-        f"refiner {train_knn[2]:.4f}, chamfer 8 x {train_knn[3]:.4f}), "
+        f"{sum(times * ms for times, ms in train_knn.values()):.4f} ("
+        + ", ".join(f"{label} {times} x {ms:.4f}"
+                    for label, (times, ms) in train_knn.items()) + "), "
         f"attention forward {aggs['attention']['train_fwd_ms']:.4f} + "
         f"backward {aggs['attention']['train_bwd_ms']:.4f}, query_ball "
         f"{aggs['query_ball']['ms']:.4f}")

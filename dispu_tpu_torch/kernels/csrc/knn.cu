@@ -6,10 +6,10 @@
 // max(q2 - 2 q.p + p2, 0) + bias[j] over every dataset point j (the
 // distance row of knn_common.cuh, shared with knn_group.cu).
 //
-// Exact (knn_kernel): the k smallest in lexicographic (distance, index)
-// order, ascending: equal distances go to the lower index, as lax.top_k
-// and the Pallas lane order do.  A bias of 1e30 pushes padding and
-// duplicate columns last.
+// Exact (knn_stream_kernel for k <= 32, knn_kernel beyond): the k smallest
+// in lexicographic (distance, index) order, ascending: equal distances go
+// to the lower index, as lax.top_k and the Pallas lane order do.  A bias
+// of 1e30 pushes padding and duplicate columns last.
 //
 // Packed (knn_packed_kernel): each entry's key is one int, the distance's
 // bits with the low lb bits replaced by the column index (lb =
@@ -21,15 +21,23 @@
 // within the truncation resolved by index.  The distance code is the
 // exact kernel's, so the two differ only in selection.
 //
-// What bounds it on an H100: the selection, not the distances.  At the
-// refiner's shape (32 clouds x 1024 queries x 1024 points, c = 3) the
-// distances are 0.2 GFLOP, yet each of the k rounds re-reads the whole
-// row.  Design: one warp per query row; the row's n distances live in
-// shared memory (never in device memory); each round is one strided pass
-// per lane keeping the minimum, a 5-step shuffle reduction, and (exact
-// form) a knock-out of the winner with +inf.  The row limit is the shared
-// memory of one block: (n + c) floats per warp, at most 232,448 bytes,
-// i.e. n + c <= 58,112.
+// What bounds it on an H100.  Exact, k <= 32 (every kNN of the serving and
+// training paths but the patch cut): the f32 FMAs of the distances, b m n
+// (2 c + 4) operations (0.05 ms at f32's 67 TFLOP/s at pass 2's c = 48
+// shape), and the selection's compares and insertions.  The row form
+// below, run at these shapes, gives each query one warp that reads the
+// whole cloud again with lanes c floats apart (32 sectors for 128 useful
+// bytes at c = 48) and makes k passes over the row: 7.8 ms, 160x the
+// bound, at pass 2's c = 48 shape on an H100 80GB HBM3 at 700 W.  Design:
+// knn_common.cuh's tiled form (stream_topk): a block of 4 warps takes 32
+// queries of one cloud and streams the cloud through shared memory in
+// coalesced tiles of 128 points, each lane a register tile of 8 queries x
+// 4 points, and each query's k best stay sorted in its warp's registers,
+// so the row never goes to shared memory and n is not limited.  Exact, k >
+// 32 (the patch cut, k = 256 over 2,048 points, 24 queries), and packed:
+// the row form, one warp per query row, its n distances in shared memory,
+// k rounds (a strided pass, a butterfly, and in the exact form a
+// knock-out); a row must fit one block's shared memory, n + c <= 58,112.
 
 #include "knn_common.cuh"
 
@@ -37,6 +45,7 @@ namespace {
 
 using namespace knn_common;
 
+// k > kStreamK: the row form.
 __global__ void knn_kernel(const float* __restrict__ points,
                            const float* __restrict__ queries,
                            const float* __restrict__ bias,
@@ -64,6 +73,29 @@ __global__ void knn_kernel(const float* __restrict__ points,
     }
     knock_out(d, n, lane, bj);
   }
+}
+
+// k <= kStreamK: the tiled form; one block per (cloud, 32 queries).
+__global__ void __launch_bounds__(kTileThreads)
+    knn_stream_kernel(const float* __restrict__ points,
+                      const float* __restrict__ queries,
+                      const float* __restrict__ bias,
+                      float* __restrict__ dists, int* __restrict__ idx, int n,
+                      int m, int c, int k) {
+  __shared__ TileSmem sm;
+  const int tiles = (m + kTQ - 1) / kTQ;
+  const int cloud = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - cloud * tiles) * kTQ;
+  const int lane = threadIdx.x & 31;
+  const long long row0 = (long long)cloud * m;
+  stream_topk(sm, points + (size_t)cloud * n * c,
+              queries + (size_t)row0 * c, bias + (size_t)cloud * n, n, m, c,
+              q0, k, [&](int q, float d, int j) {
+                if (lane < k) {
+                  dists[(row0 + q) * k + lane] = d;
+                  idx[(row0 + q) * k + lane] = j;
+                }
+              });
 }
 
 __global__ void knn_packed_kernel(const float* __restrict__ points,
@@ -112,10 +144,17 @@ __global__ void knn_packed_kernel(const float* __restrict__ points,
 extern "C" int dispu_knn(const float* points, const float* queries,
                          const float* bias, float* dists, int* idx, int b,
                          int n, int m, int c, int k, void* stream) {
+  if (b < 1 || m < 1 || c < 1 || k < 1 || k > n)
+    return (int)cudaErrorInvalidValue;
+  if (k <= kStreamK) {
+    knn_stream_kernel<<<tile_blocks(b, m), kTileThreads, 0,
+                        (cudaStream_t)stream>>>(points, queries, bias, dists,
+                                                idx, n, m, c, k);
+    return (int)cudaGetLastError();
+  }
   int warps;
   size_t smem;
-  if (!row_launch(n, c, warps, smem) || k < 1 || k > n)
-    return (int)cudaErrorInvalidValue;
+  if (!row_launch(n, c, warps, smem)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -3,12 +3,16 @@
 Replaces ``knn_pallas`` (``dispu_tpu/ops/pallas_kernels.py``): the exact
 selection (:func:`knn`, count ``LAUNCHES["knn"]``) and the packed-key turbo
 selection of ``variant="packed"`` (:func:`knn_packed`, count
-``LAUNCHES["knn_packed"]``).  On an H100 both are bound by their k
-selection rounds over each query's distance row, which they keep in shared
-memory; see the note at the top of the source.  :func:`knn` is
-differentiable through :class:`KnnFunction`, which carries
-``knn_pallas_diff``'s backward rule in torch ops; so is :func:`knn_packed`,
-by the same rule.
+``LAUNCHES["knn_packed"]``).  For k <= :data:`MAX_STREAM_K` the exact
+kernel streams each cloud through shared memory in coalesced tiles, with
+a register tile of queries by points a thread, and keeps each query's k
+best in registers (any n); it is bound by the distances' f32 FMAs and the
+selection's compares.  Beyond that k, and for the packed selection, one
+warp per query keeps the query's distance row in shared memory and takes
+k rounds over it (n + c <= :data:`MAX_ROW_FLOATS`).  See the note at the
+top of the source.  :func:`knn` is differentiable through
+:class:`KnnFunction`, which carries ``knn_pallas_diff``'s backward rule
+in torch ops; so is :func:`knn_packed`, by the same rule.
 """
 
 from __future__ import annotations
@@ -20,8 +24,11 @@ import torch
 from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
 
-#: one query's distance row plus the query, in floats, must fit one
-#: block's shared memory (232,448 bytes on Hopper)
+#: the largest k of the tiled form, which takes any n
+MAX_STREAM_K = 32
+#: beyond it, and for the packed selection, one query's distance row plus
+#: the query, in floats, must fit one block's shared memory (232,448
+#: bytes on Hopper)
 MAX_ROW_FLOATS = 232448 // 4
 
 _P = ctypes.c_void_p
@@ -43,7 +50,7 @@ def knn_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
     return d[..., :k].contiguous(), idx[..., :k].to(torch.int32).contiguous()
 
 
-def _check(k, points, queries, bias):
+def _check(k, points, queries, bias, row_form):
     if points.dim() != 3 or queries.dim() != 3:
         raise ValueError("knn kernel takes (b, n, c) points and (b, m, c) "
                          "queries")
@@ -62,10 +69,10 @@ def _check(k, points, queries, bias):
         raise ValueError(f"bias must be (b, n) = {(b, n)}")
     if not 1 <= k <= n:
         raise ValueError(f"k={k} must lie in [1, n={n}]")
-    if n + c > MAX_ROW_FLOATS:
+    if row_form and n + c > MAX_ROW_FLOATS:
         raise ValueError(
-            f"knn kernel holds a query's n + c = {n + c} floats in shared "
-            f"memory; the limit is {MAX_ROW_FLOATS}"
+            f"knn kernel at k={k} holds a query's n + c = {n + c} floats in "
+            f"shared memory; the limit is {MAX_ROW_FLOATS}"
         )
 
 
@@ -74,7 +81,7 @@ def knn_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
     """Launch the kernel.  Same contract as :func:`knn_torch`."""
     from dispu_tpu_torch.kernels import _build
 
-    _check(k, points, queries, bias)
+    _check(k, points, queries, bias, row_form=k > MAX_STREAM_K)
     b, n, c = points.shape
     m = queries.shape[1]
     if bias is None:
@@ -179,10 +186,10 @@ def knn_packed_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
 def knn_packed_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
                     bias: torch.Tensor | None = None):
     """Launch the packed kernel.  Same contract as
-    :func:`knn_packed_torch`; same limits as :func:`knn_cuda`."""
+    :func:`knn_packed_torch`; its row in shared memory at every k."""
     from dispu_tpu_torch.kernels import _build
 
-    _check(k, points, queries, bias)
+    _check(k, points, queries, bias, row_form=True)
     b, n, c = points.shape
     m = queries.shape[1]
     if bias is None:

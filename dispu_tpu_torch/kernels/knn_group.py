@@ -5,9 +5,13 @@ Replaces ``knn_group_pallas`` (``dispu_tpu/ops/pallas_kernels.py``): the
 backbone's fused edge gather (``nn.edgeconv.edge_parts``, ``drop_first``
 with the duplicate bias, features only), the refiner's fused grouping
 (``ops.grouping.grouping``, with xyz) and the critic's fused
-neighbourhoods.  On an H100 the kernel is bound by the bytes of its
-gathered rows; see the note at the top of the source.  Its (dists, idx)
-are bit-equal to the kNN kernel's on the same inputs.
+neighbourhoods.  It runs the kNN kernel's forms (``kernels/knn.py``):
+for k (+1 with ``drop_first``) <= ``MAX_STREAM_K`` the tiled distances
+and the selection in registers, then each warp copies its queries'
+chosen rows over their flattened range (coalesced, ``float4`` where
+aligned); beyond, the row form.  It is bound by the distances' FMAs and
+the bytes of its gathered rows; see the note at the top of the source.
+Its (dists, idx) are bit-equal to the kNN kernel's on the same inputs.
 :class:`KnnGroupFunction` carries ``knn_group_pallas_diff``'s backward
 rule, whose gather transposes are the deterministic scatter-add kernel of
 ``kernels/gather_rows.py`` on the card.
@@ -22,7 +26,8 @@ import torch
 from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
                                                  scatter_rows_torch)
-from dispu_tpu_torch.kernels.knn import MAX_ROW_FLOATS, knn_torch
+from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
+                                         knn_torch)
 
 #: the widest feature row the JAX package's kernel takes
 MAX_C = 384
@@ -92,10 +97,11 @@ def _check(k, points, queries, feats, bias, with_xyz, drop_first):
         raise ValueError(f"with_xyz needs 3-d points, got c={c}")
     if not 1 <= k <= n - int(drop_first):
         raise ValueError(f"k={k} (+1 with drop_first) must lie in [1, n={n}]")
-    if n + c > MAX_ROW_FLOATS:
+    if k + int(drop_first) > MAX_STREAM_K and n + c > MAX_ROW_FLOATS:
         raise ValueError(
-            f"knn_group kernel holds a query's n + c = {n + c} floats in "
-            f"shared memory; the limit is {MAX_ROW_FLOATS}")
+            f"knn_group kernel at k={k} (+1 with drop_first) holds a query's "
+            f"n + c = {n + c} floats in shared memory; the limit is "
+            f"{MAX_ROW_FLOATS}")
 
 
 def knn_group_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,

@@ -3,7 +3,7 @@ checkouts on the card, in turns.
 
     python3 -m dispu_tpu_torch.time_fps [--b 1] [--n 98304] [--npoint 32768]
                                         [--reps 3]
-                                        [--kernel fps_chunked | --request R]
+                                        [--kernel KERNEL | --request R]
                                         [TREE ...]
 
 Each TREE is the root of a checkout of this repository (default: the one
@@ -33,10 +33,24 @@ only within one such call.
   (``measure.device_ms``), a call each; the top-level numbers are a train
   step's aggregate (1 × c 24, 3 × c 48, 1 × c 131), ``shapes`` each
   shape's.
+- ``--kernel knn``: ``knn_cuda`` at every shape of ``measure.KNN_CASES``
+  (inputs from ``measure.knn_inputs`` with seed 1, the patch cut on the
+  normalized ``demo/gt/Icosahedron.xyz``, ``measure`` loaded from this
+  checkout into every tree), ``ms`` by CUDA events around ``--reps``
+  back-to-back calls after one warm-up, and a digest of (dists, idx)
+  a shape; the top-level ``ms`` is a 4× request's launches.
+  ``--kernel knn_group``: ``knn_group_cuda`` the same way at
+  ``measure.KNN_GROUP_CASES`` (seed 5), its digest over (dists, idx,
+  grouped xyz, grouped features); the top-level ``ms`` is a 4× turbo
+  request's.  Equal digests at every shape say the two trees' kernels
+  return the same bits.
 - ``--request R``: ``PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
   final_ratio=R)).upsample`` of ``demo/gt/fandisk.xyz``, host wall
   milliseconds a call (the result is on the host when it returns) over
-  ``--reps`` calls after one warm-up; ``ms_each`` lists every call.
+  ``--reps`` calls after one warm-up; ``ms_each`` lists every call.  Then
+  the same for the turbo configuration of ``python -m dispu_tpu_torch.cli
+  --phase test --turbo true`` at ratio R, under ``turbo_ms``,
+  ``turbo_ms_each`` and ``turbo_digest``.
 """
 
 from __future__ import annotations
@@ -75,20 +89,30 @@ def event_ms(fn):
 
 
 if mode.startswith("request"):
+    import dataclasses
     import numpy as np
-    from dispu_tpu_torch import InferenceConfig
+    from dispu_tpu_torch import InferenceConfig, cli
     from dispu_tpu_torch.inference import PatchUpsampler
-    up = PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
-        final_ratio=int(mode[len("request"):])))
+    ratio = int(mode[len("request"):])
+    turbo = cli.build_config(cli.parse_args(["--phase", "test", "--turbo",
+                                             "true"]))
     pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
-    out = up.upsample(pc)
-    each = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        up.upsample(pc)
-        each.append((time.perf_counter() - t0) * 1e3)
-    print(json.dumps({"ms": sum(each) / reps, "ms_each": each,
-                      "digest": digest(out)}))
+    result = {}
+    for key, up in (
+            ("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
+                final_ratio=ratio))),
+            ("turbo_", PatchUpsampler(
+                seed=0, gen_cfg=turbo.generator, inf_cfg=dataclasses.replace(
+                    turbo.inference, final_ratio=ratio)))):
+        out = up.upsample(pc)
+        each = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            up.upsample(pc)
+            each.append((time.perf_counter() - t0) * 1e3)
+        result.update({key + "ms": sum(each) / reps, key + "ms_each": each,
+                       key + "digest": digest(out)})
+    print(json.dumps(result))
 elif mode == "gather_rows":
     import importlib.util
     from dispu_tpu_torch.kernels.gather_rows import gather_rows_cuda
@@ -112,6 +136,48 @@ elif mode == "gather_rows":
         for key, val in shapes[label].items():
             total[key] = total.get(key, 0.0) + launches * val
     print(json.dumps({**total, "shapes": shapes, "digest": digest(*outs)}))
+elif mode in ("knn", "knn_group"):
+    import importlib.util
+    import numpy as np
+    spec = importlib.util.spec_from_file_location("measure", sys.argv[6])
+    measure = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(measure)
+    from dispu_tpu_torch.ops.knn import mask_duplicate_rows
+    shapes, total = {}, 0.0
+    if mode == "knn":
+        from dispu_tpu_torch.kernels.knn import knn_cuda
+        from dispu_tpu_torch.ops.geometry import normalize_point_cloud
+        cloud = normalize_point_cloud(torch.from_numpy(np.loadtxt(
+            "demo/gt/Icosahedron.xyz", dtype=np.float32)[:, :3]))[0]
+        cases = measure.KNN_CASES
+        inputs = measure.knn_inputs(torch.Generator().manual_seed(1), cases,
+                                    cloud)
+    else:
+        from dispu_tpu_torch.kernels.knn_group import knn_group_cuda
+        cases = measure.KNN_GROUP_CASES
+        inputs = measure.knn_group_inputs(torch.Generator().manual_seed(5),
+                                          cases)
+    for case, (pts, other) in zip(cases, inputs):
+        pts = pts.cuda()
+        other = pts if other is None else other.cuda()
+        dup = case.dup if mode == "knn" else case.drop_first
+        bias = mask_duplicate_rows(pts).float() * 1e30 if dup else None
+        if mode == "knn":
+            def call():
+                return knn_cuda(case.k, pts, other, bias)
+        else:
+            def call():
+                return knn_group_cuda(case.k, pts, pts, other, bias,
+                                      exact=case.exact,
+                                      with_xyz=case.with_xyz,
+                                      drop_first=case.drop_first)
+        out = [o.cpu().numpy() for o in call() if o is not None]
+        ms = event_ms(call)
+        shapes[case.label] = {"ms": ms, "digest": digest(*out)}
+        total += case.per_request * ms
+    joined = "".join(v["digest"] for v in shapes.values()).encode()
+    print(json.dumps({"ms": total, "shapes": shapes,
+                      "digest": digest(np.frombuffer(joined, np.uint8))}))
 else:
     if mode == "route":
         from dispu_tpu_torch.ops.sampling import farthest_point_sample
@@ -138,7 +204,7 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--kernel", default="route",
                         choices=("route", "fps", "fps_chunked",
-                                 "gather_rows"))
+                                 "gather_rows", "knn", "knn_group"))
     parser.add_argument("--request", type=int, default=None, metavar="R",
                         help="time whole upsample requests at final "
                              "ratio R instead of a kernel")
@@ -152,7 +218,7 @@ def main() -> int:
     print(card, flush=True)
     if args.request is not None:
         shape = {"ratio": args.request}
-    elif args.kernel == "gather_rows":
+    elif args.kernel in ("gather_rows", "knn", "knn_group"):
         shape = {"kernel": args.kernel}
     else:
         shape = {"kernel": args.kernel, "b": args.b, "n": args.n,

@@ -18,10 +18,12 @@ from dispu_tpu_torch.kernels.attention import attention_cuda, attention_torch
 from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps_cuda, fps_torch
 from dispu_tpu_torch.kernels.fps_chunked import (fps_chunked_cuda, form_for,
                                                  forms_from)
-from dispu_tpu_torch.kernels.knn import MAX_ROW_FLOATS, knn_cuda, knn_torch
+from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
+                                         knn_cuda, knn_torch)
 from dispu_tpu_torch.kernels.query_ball import (MAX_C, MAX_N, MAX_NSAMPLE,
                                                 query_ball_cuda,
                                                 query_ball_torch)
+from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
 from dispu_tpu_torch.ops.knn import mask_duplicate_rows
 
 pytestmark = pytest.mark.cuda
@@ -69,9 +71,112 @@ def test_knn_kernel_matches_plain(dev, b, n, m, c, k, dup):
 
 
 def test_knn_kernel_refuses_rows_beyond_shared_memory(dev):
+    """The row form (k > MAX_STREAM_K) holds a query's row in shared
+    memory and refuses what does not fit."""
     pts = torch.zeros((1, MAX_ROW_FLOATS, 1), device=dev)
     with pytest.raises(ValueError, match=str(MAX_ROW_FLOATS)):
-        knn_cuda(1, pts, pts[:, :4])
+        knn_cuda(MAX_STREAM_K + 1, pts, pts[:, :4].contiguous())
+
+
+@pytest.mark.parametrize("k", [1, 16, MAX_STREAM_K])
+def test_knn_kernel_takes_rows_beyond_shared_memory_up_to_k_32(dev, k):
+    """The tiled form keeps no row in shared memory: n past the row form's
+    limit runs, under the plain version's contract."""
+    n = MAX_ROW_FLOATS + 1000
+    pts = _randn(k, 1, n, 3).to(dev)
+    qs = _randn(k + 1, 1, 40, 3).to(dev)
+    _assert_knn_contract(k, pts, qs, None)
+
+
+def _assert_knn_contract(k, pts, qs, bias, ik=None, dk=None):
+    """The kernel against the plain version (``check_knn``'s contract):
+    distances to 1e-5 relative and each chosen index's plain distance that
+    of the plain index at its rank to 1e-6, both with the expansion's
+    scale |q|² + |p|² as the floor; no index twice in a row."""
+    if ik is None:
+        dk, ik = knn_cuda(k, pts, qs, bias)
+    dp, ip = knn_torch(k, pts, qs, bias)
+    torch.cuda.synchronize()
+    full = pairwise_sq_dist(qs, pts)
+    if bias is not None:
+        full = full + bias[:, None, :]
+    scale = 2.0 * max(float(torch.amax(torch.sum(pts * pts, -1))),
+                      float(torch.amax(torch.sum(qs * qs, -1))))
+    swap = torch.abs(torch.gather(full, 2, ik.long()) - dp) / (dp.abs()
+                                                               + scale)
+    assert float(swap.max()) <= 1e-6
+    assert float((torch.abs(dk - dp) / (dp.abs() + scale)).max()) <= 1e-5
+    uniq = torch.sort(ik, dim=-1).values
+    assert bool(torch.all(uniq[..., 1:] != uniq[..., :-1]))
+    return dk, ik
+
+
+#: (b, n, m, c, k): n and m off the tiles' multiples (128 points, 32
+#: queries), n below one tile, every c of the paths, c on both sides of
+#: four tiles a load (c 15 and 16) and past one 60-coordinate chunk (61,
+#: 131), k on both sides of the two selection forms
+TILE_EDGES = [
+    (2, 129, 33, 1, 1), (3, 100, 7, 5, 16), (2, 257, 65, 3, 17),
+    (1, 1000, 31, 24, 32), (2, 300, 97, 48, 33), (1, 700, 45, 3, 100),
+    (1, 2048, 24, 3, 256), (2, 40, 50, 48, 32), (1, 383, 70, 131, 16),
+    (2, 1024, 1024, 48, 17), (1, 4096, 200, 3, 16), (1, 600, 40, 15, 16),
+    (2, 515, 33, 16, 17), (1, 300, 20, 61, 8),
+]
+
+
+@pytest.mark.parametrize("b,n,m,c,k", TILE_EDGES)
+def test_knn_kernel_matches_plain_at_tile_edges(dev, b, n, m, c, k):
+    pts = _randn(n + c, b, n, c).to(dev)
+    qs = _randn(m + k, b, m, c).to(dev)
+    pts[:, -5:] = pts[:, :5]  # exact ties
+    _assert_knn_contract(k, pts, qs, None)
+    bias = mask_duplicate_rows(pts).float() * 1e30
+    _assert_knn_contract(k, pts, qs, bias)
+
+
+@pytest.mark.parametrize("b,n,m,c,k", [e for e in TILE_EDGES
+                                       if e[4] <= MAX_STREAM_K])
+def test_knn_tiled_form_bit_equal_to_row_form(dev, b, n, m, c, k):
+    """Both forms keep one association and one order, so the tiled form's
+    k (k <= 32) are the row form's first k (k' = 33), bit for bit."""
+    pts = _randn(n + c, b, n, c).to(dev)
+    qs = _randn(m + k, b, m, c).to(dev)
+    pts[:, -5:] = pts[:, :5]
+    bias = mask_duplicate_rows(pts).float() * 1e30
+    for bb in (None, bias):
+        dk, ik = knn_cuda(k, pts, qs, bb)
+        dr, ir = knn_cuda(MAX_STREAM_K + 1, pts, qs, bb)
+        assert torch.equal(dk, dr[..., :k]) and torch.equal(ik, ir[..., :k])
+
+
+@pytest.mark.parametrize("k", [1, 16, 17, 32, 33, 100])
+def test_knn_kernel_ties_go_to_the_lower_index(dev, k):
+    """A cloud of identical points: every distance ties, so every query's
+    row is 0, 1, ..., k - 1 in both forms."""
+    pts = torch.full((2, 300, 5), 0.25, device=dev)
+    qs = _randn(3, 2, 45, 5).to(dev)
+    dk, ik = knn_cuda(k, pts, qs)
+    dp, ip = knn_torch(k, pts, qs)
+    assert torch.equal(ik, torch.arange(k, dtype=torch.int32,
+                                        device=dev).expand(2, 45, k))
+    assert torch.equal(ik, ip)
+    assert float((dk - dp).abs().max()) <= 1e-5 * float(dp.abs().max())
+
+
+@pytest.mark.parametrize("k", [8, 32, 40])
+def test_knn_kernel_reports_unfilled_slots(dev, k):
+    """Points whose coordinates overflow have +inf distances, which are
+    never selected: past the finite ones a slot reports (+inf, INT_MAX)."""
+    pts = _randn(4, 2, 200, 3).to(dev)
+    pts[:, 20:] = 1e30  # p2 overflows: 180 points at +inf
+    qs = _randn(5, 2, 37, 3).to(dev)
+    dk, ik = knn_cuda(k, pts, qs)
+    dp, ip = knn_torch(k, pts, qs)
+    filled = min(k, 20)
+    assert torch.equal(ik[..., :filled], ip[..., :filled])
+    assert float((dk[..., :filled] - dp[..., :filled]).abs().max()) <= 1e-4
+    assert bool(torch.all(dk[..., filled:] == float("inf")))
+    assert bool(torch.all(ik[..., filled:] == 2**31 - 1))
 
 
 @pytest.mark.parametrize("b,n,npoint", [
@@ -515,6 +620,87 @@ def test_knn_group_kernel_bit_equal_to_knn_kernel(dev, with_xyz, drop_first,
         assert torch.equal(gx, xyz)
     else:
         assert gx is None
+
+
+def _assert_group_matches_knn(k, pts, qs, feats, bias, exact, with_xyz,
+                              drop_first):
+    """``knn_group_cuda``'s (dists, idx) bit-equal to ``knn_cuda``'s at k
+    (+1 with drop_first, the first rank dropped), its rows bit-equal to
+    the gathers at its own indices (bf16-rounded unless exact, zeros at an
+    unfilled slot), and against the plain version the kNN contract."""
+    from dispu_tpu_torch.kernels.knn_group import (bf16_round,
+                                                   knn_group_cuda)
+
+    d, i, gx, gf = knn_group_cuda(k, pts, qs, feats, bias, exact=exact,
+                                  with_xyz=with_xyz, drop_first=drop_first)
+    kd, ki = knn_cuda(k + drop_first, pts, qs, bias)
+    assert torch.equal(d, kd[..., drop_first:])
+    assert torch.equal(i, ki[..., drop_first:])
+    b, n = pts.shape[:2]
+    filled = (i < n)[..., None]
+    flat = torch.where(i < n, i, 0).reshape(b, -1, 1).long()
+    rows = torch.gather(feats, 1, flat.expand(-1, -1, feats.shape[-1]))
+    rows = torch.where(filled, rows.reshape(gf.shape), 0.0)
+    assert torch.equal(gf, rows if exact else bf16_round(rows))
+    if with_xyz:
+        xyz = torch.gather(pts, 1, flat.expand(-1, -1, 3)).reshape(gx.shape)
+        assert torch.equal(gx, torch.where(filled, xyz, 0.0))
+    else:
+        assert gx is None
+    return d, i
+
+
+@pytest.mark.parametrize("b,n,m,c,cf,k,drop_first", [
+    (2, 129, 33, 3, 131, 16, False), (1, 100, 7, 3, 128, 1, False),
+    (2, 257, 257, 24, 24, 16, True), (1, 300, 300, 48, 48, 31, True),
+    (1, 300, 300, 48, 48, 32, True), (2, 200, 45, 5, 131, 17, False),
+    (1, 700, 70, 3, 40, 33, False), (2, 1024, 1024, 48, 48, 16, True),
+    (1, 90, 90, 1, 7, 16, True),
+])
+@pytest.mark.parametrize("exact", [True, False])
+def test_knn_group_kernel_matches_plain_at_tile_edges(dev, b, n, m, c, cf,
+                                                      k, drop_first, exact):
+    with_xyz = c == 3
+    pts = _randn(n + c, b, n, c).to(dev)
+    pts[:, -5:] = pts[:, :5]
+    qs = pts[:, :m].contiguous() if drop_first else _randn(m, b, m, c).to(dev)
+    feats = pts if cf == c else _randn(cf, b, n, cf).to(dev)
+    bias = mask_duplicate_rows(pts).float() * 1e30 if drop_first else None
+    d, i = _assert_group_matches_knn(k, pts, qs, feats, bias, exact,
+                                     with_xyz, drop_first)
+    kd, ki = knn_cuda(k + drop_first, pts, qs, bias)
+    _assert_knn_contract(k + drop_first, pts, qs, bias, ki, kd)
+
+
+def test_knn_group_kernel_gathers_from_an_unaligned_table(dev):
+    """feats at a 4-byte offset: the scalar copy, the same rows."""
+    store = _randn(9, 2 * 300 * 48 + 1).to(dev)
+    feats = store[1:].view(2, 300, 48)
+    pts = feats[..., :3].contiguous()
+    _assert_group_matches_knn(16, pts, pts, feats, None, False, True, False)
+
+
+@pytest.mark.parametrize("k,drop_first", [(16, True), (31, True),
+                                          (33, False)])
+def test_knn_group_kernel_ties_and_unfilled_slots(dev, k, drop_first):
+    """Identical points tie to the lower index; points whose coordinates
+    overflow are never selected, and their slots report (+inf, INT_MAX)
+    and gather zeros."""
+    pts = torch.full((2, 200, 3), 0.25, device=dev)
+    feats = _randn(2, 2, 200, 24).to(dev)
+    d, i = _assert_group_matches_knn(k, pts, pts, feats, None, True, True,
+                                     drop_first)
+    assert torch.equal(i[0, 0], torch.arange(int(drop_first),
+                                             k + int(drop_first),
+                                             dtype=torch.int32, device=dev))
+    pts[:, 10:] = 1e30
+    qs = _randn(3, 2, 20, 3).to(dev)
+    d, i = _assert_group_matches_knn(k, pts, qs, feats, None, False, True,
+                                     drop_first)
+    filled = 10 - int(drop_first)
+    assert bool(torch.all(d[..., filled:] == float("inf")))
+    assert bool(torch.all(i[..., filled:] == 2**31 - 1))
+    assert bool(torch.all(i[..., :filled] < 10))
 
 
 def test_knn_group_kernel_refuses_beyond_its_limits(dev):

@@ -1,8 +1,9 @@
 """The shapes that ``chip_smoke.py`` and ``time_fps`` share
 (``dispu_tpu_torch/kernels/measure.py``), on the CPU: ``GATHER_CASES``
 are the gathers that a train step with ``gather_impl='pallas'`` sends to
-the gather kernel at the default widths, and ``gather_inputs`` makes what
-it says.
+the gather kernel at the default widths, ``KNN_CASES`` and
+``KNN_GROUP_CASES`` hold the kNN launches of a 4× request's generator
+pass (exact and turbo), and the input makers make what they say.
 """
 
 import collections
@@ -10,10 +11,14 @@ import collections
 import pytest
 import torch
 
-from dispu_tpu_torch import GeneratorConfig
-from dispu_tpu_torch.kernels.measure import GATHER_CASES, gather_inputs
+from dispu_tpu_torch import GeneratorConfig, cli
+from dispu_tpu_torch.kernels import knn_group as knn_group_module
+from dispu_tpu_torch.kernels.measure import (GATHER_CASES, KNN_CASES,
+                                             KNN_GROUP_CASES, gather_inputs,
+                                             knn_group_inputs, knn_inputs)
 from dispu_tpu_torch.models.generator import DisPUGenerator
 from dispu_tpu_torch.ops import grouping
+from dispu_tpu_torch.ops import knn as knn_ops
 
 
 @pytest.fixture(scope="module")
@@ -63,3 +68,123 @@ def test_gather_inputs_are_seeded_with_self_rows():
     assert torch.equal(table, again) and torch.equal(idx, idx2)
     assert torch.equal(idx[:, ::4], torch.arange(40).expand(2, -1).int())
     assert int(idx.min()) >= 0 and int(idx.max()) < 40
+
+
+def _generator_pass(cfg, train):
+    """One forward of ``cfg``'s generator at batch 2 on the plain
+    versions: in eval mode a 4× request's generator pass over one chunk,
+    in train mode a CD step's."""
+    torch.manual_seed(0)
+    model = DisPUGenerator(cfg, impl="torch").train(train)
+    with torch.set_grad_enabled(train):
+        model(torch.randn(2, cfg.num_points, 3))
+
+
+def _record_knns(cfg, train):
+    """(n, m, c, k, column bias or not) → count of the exact kNN calls of
+    a generator forward, the kernels' entry replaced by a recorder around
+    the plain version."""
+    seen = collections.Counter()
+    real = knn_ops._knn_kernel
+
+    def record(k, points, queries, bias=None, impl="auto"):
+        seen[(points.shape[1], queries.shape[1], points.shape[2], k,
+              bias is not None)] += 1
+        return real(k, points, queries, bias, impl=impl)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(knn_ops, "_knn_kernel", record)
+        _generator_pass(cfg, train)
+    return seen
+
+
+def _record_knn_groups(cfg, train):
+    """(n, c, cf, k, exact, with_xyz, drop_first) → count of the
+    ``knn_group`` calls of a generator forward."""
+    seen = collections.Counter()
+    real = knn_group_module.knn_group
+
+    def record(k, points, queries, feats, column_bias=None, exact=True,
+               with_xyz=True, drop_first=False, impl="auto"):
+        seen[(points.shape[1], points.shape[2], feats.shape[2], k, exact,
+              with_xyz, drop_first)] += 1
+        return real(k, points, queries, feats, column_bias, exact, with_xyz,
+                    drop_first, impl=impl)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(knn_group_module, "knn_group", record)
+        _generator_pass(cfg, train)
+    return seen
+
+
+@pytest.fixture(scope="module")
+def kernel_knn_calls():
+    """Each path's recorded calls: a 4× request's generator pass, exact
+    (kNN) and turbo (``--turbo true``: ``knn_group``), and a train step's
+    forward, default (kNN) and with ``fused_grouping`` (``knn_group``)."""
+    turbo = cli.build_config(cli.parse_args(["--phase", "test", "--turbo",
+                                             "true"])).generator
+    return {("knn", "request"): _record_knns(GeneratorConfig(), False),
+            ("knn_group", "request"): _record_knn_groups(turbo, False),
+            ("knn", "train"): _record_knns(GeneratorConfig(), True),
+            ("knn_group", "train"): _record_knn_groups(
+                GeneratorConfig(fused_grouping=True), True)}
+
+
+def _knn_key(case):
+    return (case.n, case.m, case.c, case.k, case.dup)
+
+
+def _group_key(case):
+    return (case.n, case.c, case.cf or case.c, case.k, case.exact,
+            case.with_xyz, case.drop_first)
+
+
+@pytest.mark.parametrize("kind", ["knn", "knn_group"])
+@pytest.mark.parametrize("path", ["request", "train"])
+def test_every_generator_knn_is_a_case(kernel_knn_calls, kind, path):
+    """Each kNN launch of a 4× request's generator pass (a train step's
+    forward) is a row of the cases, launched as often as the row's
+    ``per_request`` (``per_step``) says; the patch cut runs before the
+    generator and the chamfer argmins after it."""
+    cases, key = ((KNN_CASES, _knn_key) if kind == "knn"
+                  else (KNN_GROUP_CASES, _group_key))
+    times = "per_request" if path == "request" else "per_step"
+    want = {key(case): getattr(case, times) for case in cases
+            if getattr(case, times)
+            and case.label not in ("patch k256", "chamfer k1")}
+    assert dict(kernel_knn_calls[kind, path]) == want
+
+
+def test_knn_inputs_follow_their_cases():
+    cloud = torch.randn(2048, 3)
+    cases = [case._replace(b=min(case.b, 2)) for case in KNN_CASES]
+    inputs = knn_inputs(torch.Generator().manual_seed(1), cases, cloud)
+    again = knn_inputs(torch.Generator().manual_seed(1), cases, cloud)
+    for case, (pts, qs), (pts2, qs2) in zip(cases, inputs, again):
+        assert pts.dtype == torch.float32 and torch.equal(pts, pts2)
+        if case.queries == "patch":
+            assert torch.equal(pts[0], cloud)
+            assert torch.equal(qs[0], cloud[::85][:case.m])
+        else:
+            assert pts.shape == (case.b, case.n, case.c)
+            assert (qs is None) == (case.queries == "self")
+        if case.queries == "other":
+            assert qs.shape == (case.b, case.m, case.c)
+            assert torch.equal(qs, qs2)
+        if case.dup:
+            assert torch.equal(pts[:, -8:], pts[:, :8])
+
+
+def test_knn_group_inputs_follow_their_cases():
+    cases = [case._replace(b=2) for case in KNN_GROUP_CASES]
+    inputs = knn_group_inputs(torch.Generator().manual_seed(5), cases)
+    for case, (pts, ft) in zip(cases, inputs):
+        assert pts.shape == (case.b, case.n, case.c)
+        assert (ft is None) == (case.cf == 0)
+        if ft is not None:
+            assert ft.shape == (case.b, case.n, case.cf)
+        if case.drop_first:
+            assert torch.equal(pts[:, -8:], pts[:, :8])
+    # the refiner's exact and turbo cases time one input
+    assert inputs[0][0] is inputs[1][0] and inputs[0][1] is inputs[1][1]
