@@ -92,6 +92,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # CUDA cores, float32
 BF16_FLOPS = 989e12        # tensor cores, bf16
+TF32_FLOPS = 495e12        # tensor cores, TF32
 
 # contracts of the kernels against their plain versions on the card
 KNN_DIST_RTOL = 1e-5       # kernel distances vs plain distances
@@ -1086,103 +1087,57 @@ def check_knn_group_backward(dev):
 
 
 # the fused refiner kernels against their plain versions on the card: every
-# output row within this share of max(max |plain output|, 1); f32 sums in
-# another order than cuBLAS's over K up to 2048 terms
+# output row within this share of max(max |plain output|, 1); 3xTF32 sums
+# (f32 grade) in another order than cuBLAS's over K up to 2048 terms
 REFINE_REL = 1e-5
-# the refiner's shapes at GeneratorConfig() width: (label, clouds, points,
-# launches of a 2048-point 4x request with the setting); pass 2 of a 16x
-# request is checked and timed, not counted
-REFINE_SHAPES = [("pass 1", 32, 1024, 1), ("pass 2", 32, 4096, 0)]
-REFINE_K, REFINE_C, REFINE_MLP = 16, 128, (128, 128, 256)
-
-
-def _refine_params(gen, dev, k=REFINE_K, cf=6 + REFINE_C, mlp=REFINE_MLP):
-    """Random full-width LocalParams, each kernel scaled by 1/sqrt(fan-in)
-    so that every layer's output stays O(1)."""
-    import torch
-
-    from dispu_tpu_torch.kernels.refine_local import LocalParams
-
-    c1, c2, co = mlp
-
-    def w(*shape):
-        fan_in = shape[-2] * (shape[0] if len(shape) == 3 else 1)
-        return (torch.randn(*shape, generator=gen) / math.sqrt(fan_in)).to(dev)
-
-    def bias(c):
-        return (0.1 * torch.randn(c, generator=gen)).to(dev)
-
-    return LocalParams(w(cf, c1), bias(c1), w(c1, c2), bias(c2), w(3, k),
-                       bias(k), w(cf, co), bias(co), w(k, c2, co), bias(co))
-
-
-def _refine_ops(b, n, k, cf, p):
-    """f32 operations of the local and skip branches on b·n queries."""
-    c1, c2, co = p.w0.shape[-1], p.w1.shape[-1], p.wsk.shape[-1]
-    per_row = 2 * (cf * c1 + c1 * c2 + 3 * k) + 2 * k * c2
-    return b * n * (k * per_row + 2 * k * c2 * co + 2 * cf * co)
-
-
-def _refine_library(p):
-    """The composed chain as one would write it with PyTorch's own calls
-    (no single call computes the branch): F.linear for conv0, conv1, the
-    weight net, after_conv and skip (cuBLAS, TF32 off), a batched matmul
-    for the pooling, amax for the skip's max."""
-    import torch
-    import torch.nn.functional as F
-
-    wt = [t.t().contiguous() for t in (p.w0, p.w1, p.ww, p.wsk)]
-    waf = p.waf.reshape(-1, p.waf.shape[-1]).t().contiguous()
-
-    def run(g):
-        b, n = g.shape[:2]
-        h = F.relu(F.linear(F.relu(F.linear(g, wt[0], p.b0)), wt[1], p.b1))
-        w = F.relu(F.linear(g[..., :3], wt[2], p.bw))
-        pool = torch.matmul(w.transpose(-1, -2), h).reshape(b, n, -1)
-        return (F.relu(F.linear(pool, waf, p.baf))
-                + F.relu(F.linear(torch.amax(g, dim=2), wt[3], p.bsk)))
-
-    return run
 
 
 def check_refine_local(dev):
     """The fused local + skip kernel against ``refine_local_torch`` on the
-    card at the refiner's pass-1 and pass-2 shapes, on random grouped
-    rows and full-width parameters: every row within ``REFINE_REL`` of
-    the output's scale.  The aggregate is a 4× 'fused' request's one
-    launch (pass 1)."""
+    card at the refiner's pass-1 and pass-2 shapes (``measure``'s
+    ``REFINE_CASES``), on random grouped rows and full-width parameters:
+    every row within ``REFINE_REL`` of the output's scale.  The aggregate
+    is a 4× 'fused' request's one launch (pass 1)."""
     import torch
 
-    from dispu_tpu_torch.kernels.refine_local import (refine_local_cuda,
+    from dispu_tpu_torch.kernels.measure import (REFINE_CASES, refine_chain,
+                                                 refine_ops, refine_params)
+    from dispu_tpu_torch.kernels.refine_local import (LocalParams,
+                                                      refine_local_cuda,
                                                       refine_local_torch)
 
     gen = torch.Generator(device="cpu").manual_seed(12)
-    k, cf = REFINE_K, 6 + REFINE_C
-    p = _refine_params(gen, dev)
-    library = _refine_library(p)
+    p = LocalParams(*(t.to(dev) for t in refine_params(gen, REFINE_CASES[0])))
+    library = refine_chain(p)
     agg = None
-    for label, b, n, per_req in REFINE_SHAPES:
+    for case in REFINE_CASES:
+        b, n, k, cf = case.b, case.n, case.k, 6 + case.c
         g = torch.randn(b, n, k, cf, generator=gen).to(dev)
         got = refine_local_cuda(g, p)
         want = refine_local_torch(g, p)
+        again = refine_local_cuda(g, p)
         torch.cuda.synchronize()
         scale = max(float(want.abs().max()), 1.0)
         err = float((got - want).abs().max())
         require(bool(torch.isfinite(got).all()) and err <= REFINE_REL * scale,
-                f"refine_local {label}: max|d| {err} over scale {scale}")
+                f"refine_local {case.label}: max|d| {err} over scale {scale}")
+        require(torch.equal(got, again),
+                f"refine_local {case.label}: a repeat differs")
         ms = timed_ms(lambda: refine_local_cuda(g, p), reps=10)
         plain_ms = timed_ms(lambda: refine_local_torch(g, p), reps=5)
         library_ms = timed_ms(lambda: library(g), reps=5)
         nbytes = 4 * (g.numel() + sum(t.numel() for t in p)
                       + b * n * p.wsk.shape[-1])
-        ops = _refine_ops(b, n, k, cf, p)
+        ops = refine_ops(case)
         bms, by = bound(nbytes, ops, F32_FLOPS)
-        log(f"refine_local {label} (b={b} n={n} k={k} cf={cf} mlp="
-            f"{REFINE_MLP}): max|d| {err:.3e} of scale {scale:.3f} (bound "
-            f"{REFINE_REL} of it); kernel {ms:.4f} ms "
+        log(f"refine_local {case.label} (b={b} n={n} k={k} cf={cf} mlp="
+            f"{case.mlp}): max|d| {err:.3e} of scale {scale:.3f} (bound "
+            f"{REFINE_REL} of it), a repeat bit-equal; kernel {ms:.4f} ms "
             f"({ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"cuBLAS chain {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-        if per_req:
+            f"cuBLAS chain {library_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"as 3xTF32 at {TF32_FLOPS / 1e12:.0f} TFLOP/s "
+            f"{3 * ops / TF32_FLOPS * 1e3:.4f} ms)")
+        if case.per_request:
             agg = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
                        t_ops=ops / F32_FLOPS, max_abs_err=err)
@@ -1200,16 +1155,19 @@ def check_refine_block(dev):
     import torch
 
     from dispu_tpu_torch.kernels.knn import knn_cuda
+    from dispu_tpu_torch.kernels.measure import (REFINE_CASES, refine_chain,
+                                                 refine_ops, refine_params)
     from dispu_tpu_torch.kernels.refine_block import (grouped_rows,
                                                       refine_block_cuda,
                                                       refine_block_torch)
+    from dispu_tpu_torch.kernels.refine_local import LocalParams
 
     gen = torch.Generator(device="cpu").manual_seed(13)
-    k, c = REFINE_K, REFINE_C
-    p = _refine_params(gen, dev)
-    library = _refine_library(p)
+    p = LocalParams(*(t.to(dev) for t in refine_params(gen, REFINE_CASES[0])))
+    library = refine_chain(p)
     agg = None
-    for label, b, n, per_req in REFINE_SHAPES:
+    for case in REFINE_CASES:
+        b, n, k, c = case.b, case.n, case.k, case.c
         xyz = torch.randn(b, n, 3, generator=gen).to(dev)
         feats = torch.randn(b, n, c, generator=gen).to(dev)
         got, idx = refine_block_cuda(xyz, feats, p, with_idx=True)
@@ -1218,11 +1176,11 @@ def check_refine_block(dev):
         own = refine_block_torch(xyz, feats, p)
         torch.cuda.synchronize()
         require(torch.equal(idx, kidx),
-                f"refine_block {label}: selection differs from knn.cu's")
+                f"refine_block {case.label}: selection differs from knn.cu's")
         scale = max(float(want.abs().max()), 1.0)
         err = float((got - want).abs().max())
         require(bool(torch.isfinite(got).all()) and err <= REFINE_REL * scale,
-                f"refine_block {label}: max|d| {err} over scale {scale}")
+                f"refine_block {case.label}: max|d| {err} over scale {scale}")
         moved = int(((got - own).abs().amax(-1) > REFINE_REL * scale).sum())
 
         def lib():
@@ -1236,17 +1194,21 @@ def check_refine_block(dev):
         library_ms = timed_ms(lib, reps=5)
         nbytes = 4 * (xyz.numel() + feats.numel()
                       + sum(t.numel() for t in p) + b * n * p.wsk.shape[-1])
-        ops = _refine_ops(b, n, k, 6 + c, p) + b * n * n * (2 * 3 + 4)
+        ops = refine_ops(case) + b * n * n * (2 * 3 + 4)
         bms, by = bound(nbytes, ops, F32_FLOPS)
-        log(f"refine_block {label} (b={b} n={n} k={k} c={c} mlp="
-            f"{REFINE_MLP}): idx bit-equal to knn.cu; max|d| {err:.3e} of "
+        tf32_ms = (3 * refine_ops(case) / TF32_FLOPS
+                   + b * n * n * (2 * 3 + 4) / F32_FLOPS) * 1e3
+        log(f"refine_block {case.label} (b={b} n={n} k={k} c={c} mlp="
+            f"{case.mlp}): idx bit-equal to knn.cu; max|d| {err:.3e} of "
             f"scale {scale:.3f} at those indices (bound {REFINE_REL} of "
             f"it); rows that move with the plain version's own selection "
             f"{moved} of {b * n}; kernel {ms:.4f} ms "
             f"({ops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
             f"cdist+topk+gather+cuBLAS chain {library_ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by})")
-        if per_req:
+            f"{bms:.4f} ms ({by}; the products as 3xTF32 at "
+            f"{TF32_FLOPS / 1e12:.0f} TFLOP/s and the selection at f32 "
+            f"{tf32_ms:.4f} ms)")
+        if case.per_request:
             agg = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
                        t_ops=ops / F32_FLOPS, max_abs_err=err)

@@ -10,22 +10,29 @@
 // nearest even, __float2bfloat16_rn), the xyz exact.  No (b, n, k, .)
 // tensor is ever written to device memory.
 //
-// One block per (cloud, tile of T queries), in two phases:
-//   A. one warp per query (queries w, w + 8, ... of the tile) runs
-//      knn_common.cuh's row_distances, select_min and knock_out for k
-//      rounds, so the indices are knn.cu's bits on the same inputs; they
-//      go to shared memory (and, when idx_out is given, to device memory).
+// One block per tile of T = 8 queries, two consecutive tiles a cluster
+// sharing the weights' ring and the heads (refine_common.cuh), in two
+// phases:
+//   A. one warp per query runs knn_common.cuh's row_distances,
+//      select_min and knock_out for k rounds, so the indices are knn.cu's
+//      bits on the same inputs; they go to shared memory (and, when
+//      idx_out is given, to device memory).  Meanwhile the ring's first
+//      chunks land.
 //   B. the distance rows' shared memory is reused for the tile's grouped
 //      rows, one warp per row, lanes over the feature row (coalesced);
 //      then refine_common.cuh's tile_mlp, the same code as
 //      refine_local.cu's.
 //
-// What bounds it on an H100: operations, as for refine_local.cu (74 GFLOP
-// at the pass-1 shape, 1.1 ms at the f32 rate); the distances and
-// selection add n (2 c + 4) flops and k passes over an n-float row per
-// query.  Limits: phase A holds min(T, 8) distance rows of n + 3 floats in
-// shared memory, phase B the tile of refine_common.cuh; the larger of the
-// two must fit one block's 232,448 bytes (n <= 7,245 at T = 8).
+// What bounds it on an H100: as refine_local.cu (74 GFLOP at the pass-1
+// shape, 1.10 ms at the f32 rate, 0.45 as 3xTF32; pass 2 4x that; the
+// same L2 traffic, 5.13 GB a launch at pass 1 and 20.5 GB at pass 2),
+// plus the selection: n (2 c + 4) flops and k passes over an n-float row
+// per query, which at pass 2's 4096 points takes more than a quarter of
+// the time on an H100 (PERF.md).
+// Limits: phase A holds 8 distance rows of n + 3 floats where phase B's
+// tile goes (the ring and the indices are kept apart): 156,416 bytes at
+// GeneratorConfig() width, so n <= 5,195 at k = 16; pass 2's n = 4096
+// fits.
 
 #include <cuda_bf16.h>
 
@@ -36,79 +43,98 @@ namespace {
 
 using namespace refine_common;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     refine_block_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ bias,
                         const float* __restrict__ feats, Params p, Dims d,
-                        int n, int T, int* __restrict__ idx_out,
-                        float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  int* sidx = reinterpret_cast<int*>(smem4);
-  const int k = d.k, c = d.cf - 6;
-  float* work = reinterpret_cast<float*>(smem4) + round4((size_t)T * k);
-  const int tiles = (n + T - 1) / T;
-  const int cloud = blockIdx.x / tiles;
-  const int q0 = (blockIdx.x - cloud * tiles) * T;
-  const int valid = min(T, n - q0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* pts = xyz + (size_t)cloud * n * 3;
-
-  // phase A: the selection, as knn.cu
-  float* drow = work + (size_t)warp * (n + 3);
-  for (int q = warp; q < valid; q += kWarps) {
-    knn_common::row_distances(pts + (size_t)(q0 + q) * 3, pts,
-                              bias + (size_t)cloud * n, drow, drow + n, n, 3,
-                              lane);
-    for (int r = 0; r < k; ++r) {
-      float bv;
-      int bj;
-      knn_common::select_min(drow, n, lane, bv, bj);
-      if (lane == 0) {
-        sidx[q * k + r] = bj;
-        if (idx_out != nullptr)
-          idx_out[((size_t)cloud * n + q0 + q) * k + r] = bj;
-      }
-      knn_common::knock_out(drow, n, lane, bj);
-    }
-  }
-  __syncthreads();
-
-  // phase B: the grouped rows [p - q | p | bf16(f_p)] over the spent rows
-  const int ldg = pad(d.cf);
-  float* G = tile_rows(work, T, d);
-  for (int r = warp; r < T * k; r += kWarps) {
-    float* g = G + (size_t)r * ldg;
-    const int q = r / k;
-    if (q >= valid) {
-      for (int t = lane; t < d.cf; t += 32) g[t] = 0.f;
-      continue;
-    }
-    const int j = sidx[r];
-    const bool in = j >= 0 && j < n;  // not so only for overflowed inputs
-    const float* pj = pts + (size_t)(in ? j : 0) * 3;
-    if (lane < 3) {
-      const float v = in ? pj[lane] : 0.f;
-      g[lane] = __fsub_rn(v, pts[(size_t)(q0 + q) * 3 + lane]);
-      g[3 + lane] = v;
-    }
-    const float* f = feats + ((size_t)cloud * n + (in ? j : 0)) * c;
-    for (int t0 = lane; t0 < c; t0 += 32 * kBatch) {
-      float v[kBatch];
+                        int n, int T, long long tiles_total,
+                        int* __restrict__ idx_out, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring ring = ring_start(smem, d, p.packed);
+  if (threadIdx.x >= kCompute) {  // the producer warp
+    cluster_arrive();  // for the pools' exchange in tile_mlp
+    if (ring.rank == 0 && threadIdx.x == kCompute) ring.produce();
+    __syncwarp();
+    cluster_wait();
+  } else {
+    int* sidx = reinterpret_cast<int*>(smem + ring_bytes());
+    const int k = d.k, c = d.cf - 6;
+    float* work = reinterpret_cast<float*>(sidx) + round4((size_t)T * k);
+    TileOut outs[kPair];
+    TilePos mine{};
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int t = t0 + 32 * u;
-        v[u] = (in && t < c) ? f[t] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int t = t0 + 32 * u;
-        if (t < c) g[6 + t] = __bfloat162float(__float2bfloat16_rn(v[u]));
+    for (int j = 0; j < kPair; ++j) {
+      const TilePos t = tile_pos(
+          (long long)blockIdx.x - ring.rank % kPair + j, tiles_total, n, T);
+      outs[j] = TileOut{out + ((size_t)t.cloud * n + t.q0) * d.co, t.valid};
+      if (j == ring.rank % kPair) mine = t;
+    }
+    const long long cloud = mine.cloud;
+    const int q0 = mine.q0, valid = mine.valid;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const float* pts = xyz + (size_t)cloud * n * 3;
+
+    // phase A: the selection, as knn.cu
+    float* drow = work + (size_t)warp * (n + 3);
+    for (int q = warp; q < valid; q += kWarps) {
+      knn_common::row_distances(pts + (size_t)(q0 + q) * 3, pts,
+                                bias + (size_t)cloud * n, drow, drow + n, n,
+                                3, lane);
+      for (int r = 0; r < k; ++r) {
+        float bv;
+        int bj;
+        knn_common::select_min(drow, n, lane, bv, bj);
+        if (lane == 0) {
+          sidx[q * k + r] = bj;
+          if (idx_out != nullptr)
+            idx_out[((size_t)cloud * n + q0 + q) * k + r] = bj;
+        }
+        knn_common::knock_out(drow, n, lane, bj);
       }
     }
+    compute_sync();
+
+    // phase B: the grouped rows [p - q | p | bf16(f_p)] over the spent
+    // rows, zero past cf up to up8(cf) and in rows past the valid queries'
+    // (up to R32)
+    const int ldg = ld(d.cf), cpad = up8(d.cf);
+    float* G = work;  // region A
+    for (int r = warp; r < rows32(T, k); r += kWarps) {
+      float* g = G + (size_t)r * ldg;
+      const int q = r / k;
+      if (q >= valid) {
+        for (int t = lane; t < cpad; t += 32) g[t] = 0.f;
+        continue;
+      }
+      const int j = sidx[r];
+      const bool in = j >= 0 && j < n;  // not so only for overflowed inputs
+      const float* pj = pts + (size_t)(in ? j : 0) * 3;
+      if (lane < 3) {
+        const float v = in ? pj[lane] : 0.f;
+        g[lane] = __fsub_rn(v, pts[(size_t)(q0 + q) * 3 + lane]);
+        g[3 + lane] = v;
+      }
+      if (lane < cpad - d.cf) g[d.cf + lane] = 0.f;
+      const float* f = feats + ((size_t)cloud * n + (in ? j : 0)) * c;
+      for (int t0 = lane; t0 < c; t0 += 32 * kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int t = t0 + 32 * u;
+          v[u] = (in && t < c) ? f[t] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int t = t0 + 32 * u;
+          if (t < c) g[6 + t] = __bfloat162float(__float2bfloat16_rn(v[u]));
+        }
+      }
+    }
+    compute_sync();
+    tile_mlp(work, T, d, p, outs, ring);
   }
-  __syncthreads();
-  tile_mlp(work, T, valid, d, p, out + ((size_t)cloud * n + q0) * d.co);
+  cluster_sync();  // no block leaves while the cluster still copies
 }
 
 }  // namespace
@@ -121,36 +147,41 @@ extern "C" size_t dispu_refine_block_smem(int n, int k, int cf, int c1,
   const size_t floats =
       round4((size_t)T * k) +
       zmax((size_t)rows * (n + 3), mlp_floats(T, d));
-  const size_t bytes = floats * sizeof(float);
+  const size_t bytes = ring_bytes() + floats * sizeof(float);
   return bytes <= kMaxSmem ? bytes : 0;
+}
+
+// Floats of the fragment-ordered weights the launch writes to `packed`.
+extern "C" size_t dispu_refine_block_packed(int k, int cf, int c1, int c2,
+                                            int co) {
+  return packed_floats(Dims{k, cf, c1, c2, co});
 }
 
 // xyz (b, n, 3), bias (b, n) (zeros: the kNN's column bias), feats (b, n,
 // cf - 6); the weights as dispu_refine_local's with w0 and wsk of cf = 6 +
-// c rows; idx_out (b, n, k) int32 or null; out (b, n, co).
+// c rows; packed: dispu_refine_block_packed floats of scratch; idx_out
+// (b, n, k) int32 or null; out (b, n, co).
 extern "C" int dispu_refine_block(const float* xyz, const float* bias,
                                   const float* feats, const float* w0,
                                   const float* b0, const float* w1,
                                   const float* b1, const float* ww,
                                   const float* bw, const float* wsk,
                                   const float* bsk, const float* waf,
-                                  const float* baf, int* idx_out, float* out,
-                                  int b, int n, int k, int cf, int c1, int c2,
-                                  int co, int T, void* stream) {
+                                  const float* baf, float* packed,
+                                  int* idx_out, float* out, int b, int n,
+                                  int k, int cf, int c1, int c2, int co,
+                                  int T, void* stream) {
   const Dims d{k, cf, c1, c2, co};
   if (b < 1 || n < 1 || k < 1 || k > n || cf < 7 || c1 < 1 || c2 < 1 ||
-      co < 1 || T < 1 || T > kMaxT)
+      co < 1 || T < 1 || T > kMaxT || T * k > kMaxRows)
     return (int)cudaErrorInvalidValue;
   const size_t smem = dispu_refine_block_smem(n, k, cf, c1, c2, co, T);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      refine_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const Params p{w0, b0, w1, b1, ww, bw, wsk, bsk, waf, baf, packed};
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = pack_weights(p, d, packed, s);
   if (err != cudaSuccess) return (int)err;
-  const Params p{w0, b0, w1, b1, ww, bw, wsk, bsk, waf, baf};
-  const long long blocks = (long long)b * ((n + T - 1) / T);
-  refine_block_kernel<<<(unsigned)blocks, kThreads, smem,
-                        (cudaStream_t)stream>>>(xyz, bias, feats, p, d, n, T,
-                                                idx_out, out);
-  return (int)cudaGetLastError();
+  const long long tiles = (long long)b * ((n + T - 1) / T);
+  return launch_clusters(refine_block_kernel, tiles, smem, s, xyz, bias,
+                         feats, p, d, n, T, tiles, idx_out, out);
 }

@@ -4,7 +4,9 @@
 serving and training paths, with :func:`knn_inputs` and
 :func:`knn_group_inputs` to make their inputs from a seed;
 ``GATHER_CASES`` are the gather pair's shapes in a train step at batch 28
-with ``gather_impl='pallas'``; :func:`device_ms` is the device time of the
+with ``gather_impl='pallas'``; ``REFINE_CASES`` are the fused refiner
+kernels' two passes, with :func:`refine_params`, :func:`refine_ops` and
+:func:`refine_chain`; :func:`device_ms` is the device time of the
 kernels a call launches, from a ``torch.profiler`` trace.  Importing this
 module needs only ``torch``; ``time_fps`` also loads it by path into a
 checkout of another commit.
@@ -158,6 +160,83 @@ def gather_inputs(gen: torch.Generator, n: int, c: int, per_point: int,
                         dtype=torch.int32)
     idx[:, ::per_point] = torch.arange(n, dtype=torch.int32)  # self rows
     return table, idx
+
+
+class RefineCase(NamedTuple):
+    """One launch of a fused refiner kernel (``refine_local`` on grouped
+    rows, ``refine_block`` on points and features) at ``GeneratorConfig()``
+    width: ``b`` patches of ``n`` points, ``k`` neighbours, ``c`` features
+    (grouped rows of 6 + c floats), the refiner's ``mlp`` (c1, c2, c_out);
+    ``per_request``: launches in a 2048-point 4× request with
+    ``refine_local_impl`` 'fused' (of ``refine_block`` with 'megafused'),
+    ``per_16x``: in a 16× one."""
+    label: str
+    b: int
+    n: int
+    k: int
+    c: int
+    mlp: tuple
+    per_request: int
+    per_16x: int
+
+
+#: the refiner of a generator pass over a chunk of 32 patches of 256
+#: points (pass 1: a 4× request's, and a 16× request's first) and of 1024
+#: points (pass 2, a 16× request's second)
+REFINE_CASES = [
+    RefineCase("pass 1", 32, 1024, 16, 128, (128, 128, 256), 1, 1),
+    RefineCase("pass 2", 32, 4096, 16, 128, (128, 128, 256), 0, 1),
+]
+
+
+def refine_params(gen: torch.Generator, case: RefineCase) -> list:
+    """Random parameters of the case's width on the CPU, in
+    ``LocalParams`` order (w0, b0, w1, b1, ww, bw, wsk, bsk, waf, baf):
+    each kernel scaled by 1/sqrt(fan-in), so that every layer's output
+    stays O(1), each bias 0.1 x N(0, 1)."""
+    c1, c2, co = case.mlp
+    cf, k = 6 + case.c, case.k
+
+    def w(*shape):
+        fan_in = shape[-2] * (shape[0] if len(shape) == 3 else 1)
+        return torch.randn(*shape, generator=gen) / fan_in ** 0.5
+
+    def bias(n):
+        return 0.1 * torch.randn(n, generator=gen)
+
+    return [w(cf, c1), bias(c1), w(c1, c2), bias(c2), w(3, k), bias(k),
+            w(cf, co), bias(co), w(k, c2, co), bias(co)]
+
+
+def refine_ops(case: RefineCase) -> int:
+    """f32 operations of the local and skip branches over the case's
+    b·n queries (a multiply-add counts two)."""
+    c1, c2, co = case.mlp
+    cf, k = 6 + case.c, case.k
+    per_row = 2 * (cf * c1 + c1 * c2 + 3 * k) + 2 * k * c2
+    return case.b * case.n * (k * per_row + 2 * k * c2 * co + 2 * cf * co)
+
+
+def refine_chain(p):
+    """The composed branch as one would write it with PyTorch's own calls
+    on ``LocalParams`` p (no single call computes it): ``F.linear`` for
+    conv0, conv1, the weight net, after_conv and skip (cuBLAS; TF32 as the
+    caller set it), a batched matmul for the pooling, ``amax`` for the
+    skip's max.  Returns grouped (b, n, k, cf) → (b, n, c_out)."""
+    import torch.nn.functional as F
+
+    wt = [t.t().contiguous() for t in (p.w0, p.w1, p.ww, p.wsk)]
+    waf = p.waf.reshape(-1, p.waf.shape[-1]).t().contiguous()
+
+    def run(g):
+        b, n = g.shape[:2]
+        h = F.relu(F.linear(F.relu(F.linear(g, wt[0], p.b0)), wt[1], p.b1))
+        w = F.relu(F.linear(g[..., :3], wt[2], p.bw))
+        pool = torch.matmul(w.transpose(-1, -2), h).reshape(b, n, -1)
+        return (F.relu(F.linear(pool, waf, p.baf))
+                + F.relu(F.linear(torch.amax(g, dim=2), wt[3], p.bsk)))
+
+    return run
 
 
 def device_ms(fn, reps: int) -> float:

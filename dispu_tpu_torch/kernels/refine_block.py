@@ -20,7 +20,7 @@ from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 from dispu_tpu_torch.kernels.knn import knn_torch
 from dispu_tpu_torch.kernels.knn_group import bf16_round, rows_at
 from dispu_tpu_torch.kernels.refine_local import (LocalParams, cuda_args,
-                                                  param_dims,
+                                                  packed_scratch, param_dims,
                                                   refine_local_torch,
                                                   tile_queries)
 
@@ -71,8 +71,9 @@ def refine_block_cuda(xyz: torch.Tensor, feats: torch.Tensor,
                       p: LocalParams, with_idx: bool = False):
     """Launch the kernel.  Same contract as :func:`refine_block_torch`;
     with ``with_idx`` also returns the kernel's (b, n, k) int32 selection.
-    Raises ``ValueError`` where a block's shared memory cannot hold
-    min(T, 8) distance rows of n + 3 floats (n ≤ 7,245 at k = 16)."""
+    Raises ``ValueError`` where a block's shared memory cannot hold, beside
+    the weights' ring, 8 distance rows of n + 3 floats (n ≤ 5,195 at
+    ``GeneratorConfig()`` width, k = 16)."""
     from dispu_tpu_torch.kernels import _build
 
     _check(xyz, feats, p)
@@ -92,21 +93,23 @@ def refine_block_cuda(xyz: torch.Tensor, feats: torch.Tensor,
     lib.dispu_refine_block_smem.restype = ctypes.c_size_t
     if lib.dispu_refine_block_smem(n, k, cf, c1, c2, c_out, tile) == 0:
         raise ValueError(
-            f"refine_block kernel: {min(tile, 8)} distance rows of n + 3 = "
+            f"refine_block kernel: {tile} distance rows of n + 3 = "
             f"{n + 3} floats, or a tile of {tile} queries at widths "
-            f"({cf}, {c1}, {c2}, {c_out}), exceed one block's 232,448 bytes "
-            "of shared memory")
+            f"({cf}, {c1}, {c2}, {c_out}), beside the weights' ring exceed "
+            "one block's 232,448 bytes of shared memory")
+    packed = packed_scratch(lib, "dispu_refine_block", k, cf, c1, c2, c_out,
+                            dev)
     bias = torch.zeros((b, n), dtype=torch.float32, device=dev)
     out = torch.empty((b, n, c_out), dtype=torch.float32, device=dev)
     idx = (torch.empty((b, n, k), dtype=torch.int32, device=dev)
            if with_idx else None)
     fn = lib.dispu_refine_block
-    fn.argtypes = [_P] * 15 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 16 + [_I] * 8 + [_P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(xyz_c.data_ptr(), bias.data_ptr(), feats_c.data_ptr(),
-                    *(a.data_ptr() for a in args),
+                    *(a.data_ptr() for a in args), packed.data_ptr(),
                     idx.data_ptr() if with_idx else None, out.data_ptr(),
                     b, n, k, cf, c1, c2, c_out, tile, stream)
     _build.check(status, "refine_block kernel launch")

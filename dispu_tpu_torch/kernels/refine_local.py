@@ -5,9 +5,12 @@ Replaces ``refine_local_pallas`` (``dispu_tpu/ops/pallas_kernels.py``),
 which ``PointShuffle2`` reaches with ``local_impl='fused'``: from the
 grouped ``[centred xyz | raw xyz | feature]`` tensor (b, n, k, cf) and the
 pre-folded parameters (:class:`LocalParams`), (b, n, c_out) =
-relu(after_conv(pool)) + relu(skip).  On an H100 the kernel is bound by
-its f32 products; see the note at the top of the source.  Inference only,
-as in the JAX package: :class:`RefineLocalFunction` raises in backward.
+relu(after_conv(pool)) + relu(skip).  On an H100 the kernel runs its
+products on the tensor cores at f32 grade (3xTF32), in clusters of two
+blocks that share the weights' stream and the heads; see the notes at the
+top of ``csrc/refine_local.cu`` and ``csrc/refine_common.cuh``.  Inference
+only, as in the JAX package: :class:`RefineLocalFunction` raises in
+backward.
 """
 
 from __future__ import annotations
@@ -21,9 +24,9 @@ from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 
 #: n must be a multiple of this, as ``refine_local_pallas``'s ``tile_n``
 TILE_N = 128
-#: queries a block at most, and grouped rows a block at most
-#: (``refine_common.cuh``'s kMaxT and its 128-row product tile)
-MAX_TILE_QUERIES = 16
+#: queries a block at most (the heads' n8 side), and grouped rows a block
+#: at most (``refine_common.cuh``'s kMaxT and kMaxRows): k ≤ 128
+MAX_TILE_QUERIES = 8
 MAX_TILE_ROWS = 128
 
 _P = ctypes.c_void_p
@@ -64,9 +67,25 @@ def refine_local_torch(grouped: torch.Tensor,
 
 
 def tile_queries(k: int) -> int:
-    """Queries a block takes: as many as keep its grouped rows within one
-    128-row product tile, at most ``MAX_TILE_QUERIES``."""
-    return max(1, min(MAX_TILE_QUERIES, MAX_TILE_ROWS // k))
+    """Queries a block takes: as many as keep its grouped rows within
+    ``MAX_TILE_ROWS``, at most ``MAX_TILE_QUERIES``; raises ``ValueError``
+    for k > ``MAX_TILE_ROWS``."""
+    if k > MAX_TILE_ROWS:
+        raise ValueError(f"refine kernels take k <= {MAX_TILE_ROWS} "
+                         f"neighbours a query, got k={k}")
+    return min(MAX_TILE_QUERIES, MAX_TILE_ROWS // k)
+
+
+def packed_scratch(lib, prefix: str, k: int, cf: int, c1: int, c2: int,
+                   c_out: int, device) -> torch.Tensor:
+    """The scratch into which a launch lays the weights out in fragment
+    order (``refine_common.cuh``'s ``pack_kernel``), sized by the
+    library's ``<prefix>_packed``."""
+    size = getattr(lib, prefix + "_packed")
+    size.argtypes = [_I] * 5
+    size.restype = ctypes.c_size_t
+    return torch.empty(size(k, cf, c1, c2, c_out), dtype=torch.float32,
+                       device=device)
 
 
 def param_dims(p: LocalParams, k: int, cf: int):
@@ -116,14 +135,17 @@ def refine_local_cuda(grouped: torch.Tensor, p: LocalParams) -> torch.Tensor:
             f"refine_local kernel: a tile of {tile} queries at k={k}, "
             f"cf={cf}, widths ({c1}, {c2}, {c_out}) exceeds one block's "
             "232,448 bytes of shared memory")
+    packed = packed_scratch(lib, "dispu_refine_local", k, cf, c1, c2, c_out,
+                            dev)
     out = torch.empty((b, n, c_out), dtype=torch.float32, device=dev)
     fn = lib.dispu_refine_local
-    fn.argtypes = [_P] * 12 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 13 + [_I] * 8 + [_P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(g.data_ptr(), *(a.data_ptr() for a in args),
-                    out.data_ptr(), b, n, k, cf, c1, c2, c_out, tile, stream)
+                    packed.data_ptr(), out.data_ptr(), b, n, k, cf, c1, c2,
+                    c_out, tile, stream)
     _build.check(status, "refine_local kernel launch")
     LAUNCHES["refine_local"] += 1
     return out

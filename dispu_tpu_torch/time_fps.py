@@ -44,13 +44,25 @@ only within one such call.
   grouped xyz, grouped features); the top-level ``ms`` is a 4× turbo
   request's.  Equal digests at every shape say the two trees' kernels
   return the same bits.
+- ``--kernel refine_local`` / ``--kernel refine_block``: that kernel at
+  both shapes of ``measure.REFINE_CASES`` (the refiner's pass 1 and pass
+  2 at ``GeneratorConfig()`` width; parameters from
+  ``measure.refine_params`` with seed 12, then grouped rows, or points
+  and features, from the same generator), ``ms`` by CUDA events around
+  ``--reps`` back-to-back calls after one warm-up, ``chain_ms`` the same
+  for the cuBLAS chain ``measure.refine_chain`` (for ``refine_block``
+  after ``cdist`` + ``topk`` + the gather), and ``err``, max |kernel −
+  plain version| over max(max |plain|, 1); no digest, since the trees
+  sum in different orders by design.  The top-level ``ms`` is a 16×
+  request's launches (``per_16x``).
 - ``--request R``: ``PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
   final_ratio=R)).upsample`` of ``demo/gt/fandisk.xyz``, host wall
   milliseconds a call (the result is on the host when it returns) over
   ``--reps`` calls after one warm-up; ``ms_each`` lists every call.  Then
   the same for the turbo configuration of ``python -m dispu_tpu_torch.cli
   --phase test --turbo true`` at ratio R, under ``turbo_ms``,
-  ``turbo_ms_each`` and ``turbo_digest``.
+  ``turbo_ms_each`` and ``turbo_digest``, and for ``refine_local_impl``
+  'fused' and 'megafused' under ``fused_`` and ``megafused_``.
 """
 
 from __future__ import annotations
@@ -97,13 +109,18 @@ if mode.startswith("request"):
     turbo = cli.build_config(cli.parse_args(["--phase", "test", "--turbo",
                                              "true"]))
     pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
+    from dispu_tpu_torch import GeneratorConfig
     result = {}
     for key, up in (
             ("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
                 final_ratio=ratio))),
             ("turbo_", PatchUpsampler(
                 seed=0, gen_cfg=turbo.generator, inf_cfg=dataclasses.replace(
-                    turbo.inference, final_ratio=ratio)))):
+                    turbo.inference, final_ratio=ratio))),
+            *((f"{impl}_", PatchUpsampler(
+                seed=0, gen_cfg=GeneratorConfig(refine_local_impl=impl),
+                inf_cfg=InferenceConfig(final_ratio=ratio)))
+              for impl in ("fused", "megafused"))):
         out = up.upsample(pc)
         each = []
         for _ in range(reps):
@@ -178,6 +195,51 @@ elif mode in ("knn", "knn_group"):
     joined = "".join(v["digest"] for v in shapes.values()).encode()
     print(json.dumps({"ms": total, "shapes": shapes,
                       "digest": digest(np.frombuffer(joined, np.uint8))}))
+elif mode in ("refine_local", "refine_block"):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("measure", sys.argv[6])
+    measure = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(measure)
+    from dispu_tpu_torch.inference import pin_f32
+    from dispu_tpu_torch.kernels import refine_block, refine_local
+    pin_f32()
+    gen = torch.Generator().manual_seed(12)
+    cases = measure.REFINE_CASES
+    p = refine_local.LocalParams(*(
+        t.cuda() for t in measure.refine_params(gen, cases[0])))
+    chain = measure.refine_chain(p)
+    shapes, total = {}, 0.0
+    for case in cases:
+        if mode == "refine_local":
+            g = torch.randn(case.b, case.n, case.k, 6 + case.c,
+                            generator=gen).cuda()
+            def call():
+                return refine_local.refine_local_cuda(g, p)
+            def plain():
+                return refine_local.refine_local_torch(g, p)
+            def lib():
+                return chain(g)
+        else:
+            xyz = torch.randn(case.b, case.n, 3, generator=gen).cuda()
+            feats = torch.randn(case.b, case.n, case.c, generator=gen).cuda()
+            out, idx = refine_block.refine_block_cuda(xyz, feats, p,
+                                                      with_idx=True)
+            def call():
+                return refine_block.refine_block_cuda(xyz, feats, p)
+            def plain():
+                return refine_block.refine_block_torch(xyz, feats, p,
+                                                       idx=idx)
+            def lib():
+                sel = torch.topk(torch.cdist(xyz, xyz) ** 2, case.k, dim=-1,
+                                 largest=False)[1]
+                return chain(refine_block.grouped_rows(xyz, feats, sel))
+        want = plain()
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((call() - want).abs().max()) / scale
+        shapes[case.label] = {"ms": event_ms(call), "chain_ms": event_ms(lib),
+                              "err": err}
+        total += case.per_16x * shapes[case.label]["ms"]
+    print(json.dumps({"ms": total, "shapes": shapes}))
 else:
     if mode == "route":
         from dispu_tpu_torch.ops.sampling import farthest_point_sample
@@ -204,7 +266,8 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--kernel", default="route",
                         choices=("route", "fps", "fps_chunked",
-                                 "gather_rows", "knn", "knn_group"))
+                                 "gather_rows", "knn", "knn_group",
+                                 "refine_local", "refine_block"))
     parser.add_argument("--request", type=int, default=None, metavar="R",
                         help="time whole upsample requests at final "
                              "ratio R instead of a kernel")
@@ -218,7 +281,8 @@ def main() -> int:
     print(card, flush=True)
     if args.request is not None:
         shape = {"ratio": args.request}
-    elif args.kernel in ("gather_rows", "knn", "knn_group"):
+    elif args.kernel in ("gather_rows", "knn", "knn_group", "refine_local",
+                         "refine_block"):
         shape = {"kernel": args.kernel}
     else:
         shape = {"kernel": args.kernel, "b": args.b, "n": args.n,

@@ -1022,14 +1022,23 @@ def _local_params(seed, dev, k, cf, mlp):
 
 
 @pytest.mark.parametrize("b,n,k,c,mlp", [
-    (2, 256, 8, 32, (32, 32, 64)),    # 16 queries a block, aligned
-    (1, 200, 12, 20, (24, 40, 48)),   # 10 queries a block, a ragged tile
+    (2, 256, 8, 32, (32, 32, 64)),    # 8 queries a block (64 rows), aligned
+    (1, 200, 12, 20, (24, 40, 48)),   # 25 tiles (odd), a ragged last tile
     (2, 128, 16, 128, (128, 128, 256)),
-])
+    (1, 136, 16, 17, (20, 12, 40)),   # 17 tiles; c1, c2 off 8; odd cf;
+                                      # co off 16
+    (2, 128, 12, 20, (24, 16, 300)),  # two head passes, the second ragged
+    (1, 128, 8, 10, (16, 16, 16)),    # one head tile: a block's slice empty
+    (1, 4096, 16, 128, (128, 128, 256)),  # pass 2's n
+], ids=["k8", "k12-ragged", "full", "odd-widths", "co300", "co16",
+        "pass2-n"])
 def test_refine_kernels_match_plain(dev, b, n, k, c, mlp):
     """Both refiner kernels against their plain versions on the card at
-    f32 round-off; refine_block's selection bit-equal to the kNN
-    kernel's."""
+    f32 round-off (1e-5 of the output's scale) at the edges of their
+    design: tile counts per cloud that are not a multiple of the cluster's
+    two blocks, widths off the mma tiles, k 8, 12, 16, and pass 2's n =
+    4096 (admitted by refine_block); refine_block's selection bit-equal to
+    the kNN kernel's."""
     from dispu_tpu_torch.kernels.refine_block import (refine_block_cuda,
                                                       refine_block_torch)
     from dispu_tpu_torch.kernels.refine_local import (refine_local_cuda,
@@ -1048,6 +1057,25 @@ def test_refine_kernels_match_plain(dev, b, n, k, c, mlp):
     assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("kernel", ["refine_local", "refine_block"])
+def test_refine_kernels_repeat_bit_equal(dev, kernel):
+    """One launch repeated gives the same bits: the weights' ring (its
+    multicast copies, barriers and the two blocks' exchange of pools)
+    leaves no order to chance."""
+    from dispu_tpu_torch.kernels.refine_block import refine_block_cuda
+    from dispu_tpu_torch.kernels.refine_local import refine_local_cuda
+
+    p = _local_params(5, dev, 16, 134, (128, 128, 256))
+    if kernel == "refine_local":
+        g = _randn(6, 4, 1024, 16, 134).to(dev)
+        outs = [refine_local_cuda(g, p) for _ in range(3)]
+    else:
+        xyz, feats = _randn(7, 4, 1024, 3).to(dev), _randn(8, 4, 1024,
+                                                           128).to(dev)
+        outs = [refine_block_cuda(xyz, feats, p) for _ in range(3)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
 def test_refine_kernels_refuse_beyond_their_limits(dev):
     from dispu_tpu_torch.kernels.refine_block import refine_block_cuda
     from dispu_tpu_torch.kernels.refine_local import refine_local
@@ -1055,12 +1083,13 @@ def test_refine_kernels_refuse_beyond_their_limits(dev):
     p = _local_params(0, dev, 16, 134, (128, 128, 256))
     with pytest.raises(ValueError, match="multiple of"):
         refine_local(_randn(0, 1, 200, 16, 134).to(dev), p)
-    # 8 distance rows of n + 3 floats do not fit 232,448 bytes past 7,245
+    # beside the weights' ring, 8 distance rows of n + 3 floats do not fit
+    # 232,448 bytes past 5,195
     with pytest.raises(ValueError, match="shared memory"):
-        refine_block_cuda(_randn(1, 1, 7300, 3).to(dev),
-                          _randn(2, 1, 7300, 128).to(dev), p)
-    refine_block_cuda(_randn(1, 1, 7245, 3).to(dev),
-                      _randn(2, 1, 7245, 128).to(dev), p)
+        refine_block_cuda(_randn(1, 1, 5196, 3).to(dev),
+                          _randn(2, 1, 5196, 128).to(dev), p)
+    refine_block_cuda(_randn(1, 1, 5195, 3).to(dev),
+                      _randn(2, 1, 5195, 128).to(dev), p)
 
 
 @pytest.mark.parametrize("setting,counts", [

@@ -3,7 +3,9 @@
 are the gathers that a train step with ``gather_impl='pallas'`` sends to
 the gather kernel at the default widths, ``KNN_CASES`` and
 ``KNN_GROUP_CASES`` hold the kNN launches of a 4× request's generator
-pass (exact and turbo), and the input makers make what they say.
+pass (exact and turbo), ``REFINE_CASES`` the fused refiner's launches of
+a 4× and a 16× request's generator passes, and the input makers make what
+they say.
 """
 
 import collections
@@ -11,12 +13,16 @@ import collections
 import pytest
 import torch
 
-from dispu_tpu_torch import GeneratorConfig, cli
+from dispu_tpu_torch import GeneratorConfig, InferenceConfig, cli
 from dispu_tpu_torch.kernels import knn_group as knn_group_module
 from dispu_tpu_torch.kernels.measure import (GATHER_CASES, KNN_CASES,
-                                             KNN_GROUP_CASES, gather_inputs,
-                                             knn_group_inputs, knn_inputs)
+                                             KNN_GROUP_CASES, REFINE_CASES,
+                                             gather_inputs, knn_group_inputs,
+                                             knn_inputs, refine_ops,
+                                             refine_params)
+from dispu_tpu_torch.kernels.refine_local import LocalParams, param_dims
 from dispu_tpu_torch.models.generator import DisPUGenerator
+from dispu_tpu_torch.nn import refine as refine_module
 from dispu_tpu_torch.ops import grouping
 from dispu_tpu_torch.ops import knn as knn_ops
 
@@ -188,3 +194,66 @@ def test_knn_group_inputs_follow_their_cases():
             assert torch.equal(pts[:, -8:], pts[:, :8])
     # the refiner's exact and turbo cases time one input
     assert inputs[0][0] is inputs[1][0] and inputs[0][1] is inputs[1][1]
+
+
+def _record_refines(setting, points):
+    """(n, k, cf, mlp) → count of the fused refiner kernels' calls in one
+    eval-mode forward of ``GeneratorConfig(refine_local_impl=setting)``'s
+    generator over one patch of ``points`` points, the kernels' entries
+    replaced by recorders that return zeros."""
+    seen = collections.Counter()
+
+    def mlp(p):
+        return (int(p.w0.shape[1]), int(p.w1.shape[1]), int(p.wsk.shape[1]))
+
+    def record_local(grouped, params, impl="auto"):
+        b, n, k, cf = grouped.shape
+        seen[(n, k, cf, mlp(params))] += 1
+        return torch.zeros(b, n, params.wsk.shape[1])
+
+    def record_block(xyz, feats, params, impl="auto"):
+        b, n, _ = xyz.shape
+        seen[(n, params.ww.shape[1], 6 + feats.shape[2], mlp(params))] += 1
+        return torch.zeros(b, n, params.wsk.shape[1])
+
+    torch.manual_seed(0)
+    model = DisPUGenerator(GeneratorConfig(refine_local_impl=setting),
+                           impl="torch").eval()
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(refine_module, "refine_local", record_local)
+        mp.setattr(refine_module, "refine_block", record_block)
+        model(torch.randn(1, points, 3))
+    return seen
+
+
+@pytest.mark.parametrize("setting", ["fused", "megafused"])
+def test_refine_cases_are_the_requests_refiner_calls(setting):
+    """A 4× request's generator pass over 256-point patches calls the
+    setting's kernel once, at pass 1's shape; a 16× request's second pass
+    (1024 points) once more, at pass 2's; both over chunks of
+    ``patch_batch`` patches."""
+    cfg, inf = GeneratorConfig(), InferenceConfig()
+    first = _record_refines(setting, cfg.num_points)
+    second = _record_refines(setting, cfg.num_points * cfg.up_ratio)
+
+    def key(case):
+        return (case.n, case.k, 6 + case.c, case.mlp)
+
+    assert dict(first) == {key(c): c.per_request for c in REFINE_CASES
+                           if c.per_request}
+    assert dict(first + second) == {key(c): c.per_16x for c in REFINE_CASES
+                                    if c.per_16x}
+    assert all(case.b == inf.patch_batch for case in REFINE_CASES)
+
+
+def test_refine_params_are_seeded_at_the_cases_widths():
+    case = REFINE_CASES[0]
+    p = LocalParams(*refine_params(torch.Generator().manual_seed(4), case))
+    again = refine_params(torch.Generator().manual_seed(4), case)
+    assert all(torch.equal(a, b) for a, b in zip(p, again))
+    assert param_dims(p, case.k, 6 + case.c) == case.mlp
+    # 1/sqrt(fan-in) keeps each layer's weights O(1/sqrt(fan-in))
+    assert abs(float(p.waf.std()) * (case.k * case.mlp[1]) ** 0.5 - 1) < 0.05
+    # pass 1 is about 74 GFLOP, pass 2 four times that
+    assert abs(refine_ops(case) / 1e9 - 74.0) < 0.1
+    assert refine_ops(REFINE_CASES[1]) == 4 * refine_ops(case)

@@ -10,7 +10,9 @@ against the JAX package's, on the CPU.
 * the gates: training and unaligned n take the composed path, and the
   kernels' autograd Functions refuse a backward;
 * whole 4× and 16× upsampling, and ``upsample_many``, with each setting
-  against the JAX package's upsampler with the same setting.
+  against the JAX package's upsampler with the same setting;
+* the CUDA kernels' precision argument: their 3xTF32 products, emulated,
+  against an f64 reference (single-pass TF32 misses the bound).
 
 Values agree to f32 round-off of sums taken in other orders: each bound
 is 1e-5 of max(|output|, 1).
@@ -43,7 +45,8 @@ from dispu_tpu_torch.kernels.refine_block import (RefineBlockFunction,
 from dispu_tpu_torch.kernels.refine_local import (LocalParams,
                                                   RefineLocalFunction,
                                                   refine_local,
-                                                  refine_local_torch)
+                                                  refine_local_torch,
+                                                  tile_queries)
 from dispu_tpu_torch.models.generator import DisPUGenerator
 from dispu_tpu_torch.nn import refine as trefine
 from test_torch_generator import perturbed_numpy_tree
@@ -147,6 +150,104 @@ def test_refine_functions_refuse_backward():
                                     *p)
     with pytest.raises(RuntimeError, match="inference only"):
         out.sum().backward()
+
+
+# ------------------------------------------- the kernels' precision (CPU)
+#
+# The CUDA kernels run conv0, conv1, after_conv and skip on the tensor
+# cores as three TF32 products (3xTF32), the weight net and the pooling
+# in f32.  The emulation below repeats that on the CPU: a TF32 value is an
+# f32 rounded to nearest on its 13 low mantissa bits (cvt.rna.tf32.f32),
+# x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a product is
+# a_lo b_hi + a_hi b_lo + a_hi b_hi (the products of two TF32 values are
+# exact in f32).  Nothing on the main path uses it.
+
+
+def _tf32(x):
+    """Round an f32 tensor to TF32, to nearest with ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _branches_with(grouped, p, mm):
+    """``refine_local_torch``'s math with conv0, conv1, after_conv and
+    skip through ``mm`` (the kernels' tensor-core products)."""
+    b, n = grouped.shape[:2]
+    h = torch.relu(mm(torch.relu(mm(grouped, p.w0) + p.b0), p.w1) + p.b1)
+    w = torch.relu(grouped[..., :3] @ p.ww + p.bw)
+    pool = torch.einsum("bnkt,bnkc->bntc", w, h).reshape(b, n, -1)
+    after = torch.relu(mm(pool, p.waf.reshape(-1, p.waf.shape[-1])) + p.baf)
+    skip = torch.relu(mm(torch.amax(grouped, dim=2), p.wsk) + p.bsk)
+    return after + skip
+
+
+def _fan_in_params(rng, k, cf, mlp):
+    """``kernels/measure.py``'s scaling: each kernel by 1/sqrt(fan-in)."""
+    c1, c2, co = mlp
+    shapes = [(cf, c1), (c1,), (c1, c2), (c2,), (3, k), (k,), (cf, co),
+              (co,), (k, c2, co), (co,)]
+
+    def draw(shape):
+        if len(shape) == 1:
+            return 0.1 * rng.randn(*shape)
+        fan_in = shape[-2] * (shape[0] if len(shape) == 3 else 1)
+        return rng.randn(*shape) / np.sqrt(fan_in)
+
+    return LocalParams(*(torch.from_numpy(draw(s).astype(np.float32))
+                         for s in shapes))
+
+
+@pytest.mark.parametrize("b,n,k,c,mlp", [
+    (2, 16, 8, 16, (32, 32, 48)),        # a small width
+    (1, 8, 16, 128, (128, 128, 256)),    # one tile at GeneratorConfig()'s
+])
+def test_3xtf32_products_hold_f32_grade(b, n, k, c, mlp):
+    """3xTF32 products keep the refiner within ``REL`` of an f64
+    reference; single-pass TF32 (what the kernels do not take) misses it,
+    at both widths."""
+    rng = np.random.RandomState(k + c)
+    g = torch.from_numpy(rng.randn(b, n, k, 6 + c).astype(np.float32))
+    p = _fan_in_params(rng, k, 6 + c, mlp)
+    # the restated math is the plain version's
+    np.testing.assert_array_equal(
+        _branches_with(g, p, torch.matmul).numpy(),
+        refine_local_torch(g, p).numpy())
+    ref = _branches_with(g.double(), LocalParams(*(t.double() for t in p)),
+                         torch.matmul).numpy()
+    scale = max(float(np.abs(ref).max()), 1.0)
+    err3 = float(np.abs(_branches_with(g, p, _mm_3xtf32).numpy()
+                        - ref).max())
+    err1 = float(np.abs(_branches_with(g, p, _mm_tf32).numpy() - ref).max())
+    assert err3 <= REL * scale, (err3, scale)
+    assert err1 > REL * scale, (err1, scale)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 3.0e38])
+    got = _tf32(x)
+    assert got.tolist()[:4] == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                                -(1.0 + 2.0 ** -10)]
+    assert torch.all((got.view(torch.int32) & 0x1FFF) == 0)
+
+
+def test_tile_queries_fit_the_kernels_tile():
+    """Queries a block: 8 at most (the heads' n8 side), T k ≤ 128 grouped
+    rows, and k past 128 refused."""
+    assert [tile_queries(k) for k in (1, 8, 12, 16, 32, 100, 128)] == [
+        8, 8, 8, 8, 4, 1, 1]
+    with pytest.raises(ValueError, match="k <= 128"):
+        tile_queries(129)
 
 
 # ---------------------------------------------------------------- modules
