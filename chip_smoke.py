@@ -14,16 +14,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      request, pass 2 of the 16× request, the 16× merge of one cloud and of
      two) and the train step gives it at batch 28 (backbone, refiner and
      chamfer kNN; the attention forward, each shape beside SDPA, and its
-     backward rule; the ball
-     query in all three output modes, and at the critic's ball grouping),
-     and time the kernel, the plain version and one PyTorch library call
-     for the same function where there is one; the cluster FPS kernel also
+     backward rule; the ball query in all three output modes at
+     ``kernels/measure.py``'s ``BALL_CASES``: the repulsion loss, the
+     critic's ball grouping and the ``uniform`` metric's disks, with no
+     synchronization in a call), and time the kernel, the plain version
+     and one PyTorch library call for the same function where there is
+     one; the split row form of the exact kNN bit-equal to the row form at
+     n = 20,000 and at the patch cut of a 60,000-point cloud against the
+     plain version; the cluster FPS kernel also
      past its on-chip capacity, at a ragged n with ties across its
      blocks and at each edge of its forms; the turbo path's kernels at
      its shapes: the fused kNN + gather
      (backbone and refiner, turbo and exact; its distances and indices
      bit-equal to the kNN kernel's), the packed kNN selection (pass 2's
-     refiner; and its fixed-selection gradient) and the bucketed merge FPS
+     refiner at k 16, 1 and 32, the row form at k 33; and its
+     fixed-selection gradient) and the bucketed merge FPS
      (4×, 16×, two clouds); the lite FPS entry (the critic's seed shape and
      the 4× merge); the gather kernel bit-equal to ``torch.gather`` and the
      scatter-add kernel bit-equal run to run (and to the CPU's
@@ -47,7 +52,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      one ``upsample_many`` at each ratio), against the composed path
      ('megafused' at 4× by its generator rows before the merge, and its
      output against the plain merge of its own candidates), timed beside
-     'xla'.  Then CD training at the
+     'xla'.  Past two kernels' limits: a 4× request on a 60,000-point
+     cloud (the patch cut in the split row form, the merge of 719,872
+     candidates) twice, bit-equal; 'megafused' at ``patch_num_point`` 512
+     and 16× (pass 2's refiner past ``refine_block.cu``'s shared memory
+     takes the 'fused' route) against the composed ``fast_gather`` path.
+     Then CD training at the
      same width with the training defaults (batch 28, random input,
      augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
      steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
@@ -551,26 +561,30 @@ def check_attention(dev):
 
 
 def check_query_ball(dev):
-    """Kernel vs plain in all three output modes at the repulsion loss's
-    shape (28 clouds of 1024 points, every point a query, r = 0.07,
-    nsample 20, select 5) and at the critic's ``knn=False`` grouping
-    (28 × 1024 points, 128 queries, r = 0.2, nsample 64), under the
-    near-tie contract.  Times the select mode (what the repulsion loss
-    runs); the aggregate is the repulsion shape, one launch a train
-    step."""
+    """Kernel vs plain in all three output modes at ``measure.BALL_CASES``
+    (the repulsion loss: 28 clouds of 1024 points, every point a query,
+    r = 0.07, nsample 20, select 5; the critic's widest ball grouping;
+    the ``uniform`` metric's five disks), under the near-tie contract.
+    Times the mode each caller runs (select for the repulsion loss) by
+    CUDA events around back-to-back calls (``ms``) and by the profiler's
+    device time (``device_ms``), and requires that a call with a Python
+    float radius makes no stream synchronization and no host-to-device
+    copy (the profiler's CPU trace).  The aggregate is the repulsion
+    shape, one launch a CD step."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    from dispu_tpu_torch.data.dataset import synthetic_patches
+    from dispu_tpu_torch.kernels.measure import (BALL_CASES, ball_inputs,
+                                                 device_ms)
     from dispu_tpu_torch.kernels.query_ball import (query_ball_cuda,
                                                     query_ball_torch)
     from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
 
-    pts = torch.from_numpy(synthetic_patches(28, 1024, seed=7)[1]).to(dev)
-    pts[:, 900:950] = pts[:, 100:150]  # duplicates: tied distances
-    cases = [("repulsion", pts, pts, 0.07, 20, 5),
-             ("critic ball", pts, pts[:, ::8].contiguous(), 0.2, 64, 5)]
+    gen = torch.Generator(device="cpu").manual_seed(7)
     agg = None
-    for label, xyz, qs, r, ns, s in cases:
+    for case in BALL_CASES:
+        label, r, ns, s = case.label, case.radius, case.nsample, case.select
+        xyz, qs = (t.to(dev) for t in ball_inputs(gen, case))
         b, n, c = xyz.shape
         m = qs.shape[1]
         d = pairwise_sq_dist(qs, xyz)                       # (b, m, n)
@@ -579,8 +593,10 @@ def check_query_ball(dev):
         r2 = torch.tensor(r, dtype=torch.float32) ** 2
         boundary = torch.any(torch.abs(d - float(r2))
                              <= QB_TIE_RTOL * (float(r2) + scale), dim=-1)
-        got = query_ball_cuda(r, ns, xyz, qs, True, s)
-        want = query_ball_torch(r, ns, xyz, qs, True, s)
+        # the selection is checked at every case, timed where it runs
+        sel = s or min(5, ns)
+        got = query_ball_cuda(r, ns, xyz, qs, True, sel)
+        want = query_ball_torch(r, ns, xyz, qs, True, sel)
         torch.cuda.synchronize()
         slots_ok = (torch.all(got[0] == want[0], dim=-1)
                     & (got[1] == want[1]))
@@ -610,8 +626,20 @@ def check_query_ball(dev):
         require(all(torch.equal(a, b_) for a, b_ in
                     zip(plain_only + dists_only, got[:2] + got[:3])),
                 f"ball {label}: modes disagree")
-        ms = timed_ms(lambda: query_ball_cuda(r, ns, xyz, qs, False, s),
-                      reps=20)
+
+        def call():
+            return query_ball_cuda(r, ns, xyz, qs, False, s)
+
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        syncs = [evt.name for evt in prof.events()
+                 if "Synchronize" in evt.name or "Memcpy" in evt.name]
+        require(not syncs, f"ball {label}: a call with a float radius "
+                f"synchronizes or copies: {syncs}")
+        ms = timed_ms(call, reps=20)
+        dev_ms = device_ms(call, reps=20)
         plain_ms = timed_ms(lambda: query_ball_torch(r, ns, xyz, qs, False,
                                                      s), reps=5)
         # the points each query must scan: up to its nsample-th hit
@@ -620,15 +648,17 @@ def check_query_ball(dev):
         ops = float(scanned.sum()) * (3 * c + 3)
         nbytes = 4 * (b * n * c + b * m * c + b * m * ns + b * m + b * m * s)
         bms, by = bound(nbytes, ops, F32_FLOPS)
-        log(f"query_ball {label} (b={b} n={n} m={m} c={c} r={r} ns={ns} "
-            f"s={s}): hit-boundary rows {n_boundary}, selection near-tie "
-            f"swaps {n_sel}, dists rel err {max_derr:.2e} (bound "
-            f"{QB_DIST_RTOL}), mean hits {float(want[1].float().mean()):.2f};"
-            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        log(f"query_ball {label} (b={b} n={n} m={m} c={c} r={r:.4f} "
+            f"ns={ns} s={s}): hit-boundary rows {n_boundary}, selection "
+            f"near-tie swaps {n_sel}, dists rel err {max_derr:.2e} (bound "
+            f"{QB_DIST_RTOL}), mean hits {float(want[1].float().mean()):.2f}"
+            f"; no sync or copy a call; kernel {ms:.4f} ms a call, "
+            f"{dev_ms:.4f} on the device, plain {plain_ms:.4f} ms, bound "
             f"{bms:.5f} ms ({by})")
         if agg is None:
-            agg = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                       bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+            agg = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bms,
+                       t_bytes=nbytes / HBM_BYTES_PER_S,
                        t_ops=ops / F32_FLOPS,
                        max_abs_err=float(torch.where(
                            same, torch.abs(got[2] - want[2]), 0.0).max()))
@@ -765,27 +795,44 @@ def check_knn_packed(dev):
     pts = torch.randn(32, 4096, 3, generator=gen).to(dev)
     k = 16
     lb = packed_lane_bits(pts.shape[1])
-    step = 2.0 ** -(23 - lb)
 
-    def trunc(x):
-        return (x.contiguous().view(torch.int32) & ~((1 << lb) - 1)).view(
-            torch.float32)
+    def contract(kk, x):
+        """The kernel's distances are the exact kernel's truncated, bit for
+        bit, its indices move only at truncation ties, and against the
+        plain version it swaps only near-ties; returns (dists, idx,
+        truncation swaps, plain swaps, max |d| against the plain)."""
+        lbx = packed_lane_bits(x.shape[1])
+        step = 2.0 ** -(23 - lbx)
 
-    d, i = knn_packed_cuda(k, pts, pts)
-    ed, ei = knn_cuda(k + 1, pts, pts)
-    pd, pi = knn_packed_torch(k, pts, pts)
-    torch.cuda.synchronize()
-    te = trunc(ed)
-    require(torch.equal(d, te[..., :k]),
-            "knn_packed: distances are not the exact ones truncated")
-    tie = te[..., :k] == te[..., 1:]
-    tie[..., 1:] |= te[..., 1:k] == te[..., :k - 1]
-    trunc_swaps = int((i != ei[..., :k]).sum())
-    require(bool(torch.all((i == ei[..., :k]) | tie)),
-            "knn_packed: an index moved away from a truncation tie")
-    swaps = _near_tie_swaps("knn_packed", i, pi, pts, pts, None,
-                            2 * step + KNN_SWAP_RTOL)
-    max_abs = float(torch.abs(d - pd).max())
+        def trunc(y):
+            return (y.contiguous().view(torch.int32)
+                    & ~((1 << lbx) - 1)).view(torch.float32)
+
+        d, i = knn_packed_cuda(kk, x, x)
+        ed, ei = knn_cuda(kk + 1, x, x)
+        pd, pi = knn_packed_torch(kk, x, x)
+        torch.cuda.synchronize()
+        te = trunc(ed)
+        require(torch.equal(d, te[..., :kk]),
+                f"knn_packed k={kk}: distances are not the exact ones "
+                "truncated")
+        tie = te[..., :kk] == te[..., 1:]
+        tie[..., 1:] |= te[..., 1:kk] == te[..., :kk - 1]
+        require(bool(torch.all((i == ei[..., :kk]) | tie)),
+                f"knn_packed k={kk}: an index moved away from a truncation "
+                "tie")
+        swaps = _near_tie_swaps(f"knn_packed k={kk}", i, pi, x, x, None,
+                                2 * step + KNN_SWAP_RTOL)
+        return (d, i, int((i != ei[..., :kk]).sum()), swaps,
+                float(torch.abs(d - pd).max()))
+
+    # the tiled form at its edges (k 1 and 32) and the row form past it
+    for kk, x in ((1, pts), (32, pts), (33, pts[:2, :1024].contiguous())):
+        _, _, t_sw, p_sw, err = contract(kk, x)
+        log(f"knn_packed k={kk} (b={x.shape[0]} n=m={x.shape[1]}): "
+            f"distances = the kNN kernel's truncated; {t_sw} swaps at "
+            f"truncation ties; vs plain: swaps {p_sw}, max|d|err {err:.3e}")
+    d, i, trunc_swaps, swaps, max_abs = contract(k, pts)
     # the fixed-selection gradient through the kernel (knn_packed's
     # KnnFunction) against autograd of the plain distances at the kernel's
     # own indices: max |d| over each gradient's max |g|
@@ -817,6 +864,83 @@ def check_knn_packed(dev):
         f"vs plain: swaps {swaps}, max|d|err {max_abs:.3e}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk "
         f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                t_ops=ops / F32_FLOPS, max_abs_err=max_abs)
+
+
+def big_cloud(n: int, seed: int):
+    """An (n, 3) f32 cloud on a torus's surface (radii 1 and 0.35) with
+    noise, from a numpy seed: a scan-sized input for the patch cut."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    u, v = rs.uniform(0.0, 2.0 * np.pi, (2, n))
+    ring = 1.0 + 0.35 * np.cos(v)
+    pts = np.stack([ring * np.cos(u), ring * np.sin(u), 0.35 * np.sin(v)], 1)
+    return (pts + 0.002 * rs.randn(n, 3)).astype(np.float32)
+
+
+def check_knn_split(dev):
+    """The split row form (k > 32 past the row form's n): bit-equal to the
+    row form at n = 20,000 (three chunks, with points repeated across
+    chunks: exact ties between them), and the patch cut of a 60,000-point
+    cloud (k 256, 703 queries, one in 85 points) through the shape gate
+    ``knn_kernel_cuda`` against the plain version under ``check_knn``'s
+    contract.  The aggregate is that cut, one launch a 60,000-point
+    request."""
+    import torch
+
+    from dispu_tpu_torch.kernels.knn import (knn_cuda, knn_form,
+                                             knn_kernel_cuda, knn_split_cuda,
+                                             knn_torch, split_plan)
+    from dispu_tpu_torch.ops.geometry import normalize_point_cloud
+
+    k = 256
+    pts = normalize_point_cloud(torch.from_numpy(
+        big_cloud(20000, 3)).to(dev)[None])[0]
+    pts[:, 15000:15100] = pts[:, 100:200]
+    qs = pts[:, ::85].contiguous()
+    bias = torch.zeros(pts.shape[:2], device=dev)
+    bias[:, 7000:7300] = 1e30
+    for bb in (None, bias):
+        got = knn_split_cuda(k, pts, qs, bb)
+        want = knn_cuda(k, pts, qs, bb)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                "knn_split at n = 20,000: not the row form's bits")
+    chunk, chunks = split_plan(k, 20000, 3)
+    log(f"knn_split (n=20000 m={qs.shape[1]} k={k}, {chunks} chunks of "
+        f"{chunk}): bit-equal to the row form, with and without a bias")
+
+    n = 60000
+    pts = normalize_point_cloud(torch.from_numpy(
+        big_cloud(n, 11)).to(dev)[None])[0]
+    qs = pts[:, ::85][:, :703].contiguous()
+    require(knn_form(k, n, 3) == "split", "knn_split: form at n = 60,000")
+    dk, ik = knn_kernel_cuda(k, pts, qs)
+    dp, ip = knn_torch(k, pts, qs)
+    torch.cuda.synchronize()
+    swaps = _near_tie_swaps("knn_split", ik, ip, pts, qs, None,
+                            KNN_SWAP_RTOL)
+    scale = 2.0 * float(torch.amax(torch.sum(pts * pts, -1)))
+    dist_err = float((torch.abs(dk - dp) / (torch.abs(dp) + scale)).max())
+    require(dist_err <= KNN_DIST_RTOL, f"knn_split: distance error "
+            f"{dist_err}")
+    max_abs = float(torch.abs(dk - dp).max())
+    m = qs.shape[1]
+    ms = timed_ms(lambda: knn_split_cuda(k, pts, qs), reps=5)
+    plain_ms = timed_ms(lambda: knn_torch(k, pts, qs), reps=3)
+    library_ms = timed_ms(lambda: torch.topk(
+        torch.cdist(qs, pts) ** 2, k, dim=-1, largest=False), reps=3)
+    nbytes = 4 * (n * 3 + m * 3) + 8 * m * k
+    ops = m * n * (2 * 3 + 4)
+    bms, by = bound(nbytes, ops, F32_FLOPS)
+    chunk, chunks = split_plan(k, n, 3)
+    log(f"knn_split patch cut (n={n} m={m} k={k}, {chunks} chunks of "
+        f"{chunk}): max|d|err {max_abs:.3e} rel {dist_err:.2e}, swaps "
+        f"{swaps}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"cdist+topk {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
                 t_ops=ops / F32_FLOPS, max_abs_err=max_abs)
@@ -1218,39 +1342,51 @@ def check_refine_block(dev):
 # --------------------------------------------------------------- phase 4
 
 
-def refine_route(g, points: int) -> str:
-    """The refiner's local-branch route at inference for ``points`` a
-    patch, by the JAX package's gates (``dispu_tpu/nn/refine.py``):
-    'megafused' and 'fused' need no batch norm and a three-layer
-    ``refine_mlp``; 'megafused' also the local branch and k ≤ 16, 'fused'
-    points % 128 == 0; otherwise 'xla'."""
+def refine_route(g, points: int, cf: int):
+    """(the refiner's local-branch route at inference for ``points`` a
+    patch and grouped rows of ``cf`` floats, whether 'megafused' fell back
+    past its kernel) by the JAX package's gates
+    (``dispu_tpu/nn/refine.py``): 'megafused' and 'fused' need no batch
+    norm and a three-layer ``refine_mlp``; 'megafused' also the local
+    branch and k ≤ 16, 'fused' points % 128 == 0; otherwise 'xla'.  On
+    the card 'megafused' past ``refine_block.cu``'s shared memory
+    (``block_fits``) takes 'fused' where points % 128 == 0, else 'xla',
+    grouping by the exact kNN."""
+    from dispu_tpu_torch.kernels.refine_block import block_fits
+
     fusable = not g.use_bn and len(g.refine_mlp) == 3
     if (g.refine_local_impl == "megafused" and fusable and g.use_local
             and g.refine_nsample <= 16):
-        return "megafused"
+        if block_fits(points, g.refine_nsample, cf, *g.refine_mlp):
+            return "megafused", False
+        return ("fused" if points % 128 == 0 else "xla"), True
     if g.refine_local_impl == "fused" and fusable and points % 128 == 0:
-        return "fused"
-    return "xla"
+        return "fused", False
+    return "xla", False
 
 
 def expected_counts(up, n: int, b: int = 1) -> dict:
     """Kernel launches of one call of ``up``'s path on b clouds of n points,
     from ``plan_counts`` and the JAX package's shape gates: one seed FPS
-    and one patch kNN for all b clouds; per chunk of patches and pass, one
-    attention and a kNN in each dense block and in the refiner, each in
-    the kernel its gate picks (the fused kNN + gather at n ≤ 2048 with
-    ``fused_grouping``, else the packed selection at 64 ≤ n ≤ 4096 with
-    ``fast_knn``, else the exact kNN); the refiner's 'fused' route adds
-    ``refine_local`` to its kNN, its 'megafused' route replaces the kNN by
-    ``refine_block`` (``refine_route``); one merge FPS, bucketed or in the
-    kernel that takes its candidates."""
+    and one patch kNN for all b clouds (the split row form past the row
+    form's n); per chunk of patches and pass, one attention and a kNN in
+    each dense block and in the refiner, each in the kernel its gate picks
+    (the fused kNN + gather at n ≤ 2048 with ``fused_grouping``, else the
+    packed selection at 64 ≤ n ≤ 4096 with ``fast_knn``, else the exact
+    kNN); the refiner's 'fused' route adds ``refine_local`` to its kNN,
+    its 'megafused' route replaces the kNN by ``refine_block``
+    (``refine_route``; past that kernel's limit the exact kNN and
+    ``refine_local`` or the composed branch); one merge FPS, bucketed or
+    in the kernel that takes its candidates."""
     from dispu_tpu_torch import kernels
     from dispu_tpu_torch.inference import plan_counts
+    from dispu_tpu_torch.kernels.knn import knn_form
     from dispu_tpu_torch.ops.sampling import fps_kernel_for
 
     g, inf = up.gen_cfg, up.inf_cfg
     seed_num, out_num = plan_counts(n, inf)
     chunks = -(-b * seed_num // inf.patch_batch)
+    cf = up.model.PointShuffle.skip.dense.weight.shape[1] if g.refine else 0
 
     def knn_kernel(points, fused_low, k):
         if g.fused_grouping and fused_low <= points <= 2048:
@@ -1260,16 +1396,20 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
         return "knn"
 
     counts = dict.fromkeys(kernels.LAUNCHES, 0)
-    counts.update(knn=1, fps=1)
+    counts[fps_kernel_for(n)] += 1
+    split = knn_form(inf.patch_num_point, n, 3) == "split"
+    counts["knn_split" if split else "knn"] += 1
     points = inf.patch_num_point
     for _ in range(up.num_passes):
         # the backbone's gate (edge_parts) starts at 64 points, the
         # refiner's (grouping) at 1
         counts[knn_kernel(points, 64, g.knn + 1)] += g.dense_block * chunks
         points *= g.up_ratio
-        route = refine_route(g, points)
+        route, past_block = refine_route(g, points, cf)
         if route == "megafused":
             counts["refine_block"] += chunks
+        elif past_block:  # over 2048 points: no fused grouping kernel
+            counts["knn"] += chunks
         else:
             counts[knn_kernel(points, 1, g.refine_nsample)] += chunks
         if route == "fused":
@@ -1722,6 +1862,66 @@ def serve_refine(card: str):
             "turns: " + "; ".join(f"{name} {', '.join('%.2f' % t for t in ts)}"
                                   for name, ts in laps.items())
             + f"; on {card}")
+    return total
+
+
+def serve_large(card: str):
+    """Past two kernels' limits, at full width from the port's seeded
+    init.  A 4× request on a 60,000-point cloud (``big_cloud``): the
+    seed FPS and the patch cut (k 256 over 60,000 points: the split row
+    form) of 703 patches, 22 generator chunks, the merge of 719,872
+    candidates to 240,000 points in ``fps_chunked.cu``'s device-memory
+    form; twice, finite, the right shape, bit-equal, with exact launch
+    counts.  Then 'megafused' at ``patch_num_point`` 512 and 16× on
+    demo/gt/Icosahedron.xyz: pass 1's refiner (2,048 points) in
+    ``refine_block``, pass 2's (8,192, past its shared memory) by the
+    'fused' route; twice, with exact launch counts, bit-equal, and within
+    'megafused''s 16× contract: Chamfer against the composed
+    ``fast_gather`` path through the kernels ≤ ``CHAMFER_MAX[16]``."""
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import GeneratorConfig, InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+
+    total = {}
+    cases = [("4x, 60,000 points", PatchUpsampler(seed=0),
+              big_cloud(60000, 11), None),
+             ("megafused 16x, patch 512", PatchUpsampler(
+                 gen_cfg=GeneratorConfig(refine_local_impl="megafused"),
+                 inf_cfg=InferenceConfig(patch_num_point=512,
+                                         final_ratio=16), seed=0),
+              load_cloud("Icosahedron.xyz"), GeneratorConfig(
+                  fast_gather=True))]
+    for label, up, pc, ref_cfg in cases:
+        n = pc.shape[0]
+        ratio = up.inf_cfg.final_ratio
+        expected = add_counts({}, expected_counts(up, n), 2)
+        kernels.reset_launch_counts()
+        outs, laps = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(up.upsample(pc))
+            laps.append((time.perf_counter() - t0) * 1e3)
+            require(outs[-1].shape == (n * ratio, 3)
+                    and np.isfinite(outs[-1]).all(),
+                    f"{label}: shape or values")
+        counts = kernels.launch_counts()
+        log(f"{label}: launches over 2 requests: {counts} (expected "
+            f"{expected}); ms per request {', '.join('%.1f' % t for t in laps)}"
+            f" on {card}")
+        require(counts == expected, f"{label}: launch counts {counts}")
+        require(np.array_equal(outs[0], outs[1]),
+                f"{label}: repeated request differs")
+        total = add_counts(total, counts)
+        if ref_cfg is not None:
+            ref = PatchUpsampler(gen_cfg=ref_cfg, inf_cfg=up.inf_cfg, seed=0)
+            with torch.inference_mode():
+                cd = chamfer(outs[0], ref.upsample(pc))
+            log(f"{label}: Chamfer against the composed fast_gather path "
+                f"through the kernels {cd:.3e} (bound {CHAMFER_MAX[ratio]})")
+            require(cd <= CHAMFER_MAX[ratio], f"{label}: Chamfer {cd}")
     return total
 
 
@@ -2534,7 +2734,8 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # phase 3
-    aggs = {"knn": check_knn(dev), "knn_packed": check_knn_packed(dev),
+    aggs = {"knn": check_knn(dev), "knn_split": check_knn_split(dev),
+            "knn_packed": check_knn_packed(dev),
             "knn_group": check_knn_group(dev), "fps": check_fps(dev),
             "fps_chunked": check_fps_chunked(dev),
             "fps_bucketed": check_fps_bucketed(dev),
@@ -2562,6 +2763,7 @@ def main() -> int:
     counts = add_counts(counts, serve_stream(card))
     counts = add_counts(counts, serve_turbo(card))
     counts = add_counts(counts, serve_refine(card))
+    counts = add_counts(counts, serve_large(card))
     counts = add_counts(counts, train_phase(card, args.profile))
     cli_phase(card, os.path.join(REPO, "chiprun_out", "train_smoke"))
     gan_counts, gan_dir = gan_phase(card, args.profile)
@@ -2591,7 +2793,8 @@ def main() -> int:
 
     # phase 5: ms, plain_ms, bound_ms and library_ms are per 2048-point
     # request: a 4x request for knn, fps and attention, a 16x request for
-    # fps_chunked (its one launch there); a 4x turbo request for knn_group
+    # fps_chunked (its one launch there), a 4x request on a 60,000-point
+    # cloud for knn_split (the patch cut); a 4x turbo request for knn_group
     # and fps_bucketed, a 16x turbo request for knn_packed (its one launch
     # there); per train step for query_ball, and for gather_rows and
     # scatter_rows with gather_impl='pallas' (five launches each;
@@ -2602,6 +2805,9 @@ def main() -> int:
     meta = {
         "knn": ("dispu_tpu_torch/kernels/csrc/knn.cu",
                 "dispu_tpu/ops/pallas_kernels.py:867"),
+        "knn_split": ("dispu_tpu_torch/kernels/csrc/knn.cu",
+                      "dispu_tpu/ops/pallas_kernels.py:867 (past its "
+                      "gate, XLA's top_k: dispu_tpu/ops/knn.py:83)"),
         "knn_packed": ("dispu_tpu_torch/kernels/csrc/knn.cu",
                        "dispu_tpu/ops/pallas_kernels.py:867 (variant "
                        "packed, :744)"),

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 #: launches of each kernel since the last :func:`reset_launch_counts`;
 #: a wrapper adds one exactly where it launches its kernel
-LAUNCHES = {"knn": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
+LAUNCHES = {"knn": 0, "knn_split": 0, "knn_packed": 0, "knn_group": 0,
+            "fps": 0,
             "fps_lite": 0, "fps_chunked": 0, "fps_bucketed": 0,
             "attention": 0, "query_ball": 0, "gather_rows": 0,
             "scatter_rows": 0, "refine_local": 0, "refine_block": 0}

@@ -1,6 +1,7 @@
 // The distance and selection code shared by knn.cu, knn_group.cu and
 // refine_block.cu, so that the three return the same bits for the same
-// inputs (knn_group_pallas's contract: its dists and idx are knn_pallas's).
+// inputs (knn_group_pallas's contract: its dists and idx are knn_pallas's);
+// query_ball.cu streams its cloud through the same tiles (stream_tiles).
 //
 // Every distance keeps the JAX association max((q2 - 2 q.p) + p2, 0) +
 // bias[j], with q2, q.p and p2 each one fmaf chain over the coordinates
@@ -43,6 +44,14 @@
 //   shared memory, and a branch-free pass over a tile's distances before
 //   the ballots each needed more registers, fewer blocks an SM, and lost
 //   at 1,024 and 4,096 points.
+//   The tiled form takes its order as a template parameter: ExactOrder, the
+//   (distance, index) pairs above, or PackedOrder, knn.cu's packed (turbo)
+//   selection, whose list holds one int key a pair, (bits(d) & ~lmask) | j,
+//   compared as ints.  ExactOrder's key is the index itself, so the exact
+//   form's code and bits are those it had before the order was a parameter.
+// - the split row form (knn.cu, k > kStreamK past the row form's n): the
+//   row form over chunks of the row, each chunk's k best written out, then
+//   the row form over those candidates.
 
 #pragma once
 
@@ -175,11 +184,46 @@ __device__ __forceinline__ bool admits(float d, int j, float td, int tj) {
   return d < __int_as_float(0x7f800000) && lex_less(d, j, td, tj);
 }
 
+// The orders of the tiled form's lists.  A list entry is (v, i): v the
+// pair's distance, i its key(d, j, n) for point j of n.  An unfilled entry
+// is (+inf, INT_MAX).
+struct ExactOrder {  // (distance, index); +inf never admitted
+  __device__ __forceinline__ int key(float, int j, int) const { return j; }
+  __device__ __forceinline__ bool less(float v, int i, float ov,
+                                       int oi) const {
+    return lex_less(v, i, ov, oi);
+  }
+  __device__ __forceinline__ bool admits(float d, int i, float td,
+                                         int ti) const {
+    return knn_common::admits(d, i, td, ti);
+  }
+};
+
+// The packed selection's int keys: distinct, so their int order is total.
+// A +inf or NaN distance is a key like any other, as in knn_pallas's int
+// order; a point past n (a tile's padding) gets INT_MAX, which is never
+// admitted, and so is a negative key (a negative bias), as in the row form.
+struct PackedOrder {
+  int lmask;
+  __device__ __forceinline__ int key(float d, int j, int n) const {
+    return j < n ? (__float_as_int(d) & ~lmask) | j : INT_MAX;
+  }
+  __device__ __forceinline__ bool less(float, int i, float, int oi) const {
+    return i < oi;
+  }
+  __device__ __forceinline__ bool admits(float, int i, float,
+                                         int ti) const {
+    return i >= 0 && i < ti;
+  }
+};
+
 // Insert (cd, cj), absent from the list, into the warp's sorted list (lane
 // r holds rank r): the ranks below it stay, the rest move up one lane.
+template <class Order = ExactOrder>
 __device__ __forceinline__ void insert(float& ld, int& lj, float cd, int cj,
-                                       int lane) {
-  const int pos = __popc(__ballot_sync(kFull, lex_less(ld, lj, cd, cj)));
+                                       int lane, Order order = Order()) {
+  const int pos =
+      __popc(__ballot_sync(kFull, order.less(ld, lj, cd, cj)));
   const float ud = __shfl_up_sync(kFull, ld, 1);
   const int uj = __shfl_up_sync(kFull, lj, 1);
   if (lane == pos) {
@@ -191,24 +235,27 @@ __device__ __forceinline__ void insert(float& ld, int& lj, float cd, int cj,
   }
 }
 
-// The K <= kStreamK smallest (distance, index) pairs of each of the
-// block's queries, which are kTQ rows of the cloud's m starting at q0;
-// calls emit(q, d, j) once a valid query q, warp-uniformly, with lane r
-// holding rank r (ranks past the filled ones (+inf, INT_MAX)).  Must be
-// called by all kTileThreads threads of the block.
+// The tiled stream: the block's kTQ queries (rows q0 .. of the cloud's m)
+// against every point of the cloud, tile by tile.  For each tile g of a
+// load, calls visit(g, p0, acc, q2) with the tile's first point p0,
+// acc[i][r] = q.p of this warp's query i and point p0 + lane + 32 r, and
+// q2[i] = |q|^2 (each an fmaf chain over ascending coordinates from 0);
+// sm.p2[g][col] holds the tile's |p|^2 and, with bs non-null, sm.bias[g]
+// its column bias.  Must be called by all kTileThreads threads of the
+// block.  With kStop, the stream ends after the first load at which
+// done() holds in every thread.
 //
 // A load brings G = kG tiles of kTP points where their coordinates fit
 // kCC rows (c <= 15), else one, so that at small c one barrier serves kG
 // tiles; past kCC coordinates a tile comes in chunks of kCC, the products
 // and p2 accumulating over the chunks in order.
-template <class Emit>
-__device__ __forceinline__ void stream_topk(TileSmem& sm,
-                                            const float* __restrict__ pts,
-                                            const float* __restrict__ qry,
-                                            const float* __restrict__ bs,
-                                            int n, int m, int c, int q0,
-                                            int K, Emit emit) {
-  const float inf = __int_as_float(0x7f800000);
+template <bool kStop, class Visit, class Done>
+__device__ __forceinline__ void stream_tiles(TileSmem& sm,
+                                             const float* __restrict__ pts,
+                                             const float* __restrict__ qry,
+                                             const float* __restrict__ bs,
+                                             int n, int m, int c, int q0,
+                                             Visit visit, Done done) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -225,14 +272,6 @@ __device__ __forceinline__ void stream_topk(TileSmem& sm,
     }
 #pragma unroll
     for (int i = 0; i < kRQ; ++i) q2[i] = __shfl_sync(kFull, s, i);
-  }
-  // each query's list (lane r holds rank r)
-  float ld[kRQ];
-  int lj[kRQ];
-#pragma unroll
-  for (int i = 0; i < kRQ; ++i) {
-    ld[i] = inf;
-    lj[i] = INT_MAX;
   }
   float acc[kRQ][kRP];
   // acc += the products over coordinate rows [row, row + cc) of sm.p
@@ -270,7 +309,7 @@ __device__ __forceinline__ void stream_topk(TileSmem& sm,
       if (l0 == 0 || c > kCC)
         load_rows<kTQ>(&sm.q[0][0], kTQ + 4, qry, q0, kTQ, m, c, c0, cc,
                        tid);
-      if (c0 == 0)
+      if (c0 == 0 && bs != nullptr)
         for (int p = tid; p < G * kTP; p += kTileThreads)
           sm.bias[p / kTP][p % kTP] = l0 + p < n ? bs[l0 + p] : 0.f;
       __syncthreads();
@@ -293,59 +332,94 @@ __device__ __forceinline__ void stream_topk(TileSmem& sm,
         clear();
         accumulate(g * c, c);
       }
-      float pp2[kRP], pb[kRP];
+      visit(g, p0, acc, q2);
+    }
+    if (kStop && __syncthreads_and(done())) break;
+  }
+}
+
+// The K <= kStreamK smallest entries, in ``order``, of each of the
+// block's queries, which are kTQ rows of the cloud's m starting at q0;
+// calls emit(q, v, i) once a valid query q, warp-uniformly, with lane r
+// holding rank r (ranks past the filled ones (+inf, INT_MAX)).  Must be
+// called by all kTileThreads threads of the block.
+template <class Emit, class Order = ExactOrder>
+__device__ __forceinline__ void stream_topk(TileSmem& sm,
+                                            const float* __restrict__ pts,
+                                            const float* __restrict__ qry,
+                                            const float* __restrict__ bs,
+                                            int n, int m, int c, int q0,
+                                            int K, Emit emit,
+                                            Order order = Order()) {
+  const float inf = __int_as_float(0x7f800000);
+  const int lane = threadIdx.x & 31;
+  const int qw = q0 + (threadIdx.x >> 5) * kRQ;  // this warp's first query
+  // each query's list (lane r holds rank r)
+  float ld[kRQ];
+  int lj[kRQ];
 #pragma unroll
-      for (int r = 0; r < kRP; ++r) {
-        pp2[r] = sm.p2[g][lane + 32 * r];
-        pb[r] = sm.bias[g][lane + 32 * r];
-      }
-      // pair (query i, point p0 + lane + 32 r)'s distance
-      auto dist = [&](int i, int r) {
-        const float e =
-            __fadd_rn(__fsub_rn(q2[i], __fmul_rn(2.f, acc[i][r])), pp2[r]);
-        return p0 + lane + 32 * r < n ? __fadd_rn(fmaxf(e, 0.f), pb[r])
-                                      : inf;
-      };
+  for (int i = 0; i < kRQ; ++i) {
+    ld[i] = inf;
+    lj[i] = INT_MAX;
+  }
+  stream_tiles<false>(
+      sm, pts, qry, bs, n, m, c, q0,
+      [&](int g, int p0, const float(&acc)[kRQ][kRP],
+          const float(&q2)[kRQ]) {
+        float pp2[kRP], pb[kRP];
 #pragma unroll
-      for (int i = 0; i < kRQ; ++i) {
-        if (qw + i >= m) break;  // warp-uniform
-        if (K == 1) {  // each lane keeps the least of its pairs
+        for (int r = 0; r < kRP; ++r) {
+          pp2[r] = sm.p2[g][lane + 32 * r];
+          pb[r] = sm.bias[g][lane + 32 * r];
+        }
+        // pair (query i, point p0 + lane + 32 r)'s distance
+        auto dist = [&](int i, int r) {
+          const float e =
+              __fadd_rn(__fsub_rn(q2[i], __fmul_rn(2.f, acc[i][r])), pp2[r]);
+          return p0 + lane + 32 * r < n ? __fadd_rn(fmaxf(e, 0.f), pb[r])
+                                        : inf;
+        };
+#pragma unroll
+        for (int i = 0; i < kRQ; ++i) {
+          if (qw + i >= m) break;  // warp-uniform
+          if (K == 1) {  // each lane keeps the least of its pairs
+#pragma unroll
+            for (int r = 0; r < kRP; ++r) {
+              const float d = dist(i, r);
+              const int j = order.key(d, p0 + lane + 32 * r, n);
+              if (order.admits(d, j, ld[i], lj[i])) {
+                ld[i] = d;
+                lj[i] = j;
+              }
+            }
+            continue;
+          }
+          // the threshold: rank K - 1, in every lane
+          float td = __shfl_sync(kFull, ld[i], K - 1);
+          int tj = __shfl_sync(kFull, lj[i], K - 1);
 #pragma unroll
           for (int r = 0; r < kRP; ++r) {
             const float d = dist(i, r);
-            const int j = p0 + lane + 32 * r;
-            if (admits(d, j, ld[i], lj[i])) {
-              ld[i] = d;
-              lj[i] = j;
-            }
+            const int j = order.key(d, p0 + lane + 32 * r, n);
+            // Every pair of the column that passes the threshold goes in,
+            // one at a time, without waiting for the threshold each
+            // insertion moves: a pair that ends up past rank K only
+            // reorders lanes no one reads.
+            unsigned mask =
+                __ballot_sync(kFull, order.admits(d, j, td, tj));
+            if (mask == 0) continue;
+            do {
+              const int src = __ffs(mask) - 1;
+              mask &= mask - 1;
+              insert(ld[i], lj[i], __shfl_sync(kFull, d, src),
+                     __shfl_sync(kFull, j, src), lane, order);
+            } while (mask);
+            td = __shfl_sync(kFull, ld[i], K - 1);
+            tj = __shfl_sync(kFull, lj[i], K - 1);
           }
-          continue;
         }
-        // the threshold: rank K - 1, in every lane
-        float td = __shfl_sync(kFull, ld[i], K - 1);
-        int tj = __shfl_sync(kFull, lj[i], K - 1);
-#pragma unroll
-        for (int r = 0; r < kRP; ++r) {
-          const int j = p0 + lane + 32 * r;
-          const float d = dist(i, r);
-          // Every pair of the column that passes the threshold goes in,
-          // one at a time, without waiting for the threshold each
-          // insertion moves: a pair that ends up past rank K only
-          // reorders lanes no one reads.
-          unsigned mask = __ballot_sync(kFull, admits(d, j, td, tj));
-          if (mask == 0) continue;
-          do {
-            const int src = __ffs(mask) - 1;
-            mask &= mask - 1;
-            insert(ld[i], lj[i], __shfl_sync(kFull, d, src),
-                   __shfl_sync(kFull, j, src), lane);
-          } while (mask);
-          td = __shfl_sync(kFull, ld[i], K - 1);
-          tj = __shfl_sync(kFull, lj[i], K - 1);
-        }
-      }
-    }
-  }
+      },
+      [] { return false; });
   if (K == 1) {  // the least of the lanes' own, in every lane
 #pragma unroll
     for (int i = 0; i < kRQ; ++i)
@@ -353,7 +427,7 @@ __device__ __forceinline__ void stream_topk(TileSmem& sm,
       for (int off = 16; off > 0; off >>= 1) {
         const float od = __shfl_xor_sync(kFull, ld[i], off);
         const int oj = __shfl_xor_sync(kFull, lj[i], off);
-        if (lex_less(od, oj, ld[i], lj[i])) {
+        if (order.less(od, oj, ld[i], lj[i])) {
           ld[i] = od;
           lj[i] = oj;
         }

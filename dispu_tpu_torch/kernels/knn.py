@@ -1,18 +1,20 @@
 """kNN kernels (``csrc/knn.cu``) and their plain PyTorch versions.
 
 Replaces ``knn_pallas`` (``dispu_tpu/ops/pallas_kernels.py``): the exact
-selection (:func:`knn`, count ``LAUNCHES["knn"]``) and the packed-key turbo
-selection of ``variant="packed"`` (:func:`knn_packed`, count
-``LAUNCHES["knn_packed"]``).  For k <= :data:`MAX_STREAM_K` the exact
-kernel streams each cloud through shared memory in coalesced tiles, with
-a register tile of queries by points a thread, and keeps each query's k
-best in registers (any n); it is bound by the distances' f32 FMAs and the
-selection's compares.  Beyond that k, and for the packed selection, one
-warp per query keeps the query's distance row in shared memory and takes
-k rounds over it (n + c <= :data:`MAX_ROW_FLOATS`).  See the note at the
-top of the source.  :func:`knn` is differentiable through
-:class:`KnnFunction`, which carries ``knn_pallas_diff``'s backward rule
-in torch ops; so is :func:`knn_packed`, by the same rule.
+selection (:func:`knn`, count ``LAUNCHES["knn"]``, and past the row form's
+n ``LAUNCHES["knn_split"]``) and the packed-key turbo selection of
+``variant="packed"`` (:func:`knn_packed`, count ``LAUNCHES["knn_packed"]``).
+For k <= :data:`MAX_STREAM_K` both kernels stream each cloud through
+shared memory in coalesced tiles, with a register tile of queries by
+points a thread, and keep each query's k best in registers (any n); they
+are bound by the distances' f32 FMAs and the selection's compares.  Beyond
+that k one warp per query keeps the query's distance row in shared memory
+and takes k rounds over it (n + c <= :data:`MAX_ROW_FLOATS`); past that n
+the exact selection splits the row into chunks (:func:`knn_split_cuda`),
+which :func:`knn_kernel_cuda` picks by shape.  See the note at the top of
+the source.  :func:`knn` is differentiable through :class:`KnnFunction`,
+which carries ``knn_pallas_diff``'s backward rule in torch ops; so is
+:func:`knn_packed`, by the same rule.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
 
 #: the largest k of the tiled form, which takes any n
 MAX_STREAM_K = 32
-#: beyond it, and for the packed selection, one query's distance row plus
-#: the query, in floats, must fit one block's shared memory (232,448
-#: bytes on Hopper)
+#: beyond it the row form's one query's distance row plus the query, in
+#: floats, must fit one block's shared memory (232,448 bytes on Hopper);
+#: so must the split form's chunk rows and its merge's candidate row
 MAX_ROW_FLOATS = 232448 // 4
+#: warps a block of the row forms holds at most (``kMaxWarps``)
+ROW_WARPS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,9 +80,52 @@ def _check(k, points, queries, bias, row_form):
         )
 
 
+def knn_form(k: int, n: int, c: int) -> str:
+    """The exact kernel's form for k neighbours among n points of c
+    coordinates: 'tiled' (k <= :data:`MAX_STREAM_K`, any n), 'row' (the
+    row fits a block's shared memory) or 'split'."""
+    if k <= MAX_STREAM_K:
+        return "tiled"
+    return "row" if n + c <= MAX_ROW_FLOATS else "split"
+
+
+def split_chunk(c: int) -> int:
+    """The split form's chunk of points: as many, in multiples of 32, as
+    let :data:`ROW_WARPS` rows of chunk + c floats fill one block's
+    shared memory (7,232 at c = 3)."""
+    return max(32, (MAX_ROW_FLOATS // ROW_WARPS - c) // 32 * 32)
+
+
+def split_plan(k: int, n: int, c: int, chunk: int | None = None):
+    """(chunk, chunks) of the split form; raises ``ValueError`` where a
+    chunk's row or the merge's row of k · chunks candidates does not fit
+    one block's shared memory."""
+    chunk = split_chunk(c) if chunk is None else chunk
+    chunks = -(-n // chunk)
+    if chunk < 1 or chunk + c > MAX_ROW_FLOATS \
+            or k * chunks > MAX_ROW_FLOATS:
+        raise ValueError(
+            f"knn split form at k={k}, n={n}, c={c}: chunks of {chunk} + c "
+            f"floats and the merge's {k} x {chunks} candidates must each "
+            f"fit {MAX_ROW_FLOATS} floats of shared memory")
+    return chunk, chunks
+
+
+def knn_kernel_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
+                    bias: torch.Tensor | None = None):
+    """The exact selection on the card: :func:`knn_split_cuda` exactly
+    where :func:`knn_form` says the row form does not fit, else
+    :func:`knn_cuda`.  A shape gate: both return the same bits wherever
+    both run."""
+    if points.dim() == 3 and knn_form(k, *points.shape[1:]) == "split":
+        return knn_split_cuda(k, points, queries, bias)
+    return knn_cuda(k, points, queries, bias)
+
+
 def knn_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
              bias: torch.Tensor | None = None):
-    """Launch the kernel.  Same contract as :func:`knn_torch`."""
+    """Launch the kernel (the tiled or the row form).  Same contract as
+    :func:`knn_torch`; raises ``ValueError`` past the row form's n."""
     from dispu_tpu_torch.kernels import _build
 
     _check(k, points, queries, bias, row_form=k > MAX_STREAM_K)
@@ -97,6 +144,40 @@ def knn_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
                     dists.data_ptr(), idx.data_ptr(), b, n, m, c, k, stream)
     _build.check(status, "knn kernel launch")
     LAUNCHES["knn"] += 1
+    return dists, idx
+
+
+def knn_split_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
+                   bias: torch.Tensor | None = None,
+                   chunk: int | None = None):
+    """Launch the split row form (``chunk`` points a chunk, by default
+    :func:`split_chunk`): the row form's bits at any n that
+    :func:`split_plan` admits.  Same contract as :func:`knn_torch`."""
+    from dispu_tpu_torch.kernels import _build
+
+    _check(k, points, queries, bias, row_form=False)
+    b, n, c = points.shape
+    m = queries.shape[1]
+    chunk, chunks = split_plan(k, n, c, chunk)
+    dev = points.device
+    if bias is None:
+        bias = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    cand_d = torch.empty((b * m * chunks * k,), dtype=torch.float32,
+                         device=dev)
+    cand_j = torch.empty((b * m * chunks * k,), dtype=torch.int32,
+                         device=dev)
+    dists = torch.empty((b, m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, m, k), dtype=torch.int32, device=dev)
+    fn = _build.load("knn").dispu_knn_split
+    fn.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    fn.restype = _I
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(points.data_ptr(), queries.data_ptr(), bias.data_ptr(),
+                    cand_d.data_ptr(), cand_j.data_ptr(), dists.data_ptr(),
+                    idx.data_ptr(), b, n, m, c, k, chunk, stream)
+    _build.check(status, "knn split kernel launch")
+    LAUNCHES["knn_split"] += 1
     return dists, idx
 
 
@@ -130,7 +211,7 @@ class KnnFunction(torch.autograd.Function):
         if packed:
             run = knn_packed_cuda if use_cuda else knn_packed_torch
         else:
-            run = knn_cuda if use_cuda else knn_torch
+            run = knn_kernel_cuda if use_cuda else knn_torch
         dists, idx = run(k, points, queries, bias)
         ctx.save_for_backward(points, queries, idx)
         ctx.mark_non_differentiable(idx)
@@ -186,10 +267,11 @@ def knn_packed_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
 def knn_packed_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
                     bias: torch.Tensor | None = None):
     """Launch the packed kernel.  Same contract as
-    :func:`knn_packed_torch`; its row in shared memory at every k."""
+    :func:`knn_packed_torch`; the tiled form for k <= ``MAX_STREAM_K``,
+    beyond it the row form, which refuses n + c > ``MAX_ROW_FLOATS``."""
     from dispu_tpu_torch.kernels import _build
 
-    _check(k, points, queries, bias, row_form=True)
+    _check(k, points, queries, bias, row_form=k > MAX_STREAM_K)
     b, n, c = points.shape
     m = queries.shape[1]
     if bias is None:

@@ -4,9 +4,11 @@
 serving and training paths, with :func:`knn_inputs` and
 :func:`knn_group_inputs` to make their inputs from a seed;
 ``GATHER_CASES`` are the gather pair's shapes in a train step at batch 28
-with ``gather_impl='pallas'``; ``REFINE_CASES`` are the fused refiner
-kernels' two passes, with :func:`refine_params`, :func:`refine_ops` and
-:func:`refine_chain`; :func:`device_ms` is the device time of the
+with ``gather_impl='pallas'``; ``BALL_CASES`` the ball query's in a CD and
+a GAN step, with :func:`ball_inputs`; ``REFINE_CASES`` are the fused
+refiner kernels' two passes, with :func:`refine_params`,
+:func:`refine_ops` and :func:`refine_chain`; :func:`device_ms` is the
+device time of the
 kernels a call launches, from a ``torch.profiler`` trace.  Importing this
 module needs only ``torch``; ``time_fps`` also loads it by path into a
 checkout of another commit.
@@ -14,6 +16,7 @@ checkout of another commit.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -160,6 +163,50 @@ def gather_inputs(gen: torch.Generator, n: int, c: int, per_point: int,
                         dtype=torch.int32)
     idx[:, ::per_point] = torch.arange(n, dtype=torch.int32)  # self rows
     return table, idx
+
+
+class BallCase(NamedTuple):
+    """One ball-query launch: ``b`` clouds of ``n`` points in ``c``
+    dimensions, ``m`` queries each (every ``n // m``-th point), ``radius``,
+    ``nsample`` slots, ``select`` of them chosen in the kernel;
+    ``per_cd_step`` / ``per_gan_step``: launches in a CD / GAN train step
+    at batch 28 (``cli.build_config`` of ``--phase train --use_gan
+    true``)."""
+    label: str
+    b: int
+    n: int
+    m: int
+    c: int
+    radius: float
+    nsample: int
+    select: int
+    per_cd_step: int
+    per_gan_step: int
+
+
+#: the repulsion loss (every point a query), the critic's ball grouping
+#: at its widest scale (``DiscriminatorConfig(knn=False)``: 128 seeds,
+#: nsample 64; no default path), and the ``uniform`` metric's five disks
+#: (51 seeds, nsample max(int(1024 p), 2), radius sqrt(p))
+BALL_CASES = [
+    BallCase("repulsion", 28, 1024, 1024, 3, 0.07, 20, 5, 1, 1),
+    BallCase("critic ball", 28, 1024, 128, 3, 0.4, 64, 5, 0, 0),
+    *(BallCase(f"uniform {p:.3f}", 28, 1024, 51, 3, math.sqrt(p),
+               max(int(1024 * p), 2), 0, 0, 1)
+      for p in (0.004, 0.006, 0.008, 0.010, 0.012)),
+]
+
+
+def ball_inputs(gen: torch.Generator, case: BallCase):
+    """(points, queries) of the case on the CPU: points on a sphere's
+    surface with noise (a patch's density at r 0.07), the last 50 points
+    repeating 50 earlier ones (tied distances), the queries every
+    ``n // m``-th point."""
+    x = torch.randn(case.b, case.n, case.c, generator=gen)
+    x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    x = x + 0.01 * torch.randn(x.shape, generator=gen)
+    x[:, -50:] = x[:, 100:150]
+    return x.contiguous(), x[:, ::case.n // case.m][:, :case.m].contiguous()
 
 
 class RefineCase(NamedTuple):

@@ -7,14 +7,20 @@ first ``nsample`` dataset points, in index order, strictly inside a radius
 slot's squared distance (pad slots repeat the first hit's, an empty ball
 gives 0) and the indices of the ``select_smallest`` nearest slots, ties to
 the lower slot.  Indices and distances carry no gradient.  On an H100 the
-kernel is bound by its scan of the points (one warp a query, stopping at
-the ``nsample``-th hit); see the note at the top of the source.
+kernel is bound by its scan of the points: the kNN kernels' tiled stream
+(``csrc/knn_common.cuh``), a block of 32 queries stopping once all hold
+``nsample`` hits; see the note at the top of the source.  A Python
+or numpy scalar radius is squared in f32 on the host and passed by value
+(:func:`host_radius_sq`), so the call makes no host-to-device copy and no
+synchronization.
 """
 
 from __future__ import annotations
 
 import ctypes
+import numbers
 
+import numpy as np
 import torch
 
 from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
@@ -34,6 +40,18 @@ def radius_sq(radius, b: int, device) -> torch.Tensor:
     f32 as the JAX package does."""
     r = torch.as_tensor(radius, dtype=torch.float32, device=device).detach()
     return torch.broadcast_to(r, (b,)).contiguous() ** 2
+
+
+def host_radius_sq(radius) -> float | None:
+    """r² for a Python or numpy scalar radius, squared in f32 on the host:
+    the bits of :func:`radius_sq` (f32(r) · f32(r), rounded to f32).  None
+    for a tensor or an array of radii."""
+    if isinstance(radius, numbers.Real) or (
+            isinstance(radius, np.ndarray) and radius.ndim == 0):
+        r = np.float32(radius)
+        with np.errstate(over="ignore"):  # r² past f32 is +inf, as on the card
+            return float(r * r)
+    return None
 
 
 def query_ball_torch(radius, nsample: int, xyz: torch.Tensor,
@@ -113,7 +131,8 @@ def query_ball_cuda(radius, nsample: int, xyz: torch.Tensor,
     b, n, c = xyz.shape
     m = new_xyz.shape[1]
     dev = xyz.device
-    r2 = radius_sq(radius, b, dev)
+    r2_value = host_radius_sq(radius)
+    r2 = radius_sq(radius, b, dev) if r2_value is None else None
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=dev)
     cnt = torch.empty((b, m), dtype=torch.int32, device=dev)
     dists = (torch.empty((b, m, nsample), dtype=torch.float32, device=dev)
@@ -121,11 +140,14 @@ def query_ball_cuda(radius, nsample: int, xyz: torch.Tensor,
     sel = (torch.empty((b, m, select_smallest), dtype=torch.int32,
                        device=dev) if select_smallest else None)
     fn = _build.load("query_ball").dispu_query_ball
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I,
+                   _I, _I, _I, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(xyz.data_ptr(), new_xyz.data_ptr(), r2.data_ptr(),
+        status = fn(xyz.data_ptr(), new_xyz.data_ptr(),
+                    None if r2 is None else r2.data_ptr(),
+                    0.0 if r2_value is None else r2_value,
                     idx.data_ptr(), cnt.data_ptr(),
                     dists.data_ptr() if dists is not None else None,
                     sel.data_ptr() if sel is not None else None,

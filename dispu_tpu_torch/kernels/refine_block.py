@@ -26,9 +26,52 @@ from dispu_tpu_torch.kernels.refine_local import (LocalParams, cuda_args,
 
 #: the most neighbours ``refine_block_pallas`` takes
 MAX_K = 16
+#: one block's shared memory on Hopper, and the weights' ring before the
+#: tile's regions (``refine_common.cuh``: kStages = 2 buffers of
+#: kStageBytes = 32 KB, 2 kStages mbarriers of 8 bytes, kStages ints
+#: rounded up to 4)
+MAX_SMEM = 232448
+RING_BYTES = 2 * 32768 + 2 * 2 * 8 + 4 * 4
+#: compute warps a block (``kWarps``): the distance rows a block holds
+WARPS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _ld(c: int) -> int:
+    """An mma operand's row stride: whole k8 blocks, = 4 mod 8."""
+    return ((c + 7) & ~7) + 4
+
+
+def block_smem(n: int, k: int, cf: int, c1: int, c2: int, c_out: int,
+               tile: int) -> int:
+    """Shared-memory bytes of one block of the kernel at these widths and
+    ``tile`` queries a block, or 0 past a block's limit: the formula of
+    ``csrc/refine_block.cu``'s ``dispu_refine_block_smem`` (the ring, the
+    tile's selection, then the larger of the distance rows and
+    ``tile_mlp``'s regions), so that the CPU can route without the
+    library.  ``c_out`` does not enter it."""
+    rows32 = (tile * k + 31) & ~31
+    pool = 8 * _ld(k * c2)  # the other block's pool rows for the heads
+    mlp = (max(rows32 * max(_ld(cf), _ld(c2)), pool)
+           + max(rows32 * _ld(c1), pool) + _round4(rows32 * k)
+           + 16 * _ld(cf))
+    floats = _round4(tile * k) + max(min(tile, WARPS) * (n + 3), mlp)
+    nbytes = RING_BYTES + 4 * floats
+    return nbytes if nbytes <= MAX_SMEM else 0
+
+
+def block_fits(n: int, k: int, cf: int, c1: int, c2: int,
+               c_out: int) -> bool:
+    """Whether the kernel takes n points at these widths (n <= 5,195 at
+    ``GeneratorConfig()`` width, k = 16, cf = 134)."""
+    return k <= MAX_K and block_smem(n, k, cf, c1, c2, c_out,
+                                     tile_queries(k)) > 0
 
 
 def grouped_rows(xyz: torch.Tensor, feats: torch.Tensor,

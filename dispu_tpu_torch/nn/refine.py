@@ -18,7 +18,10 @@ At inference, ``local_impl`` 'fused' runs steps 2 and 3 on the grouped
 tensor in one kernel (``kernels/refine_local.py``), and 'megafused' steps
 1 to 3 in one kernel with no grouped tensor (``kernels/refine_block.py``),
 inside the JAX package's gates; elsewhere, training included, the composed
-path runs.
+path runs.  On the card 'megafused' past its kernel's shared memory (n >
+5,195 at the default width) computes the same function by the 'fused'
+route (n % 128 == 0) or the composed one: the exact kNN, the features
+rounded to bf16 in the grouping, then the local branch.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from torch import nn
 
 from dispu_tpu_torch.config import REFINE_LOCAL_IMPLS
-from dispu_tpu_torch.kernels.refine_block import refine_block
+from dispu_tpu_torch.kernels.refine_block import block_fits, refine_block
 from dispu_tpu_torch.kernels.refine_local import LocalParams, refine_local
 from dispu_tpu_torch.nn.attention import PointNonLocalCell
 from dispu_tpu_torch.nn.layers import PointConv, WeightNetHidden
@@ -58,6 +61,7 @@ class PointShuffle2(nn.Module):
             raise ValueError(f"local_impl must be one of {REFINE_LOCAL_IMPLS}"
                              f", got {local_impl!r}")
         c, k, out_c = in_features, nsample, mlp[-1]
+        self.mlp = tuple(mlp)
         kw = dict(use_bn=use_bn, bn_momentum=bn_momentum)
         self.nsample, self.gather_impl, self.impl = k, gather_impl, impl
         self.knn_variant, self.local_impl, self.use_bn = (knn_variant,
@@ -88,17 +92,34 @@ class PointShuffle2(nn.Module):
         'megafused' need inference (``.eval()``), no batch norm, two hidden
         convs and f32; 'megafused' also the local branch and k ≤ 16 (the
         port's refiner always groups by kNN, never refines the points),
-        'fused' n % 128 == 0.  Otherwise 'xla', the composed path."""
+        'fused' n % 128 == 0.  Otherwise 'xla', the composed path.  Where
+        'megafused' would launch ``refine_block.cu`` past its shared
+        memory (:func:`~dispu_tpu_torch.kernels.refine_block.block_fits`),
+        'fused' where n % 128 == 0, else 'xla'."""
+        return self._routes(feature)[0]
+
+    def _routes(self, feature: torch.Tensor):
+        """(:meth:`local_route`, the grouping's (gather_impl,
+        knn_variant)).  'megafused' past its kernel's limit groups as
+        ``refine_block`` does: the exact kNN, xyz exact, the features
+        rounded to bf16 ('onehot', or 'fused_turbo' with the fused
+        grouping kernel)."""
+        n, c = feature.shape[1:]
+        grouping_impls = (self.gather_impl, self.knn_variant)
         fusable = (not self.training and not self.use_bn
                    and self.num_convs == 2
                    and feature.dtype == torch.float32)
         if (self.local_impl == "megafused" and fusable and self.use_local
                 and self.nsample <= 16):
-            return "megafused"
-        if (self.local_impl == "fused" and fusable
-                and feature.shape[1] % 128 == 0):
-            return "fused"
-        return "xla"
+            on_card = feature.is_cuda and self.impl != "torch"
+            if not on_card or block_fits(n, self.nsample, 6 + c, *self.mlp):
+                return "megafused", grouping_impls
+            bf16 = ("fused_turbo" if self.gather_impl.startswith("fused")
+                    else "onehot")
+            return "fused" if n % 128 == 0 else "xla", (bf16, "auto")
+        if self.local_impl == "fused" and fusable and n % 128 == 0:
+            return "fused", grouping_impls
+        return "xla", grouping_impls
 
     def local_params(self) -> LocalParams:
         """The local and skip branches' parameters as the kernels take
@@ -121,12 +142,12 @@ class PointShuffle2(nn.Module):
 
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor):
         b, n, _ = feature.shape
-        route = self.local_route(feature)
+        route, (gather_impl, knn_variant) = self._routes(feature)
         if route != "megafused":
             grouped_xyz, grouped_feat, _ = grouping(
                 feature, self.nsample, xyz, xyz, use_xyz=True,
-                gather_impl=self.gather_impl, impl=self.impl,
-                knn_variant=self.knn_variant,
+                gather_impl=gather_impl, impl=self.impl,
+                knn_variant=knn_variant,
             )
             centered = grouped_xyz - xyz[:, :, None, :]
             grouped_feat = torch.cat([centered, grouped_feat], dim=-1)

@@ -55,6 +55,22 @@ only within one such call.
   plain version| over max(max |plain|, 1); no digest, since the trees
   sum in different orders by design.  The top-level ``ms`` is a 16×
   request's launches (``per_16x``).
+- ``--kernel query_ball``: ``query_ball_cuda`` at every shape of
+  ``measure.BALL_CASES`` (inputs from ``measure.ball_inputs`` with seed
+  4, the radius a Python float) and at three edges (nsample 1, nsample
+  128 with select 100, a ball empty for every query), ``ms`` by CUDA
+  events around ``--reps`` back-to-back calls in the select mode the
+  losses run, ``kernel_ms`` the profiler's device time, ``syncs`` the
+  ``cudaStreamSynchronize`` and ``cudaMemcpy*`` calls in the profiler's
+  CPU trace of one call, and a digest over all three output modes; the
+  top-level ``ms`` and ``kernel_ms`` are a CD step's, ``gan_ms`` and
+  ``gan_kernel_ms`` a GAN step's.
+- ``--kernel knn_packed``: ``knn_packed_cuda`` on ``chip_smoke.py``'s
+  inputs at pass 2's refiner shape of a 16× turbo request (32 × 4096²,
+  c 3) at k 16, 1 and 32, past the tiled form (k 33 on two patches of
+  1024), with the duplicate bias (c 24, k 17) and with +inf
+  on all but 10 columns (k 16), each with a digest; the top-level ``ms``
+  is the first, a 16× turbo request's one launch.
 - ``--request R``: ``PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
   final_ratio=R)).upsample`` of ``demo/gt/fandisk.xyz``, host wall
   milliseconds a call (the result is on the host when it returns) over
@@ -195,6 +211,83 @@ elif mode in ("knn", "knn_group"):
     joined = "".join(v["digest"] for v in shapes.values()).encode()
     print(json.dumps({"ms": total, "shapes": shapes,
                       "digest": digest(np.frombuffer(joined, np.uint8))}))
+elif mode == "query_ball":
+    import importlib.util
+    import numpy as np
+    spec = importlib.util.spec_from_file_location("measure", sys.argv[6])
+    measure = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(measure)
+    from torch.profiler import ProfilerActivity, profile
+    from dispu_tpu_torch.kernels.query_ball import query_ball_cuda
+    gen = torch.Generator().manual_seed(7)  # chip_smoke.py's inputs
+    edges = [measure.BallCase("nsample 1", 2, 1000, 300, 3, 0.1, 1, 1, 0, 0),
+             measure.BallCase("nsample 128", 2, 4096, 64, 3, 0.4, 128, 100,
+                              0, 0),
+             measure.BallCase("empty", 2, 500, 100, 3, 1e-6, 8, 3, 0, 0)]
+    shapes, total = {}, {}
+    for case in measure.BALL_CASES + edges:
+        pts, qs = (t.cuda() for t in measure.ball_inputs(gen, case))
+        if case.label == "empty":
+            qs = qs + 0.5  # no point within 1e-6 of any query
+        r, ns, s = float(case.radius), case.nsample, case.select
+        out = [o.cpu().numpy() for o in query_ball_cuda(r, ns, pts, qs,
+                                                        True, s)]
+        out += [o.cpu().numpy() for mode in ((), (True,))
+                for o in query_ball_cuda(r, ns, pts, qs, *mode)]
+        def call():
+            return query_ball_cuda(r, ns, pts, qs, False, s)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        syncs = sum(1 for evt in prof.events()
+                    if "Synchronize" in evt.name or "Memcpy" in evt.name)
+        shapes[case.label] = {"ms": event_ms(call),
+                              "kernel_ms": measure.device_ms(call, reps),
+                              "syncs": syncs, "digest": digest(*out)}
+        for key, per in (("", case.per_cd_step), ("gan_", case.per_gan_step)):
+            for name in ("ms", "kernel_ms"):
+                total[key + name] = (total.get(key + name, 0.0)
+                                     + per * shapes[case.label][name])
+    joined = "".join(v["digest"] for v in shapes.values()).encode()
+    print(json.dumps({**total, "shapes": shapes,
+                      "digest": digest(np.frombuffer(joined, np.uint8))}))
+elif mode == "knn_packed":
+    import numpy as np
+    from dispu_tpu_torch.kernels.knn import knn_packed_cuda
+    from dispu_tpu_torch.ops.knn import mask_duplicate_rows
+    gen = torch.Generator().manual_seed(6)
+    # chip_smoke.py's inputs: pass 2's cloud, its first 1024 points of two
+    # patches for k 33; then the duplicate bias and +inf columns
+    p2 = torch.randn(32, 4096, 3, generator=gen)
+    shapes, total = {}, 0.0
+    for label, bb, nn, c, k, extra in (
+            ("pass 2 k16", 32, 4096, 3, 16, None), ("k1", 32, 4096, 3, 1, None),
+            ("k32", 32, 4096, 3, 32, None), ("k33", 2, 1024, 3, 33, None),
+            ("dup c24 k17", 32, 256, 24, 17, "dup"),
+            ("inf k16", 4, 1024, 3, 16, "inf")):
+        if c == 3 and extra is None:
+            pts = p2[:bb, :nn].contiguous()
+        else:
+            pts = torch.randn(bb, nn, c, generator=gen)
+        if extra == "dup":
+            pts[:, -8:] = pts[:, :8]
+        pts = pts.cuda()
+        if extra == "dup":
+            bias = mask_duplicate_rows(pts).float() * 1e30
+        elif extra == "inf":
+            bias = torch.full((bb, nn), float("inf"), device="cuda")
+            bias[:, ::100] = 0.0  # 11 finite columns: the rest by index
+        else:
+            bias = None
+        def call():
+            return knn_packed_cuda(k, pts, pts, bias)
+        out = [o.cpu().numpy() for o in call()]
+        shapes[label] = {"ms": event_ms(call), "digest": digest(*out)}
+        total += shapes[label]["ms"] if label == "pass 2 k16" else 0.0
+    joined = "".join(v["digest"] for v in shapes.values()).encode()
+    print(json.dumps({"ms": total, "shapes": shapes,
+                      "digest": digest(np.frombuffer(joined, np.uint8))}))
 elif mode in ("refine_local", "refine_block"):
     import importlib.util
     spec = importlib.util.spec_from_file_location("measure", sys.argv[6])
@@ -267,6 +360,7 @@ def main() -> int:
     parser.add_argument("--kernel", default="route",
                         choices=("route", "fps", "fps_chunked",
                                  "gather_rows", "knn", "knn_group",
+                                 "knn_packed", "query_ball",
                                  "refine_local", "refine_block"))
     parser.add_argument("--request", type=int, default=None, metavar="R",
                         help="time whole upsample requests at final "
@@ -281,8 +375,8 @@ def main() -> int:
     print(card, flush=True)
     if args.request is not None:
         shape = {"ratio": args.request}
-    elif args.kernel in ("gather_rows", "knn", "knn_group", "refine_local",
-                         "refine_block"):
+    elif args.kernel in ("gather_rows", "knn", "knn_group", "knn_packed",
+                         "query_ball", "refine_local", "refine_block"):
         shape = {"kernel": args.kernel}
     else:
         shape = {"kernel": args.kernel, "b": args.b, "n": args.n,

@@ -32,7 +32,8 @@ SMALL = dict(num_points=64, knn=8, refine_nsample=8)
 #: the kernels the default exact paths never launch: the turbo path's,
 #: the lite FPS (no caller), the gather pair (gather_impl='pallas') and
 #: the fused refiner's (refine_local_impl 'fused' / 'megafused')
-NO_TURBO = {"knn_packed": 0, "knn_group": 0, "fps_bucketed": 0,
+NO_TURBO = {"knn_split": 0, "knn_packed": 0, "knn_group": 0,
+            "fps_bucketed": 0,
             "fps_lite": 0, "gather_rows": 0, "scatter_rows": 0,
             "refine_local": 0, "refine_block": 0}
 
@@ -177,6 +178,53 @@ def test_knn_kernel_reports_unfilled_slots(dev, k):
     assert float((dk[..., :filled] - dp[..., :filled]).abs().max()) <= 1e-4
     assert bool(torch.all(dk[..., filled:] == float("inf")))
     assert bool(torch.all(ik[..., filled:] == 2**31 - 1))
+
+
+@pytest.mark.parametrize("k,chunk", [(33, None), (256, None), (256, 5000),
+                                     (100, 333)])
+def test_knn_split_form_bit_equal_to_row_form(dev, k, chunk):
+    """Where both run (n + c <= MAX_ROW_FLOATS) the split form returns the
+    row form's bits: points repeated across chunks (exact ties between
+    chunks) and a column bias included."""
+    from dispu_tpu_torch.kernels.knn import knn_split_cuda
+
+    n = 20000
+    pts = _randn(7, 2, n, 3).to(dev)
+    pts[:, 15000:15100] = pts[:, 100:200]
+    qs = pts[:, ::170].contiguous()
+    bias = torch.zeros((2, n), device=dev)
+    bias[:, 7000:7300] = 1e30
+    for bb in (None, bias):
+        got = knn_split_cuda(k, pts, qs, bb, chunk=chunk)
+        want = knn_cuda(k, pts, qs, bb)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_knn_split_form_past_the_row_form_matches_plain(dev):
+    """The patch cut of a 60,000-point cloud (k 256) through the shape
+    gate, under the plain version's contract, counted as the split form."""
+    from dispu_tpu_torch.ops.knn import knn as knn_ops
+
+    pts = _randn(8, 1, 60000, 3).to(dev)
+    qs = pts[:, ::85].contiguous()
+    kernels.reset_launch_counts()
+    dk, ik = knn_ops(256, pts, qs)
+    assert kernels.launch_counts()["knn_split"] == 1
+    assert kernels.launch_counts()["knn"] == 0
+    _assert_knn_contract(256, pts, qs, None, ik, dk)
+
+
+def test_knn_split_form_reports_unfilled_slots(dev):
+    """As the row form: past the finite distances (+inf, INT_MAX)."""
+    from dispu_tpu_torch.kernels.knn import knn_split_cuda
+
+    pts = _randn(9, 1, 3000, 3).to(dev)
+    pts[:, 20:] = 1e30
+    qs = _randn(10, 1, 7, 3).to(dev)
+    dk, ik = knn_split_cuda(40, pts, qs, chunk=256)
+    dr, ir = knn_cuda(40, pts, qs)
+    assert torch.equal(dk, dr) and torch.equal(ik, ir)
+    assert bool(torch.all(ik[..., 20:] == 2**31 - 1))
 
 
 @pytest.mark.parametrize("b,n,npoint", [
@@ -420,7 +468,9 @@ def test_upsample_many_goes_through_the_kernels(dev, final_ratio, counts):
 @pytest.mark.parametrize("b,n,m,c,r,ns,s", [
     (3, 1024, 1024, 3, 0.15, 20, 5), (2, 300, 77, 5, 1.5, 64, 7),
     (2, 4096, 64, 3, 0.3, 128, 5), (1, 40, 9, 128, 16.0, 128, 3),
-    (2, 12, 6, 3, 0.01, 20, 5),
+    (2, 12, 6, 3, 0.01, 20, 5), (2, 1000, 300, 3, 0.5, 1, 1),
+    (2, 4096, 100, 3, 1.0, 128, 100), (3, 2000, 130, 3, 2.0, 128, 8),
+    (1, 500, 200, 40, 30.0, 100, 9), (2, 1024, 51, 3, 0.0632455532, 4, 2),
 ])
 def test_query_ball_kernel_matches_plain(dev, b, n, m, c, r, ns, s):
     xyz = _randn(n + c, b, n, c).to(dev)
@@ -441,6 +491,35 @@ def test_query_ball_kernel_matches_plain(dev, b, n, m, c, r, ns, s):
     for mode in ((), (True,)):
         narrow = query_ball_cuda(r, ns, xyz, qs, *mode)
         assert all(torch.equal(a, w) for a, w in zip(narrow, got))
+
+
+@pytest.mark.parametrize("c", [3, 7])
+def test_query_ball_kernel_empty_balls(dev, c):
+    """No point within the radius of any query: count 0, every slot
+    index 0 at distance 0, the selection index 0, as the plain version."""
+    xyz = _randn(11, 2, 700, c).to(dev)
+    qs = xyz[:, :90] + 100.0
+    got = query_ball_cuda(0.5, 16, xyz, qs, True, 5)
+    want = query_ball_torch(0.5, 16, xyz, qs, True, 5)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert int(got[1].abs().sum()) == 0 and int(got[0].abs().sum()) == 0
+
+
+def test_query_ball_kernel_scalar_and_tensor_radius_agree(dev):
+    """A float radius goes by value, a (b,) tensor by pointer: the same
+    bits; a call with a float makes no synchronization or copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xyz = _randn(12, 3, 1024, 3).to(dev)
+    by_value = query_ball_cuda(0.2, 20, xyz, xyz, True, 5)
+    by_tensor = query_ball_cuda(torch.full((3,), 0.2, device=dev), 20, xyz,
+                                xyz, True, 5)
+    assert all(torch.equal(a, w) for a, w in zip(by_value, by_tensor))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        query_ball_cuda(0.2, 20, xyz, xyz, False, 5)
+    assert not [e.name for e in prof.events()
+                if "Synchronize" in e.name or "Memcpy" in e.name]
 
 
 def test_query_ball_kernel_refuses_beyond_its_limits(dev):
@@ -556,7 +635,9 @@ def _trunc(d, lb):
 
 @pytest.mark.parametrize("b,n,m,c,k,dup", [
     (2, 4096, 4096, 3, 16, False), (2, 256, 256, 24, 17, True),
-    (3, 100, 30, 5, 100, False),
+    (3, 100, 30, 5, 100, False), (2, 4096, 4096, 3, 1, False),
+    (2, 4096, 4096, 3, 32, False), (2, 1024, 1024, 3, 33, False),
+    (2, 300, 97, 48, 20, True), (1, 129, 33, 3, 16, False),
 ])
 def test_knn_packed_kernel_contract(dev, b, n, m, c, k, dup):
     from dispu_tpu_torch.kernels.knn import (knn_packed_cuda,
@@ -588,6 +669,24 @@ def test_knn_packed_kernel_contract(dev, b, n, m, c, k, dup):
     step = 2.0 ** -(23 - lb)
     assert float((torch.abs(dk - dp) / (dp.abs() * 2 * step + 1e-5 * scale)
                   ).max()) <= 1.0
+
+
+@pytest.mark.parametrize("k", [1, 16, 33])
+def test_knn_packed_kernel_selects_inf_keys_by_index(dev, k):
+    """Past the finite distances the packed keys of +inf distances come in
+    index order, as in knn_pallas's int order and the plain version."""
+    from dispu_tpu_torch.kernels.knn import (knn_packed_cuda,
+                                             knn_packed_torch)
+
+    pts = _randn(13, 2, 1024, 3).to(dev)
+    bias = torch.full((2, 1024), float("inf"), device=dev)
+    bias[:, ::200] = 0.0  # 6 finite columns
+    dk, ik = knn_packed_cuda(k, pts, pts, bias)
+    dp, ip = knn_packed_torch(k, pts, pts, bias)
+    tail = min(k, 6)
+    assert torch.equal(ik[..., tail:], ip[..., tail:])
+    assert torch.equal(dk[..., tail:], dp[..., tail:])
+    assert bool(torch.all(torch.isinf(dk[..., tail:])))
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -752,8 +851,8 @@ def test_turbo_upsampler_goes_through_the_kernels(dev, final_ratio, patch, n,
     kernels.reset_launch_counts()
     out = up.upsample(pc)
     assert kernels.launch_counts() == dict(
-        counts, fps_chunked=0, query_ball=0, fps_lite=0, gather_rows=0,
-        scatter_rows=0, refine_local=0, refine_block=0)
+        counts, knn_split=0, fps_chunked=0, query_ball=0, fps_lite=0,
+        gather_rows=0, scatter_rows=0, refine_local=0, refine_block=0)
     assert out.shape == (n * final_ratio, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf, impl="torch").upsample(pc)
     # against the plain versions on the card: the bucketed merge moves
@@ -1090,6 +1189,61 @@ def test_refine_kernels_refuse_beyond_their_limits(dev):
                           _randn(2, 1, 5196, 128).to(dev), p)
     refine_block_cuda(_randn(1, 1, 5195, 3).to(dev),
                       _randn(2, 1, 5195, 128).to(dev), p)
+
+
+def test_refine_block_predicate_is_the_kernels_formula(dev):
+    """``block_smem`` in Python against the library's
+    ``dispu_refine_block_smem`` over n, k and the widths."""
+    import ctypes
+
+    from dispu_tpu_torch.kernels import _build
+    from dispu_tpu_torch.kernels.refine_block import block_smem
+
+    fn = _build.load("refine_block").dispu_refine_block_smem
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_size_t
+    for n in (16, 1000, 5195, 5196, 5203, 5204, 9000):
+        for k, cf, c1, c2, co, t in ((16, 134, 128, 128, 256, 8),
+                                     (8, 134, 128, 128, 256, 8),
+                                     (4, 9, 8, 8, 8, 8),
+                                     (16, 38, 32, 48, 64, 8),
+                                     (64, 134, 128, 128, 256, 2)):
+            assert fn(n, k, cf, c1, c2, co, t) == block_smem(n, k, cf, c1,
+                                                             c2, co, t)
+
+
+def test_upsample_of_60000_points(dev):
+    """Past the row form's n: the patch cut takes the split form, the
+    merge fps_chunked.cu's device-memory form; finite, the right shape,
+    bit-equal on repeat."""
+    pc = _randn(14, 60000, 3).numpy()
+    up = PatchUpsampler(inf_cfg=InferenceConfig(patch_batch=64))
+    kernels.reset_launch_counts()
+    out = up.upsample(pc)
+    counts = kernels.launch_counts()
+    assert counts["knn_split"] == 1 and counts["fps_chunked"] == 2
+    assert out.shape == (240000, 3) and np.isfinite(out).all()
+    assert np.array_equal(out, up.upsample(pc))
+
+
+def test_megafused_serves_past_its_kernels_limit(dev):
+    """'megafused' at patch_num_point 512 and 16×: pass 2's refiner (8,192
+    points) is past refine_block.cu's shared memory and takes the 'fused'
+    route with the exact kNN and bf16 features; held to 'megafused''s 16×
+    contract against the composed fast_gather path through the kernels."""
+    inf = InferenceConfig(patch_num_point=512, final_ratio=16)
+    pc = _randn(15, 2048, 3).numpy()
+    up = PatchUpsampler(gen_cfg=GeneratorConfig(
+        refine_local_impl="megafused"), inf_cfg=inf)
+    kernels.reset_launch_counts()
+    out = up.upsample(pc)
+    counts = kernels.launch_counts()
+    # 12 seeds, one chunk: pass 1 refine_block, pass 2 knn + refine_local
+    assert counts["refine_block"] == 1 and counts["refine_local"] == 1
+    assert out.shape == (32768, 3) and np.isfinite(out).all()
+    ref = PatchUpsampler(gen_cfg=GeneratorConfig(fast_gather=True),
+                         inf_cfg=inf).upsample(pc)
+    assert _chamfer(out, ref) <= 1e-7
 
 
 @pytest.mark.parametrize("setting,counts", [

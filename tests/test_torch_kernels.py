@@ -365,7 +365,7 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     refine_local(grouped, _local_params())
     refine_block(x.detach(), x.detach(), _local_params())
     assert kernels.launch_counts() == {
-        "knn": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
+        "knn": 0, "knn_split": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
         "fps_lite": 0, "fps_chunked": 0, "fps_bucketed": 0, "attention": 0,
         "query_ball": 0, "gather_rows": 0, "scatter_rows": 0,
         "refine_local": 0, "refine_block": 0}

@@ -1,0 +1,215 @@
+"""The port past two kernels' limits, on the CPU: the exact kNN's split
+row form and the mega-fused refiner's route past its shared memory, whose
+decisions are made in Python from shapes alone, and the ball query's
+scalar radius squared on the host.  The kernels themselves run on the
+card (``tests/test_torch_cuda.py``); here their wrappers are replaced by
+stand-ins that record which one a call reaches.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from dispu_tpu_torch.kernels import knn as knn_module
+from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
+                                         KnnFunction, knn_form, knn_torch,
+                                         split_chunk, split_plan)
+from dispu_tpu_torch.kernels.query_ball import host_radius_sq, radius_sq
+from dispu_tpu_torch.kernels.refine_block import (block_fits, block_smem,
+                                                  refine_block_torch)
+from dispu_tpu_torch.kernels.refine_local import tile_queries
+from dispu_tpu_torch.nn.refine import PointShuffle2
+
+torch.set_num_threads(1)
+
+#: the refiner's grouped width and mlp at ``GeneratorConfig()``: 128
+#: features, [p - q | p | f]
+CF, MLP = 6 + 128, (128, 128, 256)
+
+
+# ------------------------------------------------------- the split row form
+
+@pytest.mark.parametrize("k,n,c,form", [
+    (1, 10**6, 3, "tiled"), (MAX_STREAM_K, 10**6, 3, "tiled"),
+    (MAX_STREAM_K + 1, MAX_ROW_FLOATS - 3, 3, "row"),
+    (MAX_STREAM_K + 1, MAX_ROW_FLOATS - 2, 3, "split"),
+    (256, 58109, 3, "row"), (256, 58110, 3, "split"),
+    (256, 60000, 3, "split"), (256, 2048, 3, "row"),
+    (100, MAX_ROW_FLOATS - 48, 48, "row"),
+    (100, MAX_ROW_FLOATS - 47, 48, "split"),
+])
+def test_knn_form_is_a_shape_gate(k, n, c, form):
+    assert knn_form(k, n, c) == form
+
+
+def test_split_plan_fills_a_block_and_bounds_the_merge():
+    # eight warps' rows of chunk + c floats fit one block
+    assert split_chunk(3) == 7232
+    assert 8 * (split_chunk(3) + 3) <= MAX_ROW_FLOATS
+    assert 8 * (split_chunk(3) + 32 + 3) > MAX_ROW_FLOATS
+    assert split_plan(256, 60000, 3) == (7232, 9)
+    assert split_plan(256, 20000, 3, chunk=5000) == (5000, 4)
+    # the merge holds k * chunks candidates in one row
+    last = (MAX_ROW_FLOATS // 256) * 7232
+    assert split_plan(256, last, 3) == (7232, MAX_ROW_FLOATS // 256)
+    with pytest.raises(ValueError, match="candidates"):
+        split_plan(256, last + 1, 3)
+
+
+def _stand_ins(monkeypatch):
+    """Replace both exact kernels' wrappers with recorders that return
+    zeros of the right shape; returns the list of calls."""
+    calls = []
+
+    def make(name):
+        def run(k, points, queries, bias=None):
+            calls.append((name, k, points.shape[1]))
+            b, m = queries.shape[:2]
+            return (torch.zeros((b, m, k)),
+                    torch.zeros((b, m, k), dtype=torch.int32))
+        return run
+
+    monkeypatch.setattr(knn_module, "knn_cuda", make("knn_cuda"))
+    monkeypatch.setattr(knn_module, "knn_split_cuda", make("knn_split_cuda"))
+    return calls
+
+
+@pytest.mark.parametrize("k,n,wrapper", [
+    (256, 2048, "knn_cuda"), (256, 58109, "knn_cuda"),
+    (256, 58110, "knn_split_cuda"), (256, 60000, "knn_split_cuda"),
+    (MAX_STREAM_K, 60000, "knn_cuda"),
+])
+def test_kernel_route_takes_the_split_form_exactly_past_the_row_form(
+        monkeypatch, k, n, wrapper):
+    """What ``KnnFunction`` runs for a CUDA tensor (``use_cuda``), with
+    both wrappers replaced by stand-ins: the split form exactly where the
+    row form refuses the shape, the tiled form at any n for k <= 32."""
+    calls = _stand_ins(monkeypatch)
+    pts = torch.zeros((1, n, 3))
+    dists, idx = KnnFunction.apply(k, pts, pts[:, :5], None, True)
+    assert calls == [(wrapper, k, n)]
+    assert dists.shape == idx.shape == (1, 5, k)
+
+
+def test_packed_route_never_takes_the_split_form(monkeypatch):
+    calls = _stand_ins(monkeypatch)
+    seen = []
+    monkeypatch.setattr(knn_module, "knn_packed_cuda",
+                        lambda k, p, q, b=None: seen.append(k) or (
+                            torch.zeros(1, 5, k),
+                            torch.zeros(1, 5, k, dtype=torch.int32)))
+    pts = torch.zeros((1, 60000, 3))
+    KnnFunction.apply(16, pts, pts[:, :5], None, True, True)
+    assert seen == [16] and calls == []
+
+
+def test_split_form_on_cpu_tensors_is_refused():
+    pts = torch.zeros((1, 300, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        knn_module.knn_split_cuda(40, pts, pts[:, :4])
+    # on the CPU the plain version takes every n
+    d, i = knn_module.knn(40, pts, pts[:, :4])
+    assert torch.equal(i, knn_torch(40, pts, pts[:, :4])[1])
+
+
+# ------------------------------------------- 'megafused' past its kernel
+
+def test_block_predicate_at_the_kernels_limit():
+    """The Python formula of ``dispu_refine_block_smem``: 5,195 points
+    fit beside the weights' ring at the default width, 5,196 do not."""
+    assert tile_queries(16) == 8
+    assert block_fits(5195, 16, CF, *MLP)
+    assert not block_fits(5196, 16, CF, *MLP)
+    assert block_smem(5195, 16, CF, *MLP, 8) == 232432
+    assert block_smem(5196, 16, CF, *MLP, 8) == 0
+    assert not block_fits(64, 17, CF, *MLP)  # refine_block_pallas: k <= 16
+    # the distance rows set the limit: fewer neighbours leave a little more
+    assert block_fits(5203, 8, CF, *MLP)
+    assert not block_fits(5204, 8, CF, *MLP)
+
+
+def _layer(gather_impl="onehot_hp", impl="auto", local_impl="megafused"):
+    torch.manual_seed(0)
+    return PointShuffle2(128, nsample=16, mlp=MLP, gather_impl=gather_impl,
+                         impl=impl, local_impl=local_impl).eval()
+
+
+def _on_card(n, c=128):
+    """A stand-in for a CUDA feature tensor: what the route reads."""
+    return types.SimpleNamespace(shape=(2, n, c), dtype=torch.float32,
+                                 is_cuda=True)
+
+
+@pytest.mark.parametrize("n,gather_impl,route,grouping", [
+    (5195, "onehot_hp", "megafused", ("onehot_hp", "auto")),
+    (5196, "onehot_hp", "xla", ("onehot", "auto")),
+    (8192, "onehot_hp", "fused", ("onehot", "auto")),
+    (8192, "fused", "fused", ("fused_turbo", "auto")),
+    (8192, "onehot", "fused", ("onehot", "auto")),
+])
+def test_megafused_route_past_the_kernels_limit(n, gather_impl, route,
+                                                grouping):
+    layer = _layer(gather_impl)
+    assert layer._routes(_on_card(n)) == (route, grouping)
+    assert layer.local_route(_on_card(n)) == route
+
+
+def test_megafused_route_on_the_cpu_is_unchanged():
+    """The plain versions take any n, so the CPU and impl='torch' keep
+    'megafused' (and JAX parity); 'fused' keeps its own gate."""
+    feat = torch.zeros((1, 8192, 128))
+    assert _layer().local_route(feat) == "megafused"
+    assert _layer(impl="torch").local_route(_on_card(8192)) == "megafused"
+    assert _layer(local_impl="fused").local_route(_on_card(8192)) == "fused"
+    assert _layer(local_impl="fused").local_route(_on_card(8000)) == "xla"
+    assert _layer().train().local_route(_on_card(100)) == "xla"
+
+
+@pytest.mark.parametrize("route,grouping", [
+    ("fused", ("onehot", "auto")), ("xla", ("onehot", "auto"))])
+def test_megafused_fallback_computes_the_same_function(monkeypatch, route,
+                                                       grouping):
+    """The routes past the kernel's limit group as ``refine_block`` does
+    (exact kNN, features rounded to bf16), so the layer's output is the
+    mega-fused one: bit-equal by 'fused' (the same grouped rows into the
+    same plain local branch), to f32 round-off by the composed branch."""
+    layer = _layer()
+    rng = np.random.RandomState(3)
+    xyz = torch.from_numpy(rng.randn(2, 256, 3).astype(np.float32))
+    feat = torch.from_numpy(rng.randn(2, 256, 128).astype(np.float32))
+    with torch.no_grad():
+        want = layer(xyz, feat)[1]
+        block = refine_block_torch(xyz, feat, layer.local_params())
+        monkeypatch.setattr(layer, "_routes",
+                            lambda feature: (route, grouping))
+        got = layer(xyz, feat)[1]
+    if route == "fused":
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert block.shape == (2, 256, MLP[-1])
+
+
+# ------------------------------------------- the ball query's scalar radius
+
+RADII = [0.07, 0.2, 0.4, 1.0, 2, 3, 1e-3, 1e-20, 1e-23, 1e19, 1e20,
+         np.float32(0.3), np.float64(0.0632455532), np.int64(2),
+         np.array(0.5), *np.logspace(-6, 3, 97)]
+
+
+@pytest.mark.parametrize("radius", RADII, ids=lambda r: repr(r)[:24])
+def test_host_radius_sq_bit_equal_to_radius_sq(radius):
+    """r² squared in f32 on the host and passed by value has the bits of
+    the (b,) tensor the plain version and a tensor radius use."""
+    got = np.float32(host_radius_sq(radius))
+    want = radius_sq(radius, 3, "cpu")
+    assert torch.equal(torch.from_numpy(np.full(3, got)).view(torch.int32),
+                       want.view(torch.int32))
+
+
+def test_host_radius_sq_leaves_tensors_and_arrays_to_the_device():
+    assert host_radius_sq(torch.tensor(0.1)) is None
+    assert host_radius_sq(torch.tensor([0.1, 0.2])) is None
+    assert host_radius_sq(np.array([0.1, 0.2])) is None

@@ -4,8 +4,9 @@ are the gathers that a train step with ``gather_impl='pallas'`` sends to
 the gather kernel at the default widths, ``KNN_CASES`` and
 ``KNN_GROUP_CASES`` hold the kNN launches of a 4× request's generator
 pass (exact and turbo), ``REFINE_CASES`` the fused refiner's launches of
-a 4× and a 16× request's generator passes, and the input makers make what
-they say.
+a 4× and a 16× request's generator passes, ``BALL_CASES`` the ball
+queries of a CD and a GAN train step and the critic's ball grouping, and
+the input makers make what they say.
 """
 
 import collections
@@ -15,8 +16,9 @@ import torch
 
 from dispu_tpu_torch import GeneratorConfig, InferenceConfig, cli
 from dispu_tpu_torch.kernels import knn_group as knn_group_module
-from dispu_tpu_torch.kernels.measure import (GATHER_CASES, KNN_CASES,
-                                             KNN_GROUP_CASES, REFINE_CASES,
+from dispu_tpu_torch.kernels.measure import (BALL_CASES, GATHER_CASES,
+                                             KNN_CASES, KNN_GROUP_CASES,
+                                             REFINE_CASES, ball_inputs,
                                              gather_inputs, knn_group_inputs,
                                              knn_inputs, refine_ops,
                                              refine_params)
@@ -257,3 +259,104 @@ def test_refine_params_are_seeded_at_the_cases_widths():
     # pass 1 is about 74 GFLOP, pass 2 four times that
     assert abs(refine_ops(case) / 1e9 - 74.0) < 0.1
     assert refine_ops(REFINE_CASES[1]) == 4 * refine_ops(case)
+
+
+# ------------------------------------------------------------- ball queries
+
+def _ball_key(radius, nsample, xyz, new_xyz, select_smallest=0):
+    return (xyz.shape[1], new_xyz.shape[1], xyz.shape[2], float(radius),
+            nsample, select_smallest)
+
+
+@pytest.fixture(scope="module")
+def step_ball_calls():
+    """(n, m, c, radius, nsample, select) → count of the ball queries of
+    one CD and one GAN step of ``cli.build_config`` of ``--phase train
+    --use_gan true`` (batch 2 here: the batch enters no other dimension),
+    the query replaced by a recorder around the plain version."""
+    import dataclasses
+
+    from dispu_tpu_torch import losses
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+
+    full = cli.build_config(cli.parse_args(["--phase", "train",
+                                            "--use_gan", "true"]))
+    cfg = dataclasses.replace(full, train=dataclasses.replace(full.train,
+                                                              batch_size=2))
+    real = losses.query_ball_point
+    seen = {"cd": collections.Counter(), "gan": collections.Counter()}
+    gt = torch.randn(2, cfg.generator.num_out_points, 3,
+                     generator=torch.Generator().manual_seed(0))
+    for kind in seen:
+        def record(radius, nsample, xyz, new_xyz, impl="auto",
+                   return_dists=False, select_smallest=0, kind=kind):
+            seen[kind][_ball_key(radius, nsample, xyz, new_xyz,
+                                 select_smallest)] += 1
+            return real(radius, nsample, xyz, new_xyz, impl=impl,
+                        return_dists=return_dists,
+                        select_smallest=select_smallest)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(losses, "query_ball_point", record)
+            if kind == "cd":
+                state = create_generator_state(cfg.generator, device="cpu")
+                make_train_step(cfg, device="cpu")(
+                    state, gt, torch.ones(2),
+                    torch.Generator().manual_seed(0))
+            else:
+                state = create_gan_state(cfg, device="cpu")
+                make_gan_train_step(cfg, device="cpu")(
+                    state, gt, torch.ones(2),
+                    torch.Generator().manual_seed(0))
+    return seen, full.train.batch_size
+
+
+@pytest.mark.parametrize("kind", ["cd", "gan"])
+def test_ball_cases_are_the_steps_ball_queries(step_ball_calls, kind):
+    seen, batch = step_ball_calls
+    want = collections.Counter()
+    for case in BALL_CASES:
+        per = case.per_cd_step if kind == "cd" else case.per_gan_step
+        if per:
+            want[(case.n, case.m, case.c, case.radius, case.nsample,
+                  case.select)] += per
+        assert case.b == batch
+    assert seen[kind] == want
+
+
+def test_critic_ball_case_is_the_critics_widest_ball_grouping():
+    """``DiscriminatorConfig(knn=False)`` groups by balls around n/8 seeds
+    at three scales; the case is its widest, with a selection added to
+    exercise every output mode."""
+    from dispu_tpu_torch.config import DiscriminatorConfig
+    from dispu_tpu_torch.models import discriminator
+
+    seen = collections.Counter()
+    real = discriminator.query_ball_point
+
+    def record(radius, nsample, xyz, new_xyz, impl="auto"):
+        seen[_ball_key(radius, nsample, xyz, new_xyz)] += 1
+        return real(radius, nsample, xyz, new_xyz, impl=impl)
+
+    cloud = torch.randn(2, 1024, 3, generator=torch.Generator().manual_seed(1))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(discriminator, "query_ball_point", record)
+        discriminator.paired_neighborhoods(DiscriminatorConfig(knn=False),
+                                           cloud, cloud, impl="torch")
+    case = next(c for c in BALL_CASES if c.label == "critic ball")
+    assert seen[(case.n, case.m, case.c, case.radius, case.nsample, 0)] == 2
+    assert case.nsample == max(key[4] for key in seen)
+
+
+def test_ball_inputs_follow_their_cases():
+    for case in BALL_CASES[:3]:
+        pts, qs = ball_inputs(torch.Generator().manual_seed(4), case)
+        again, _ = ball_inputs(torch.Generator().manual_seed(4), case)
+        assert pts.shape == (case.b, case.n, case.c)
+        assert qs.shape == (case.b, case.m, case.c)
+        assert torch.equal(pts, again)
+        assert torch.equal(qs, pts[:, ::case.n // case.m][:, :case.m])
+        assert torch.equal(pts[:, -50:], pts[:, 100:150])  # tied points
