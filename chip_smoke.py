@@ -29,10 +29,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      bit-equal to the kNN kernel's), the packed kNN selection (pass 2's
      refiner at k 16, 1 and 32, the row form at k 33; and its
      fixed-selection gradient) and the bucketed merge FPS
-     (4×, 16×, two clouds); the lite FPS entry (the critic's seed shape and
-     the 4× merge); the gather kernel bit-equal to ``torch.gather`` and the
-     scatter-add kernel bit-equal run to run (and to the CPU's
-     ``index_add_``) at the train step's gather shapes; ``knn_group``'s
+     (4×, 16×, two clouds, a 60,000-point cloud's 4× buckets, with µs a
+     round); the lite FPS entry (the critic's seed shape and
+     the 4× merge); the gather kernel bit-equal to ``torch.gather`` at the
+     train step's gather shapes and the scatter-add kernel bit-equal run
+     to run (and to the CPU's ``index_add_``) at every scatter of a train
+     step with ``gather_impl='pallas'`` and with ``fused_grouping``, each
+     with the profiler's device time; ``knn_group``'s
      backward rule at the backbone's and the refiner's train shapes; the
      fused refiner kernels (``refine_local`` on grouped rows,
      ``refine_block`` with its own kNN, whose indices are bit-equal to the
@@ -54,7 +57,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      output against the plain merge of its own candidates), timed beside
      'xla'.  Past two kernels' limits: a 4× request on a 60,000-point
      cloud (the patch cut in the split row form, the merge of 719,872
-     candidates) twice, bit-equal; 'megafused' at ``patch_num_point`` 512
+     candidates) twice, bit-equal, and the turbo 4× request on it (the
+     bucketed merge's large buckets); 'megafused' at ``patch_num_point`` 512
      and 16× (pass 2's refiner past ``refine_block.cu``'s shared memory
      takes the 'fused' route) against the composed ``fast_gather`` path.
      Then CD training at the
@@ -947,46 +951,49 @@ def check_knn_split(dev):
 
 
 def check_fps_bucketed(dev):
-    """The bucketed merge FPS bit-equal to the plain FPS on each bucket: a
-    4× merge of a 2048-point cloud (64 buckets of 384 → 128), a 16× one
-    (64 of 1536 → 512), the same for two clouds (one launch), and buckets
-    past the register form (3 of 2,500 points).  The aggregate is the 4×
-    merge, the kernel's one launch in a 4× turbo request."""
+    """The bucketed merge FPS bit-equal to the plain FPS on each bucket at
+    ``measure.BUCKETED_CASES``: the turbo merge of a 2048-point cloud at 4×
+    (64 buckets of 384 → 128) and 16× (64 of 1536 → 512), of two clouds
+    in one launch at each, and of a 60,000-point cloud at 4× (64 of 11,248 →
+    3,750), each timed with µs a round and the form that ran; then
+    buckets past the shared-memory form (the device-memory form).  The
+    aggregate is the 4× merge, the kernel's one launch in a 4× turbo
+    request."""
     import torch
 
     from dispu_tpu_torch.kernels.fps_bucketed import (fps_bucketed_cuda,
-                                                      fps_bucketed_torch)
+                                                      fps_bucketed_torch,
+                                                      form_for, forms_from)
+    from dispu_tpu_torch.kernels.measure import (BUCKETED_CASES,
+                                                 BucketedCase,
+                                                 bucketed_inputs)
 
     gen = torch.Generator(device="cpu").manual_seed(7)
-
-    def buckets(k, nb):
-        x = torch.randn(k, nb, 3, generator=gen)
-        x[:, nb - 10:] = x[:, :10]  # duplicated points
-        return x
-
-    cases = [("4x merge", buckets(64, 384), 128, True),
-             ("16x merge", buckets(64, 1536), 512, True),
-             ("4x stream B=2", buckets(128, 384), 128, True),
-             ("16x stream B=2", buckets(128, 1536), 512, True),
-             ("device-memory form", buckets(3, 2500), 64, False)]
+    past = forms_from(1)[-2].capacity + 1
+    cases = [(case, True) for case in BUCKETED_CASES] + [
+        (BucketedCase("device-memory form", 3, past, 64, 0), False)]
     agg = None
-    for label, x, mb, timed in cases:
-        x = x.contiguous().to(dev)
+    for case, timed in cases:
+        x = bucketed_inputs(gen, case).contiguous().to(dev)
+        mb = case.mb
         got = fps_bucketed_cuda(mb, x)
         want, plain_ms = timed_once(lambda: fps_bucketed_torch(mb, x))
         n_diff = int((got != want).sum())
-        require(n_diff == 0, f"fps_bucketed {label}: {n_diff} indices differ")
+        require(n_diff == 0,
+                f"fps_bucketed {case.label}: {n_diff} indices differ")
         k, nb, _ = x.shape
+        form = form_for(nb)
         if not timed:
-            log(f"fps_bucketed {label} ({k} x {nb} -> {mb}): bit-equal")
+            log(f"fps_bucketed {case.label} ({k} x {nb} -> {mb}; {form}): "
+                "bit-equal")
             continue
         ms = timed_ms(lambda: fps_bucketed_cuda(mb, x), reps=10)
         nbytes = 12 * k * nb + 4 * k * mb
         ops = 9 * k * nb * (mb - 1)
         bms, by = bound(nbytes, ops, F32_FLOPS)
-        log(f"fps_bucketed {label} ({k} x {nb} -> {mb}): bit-equal; kernel "
-            f"{ms:.4f} ms ({ms / (mb - 1) * 1e3:.3f} us a round), plain "
-            f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        log(f"fps_bucketed {case.label} ({k} x {nb} -> {mb}; {form}): "
+            f"bit-equal; kernel {ms:.4f} ms ({ms / (mb - 1) * 1e3:.3f} us a "
+            f"round), plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
         if agg is None:
             agg = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                        bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
@@ -1089,49 +1096,52 @@ def check_gather_rows(dev):
 
 
 def check_scatter_rows(dev):
-    """The scatter kernel at the train step's shapes (the cotangents of
-    ``measure.GATHER_CASES``): bit-equal run to run and to the CPU's
-    sequential
-    ``index_add_``, and within ``SCATTER_SUM_REL`` of each row's sum of
-    |g| from ``index_add_`` on the card.  Plain: ``index_add_`` on the
-    card (atomics); library: ``scatter_add_`` under deterministic
-    algorithms (a sort, then ordered sums), the backward of
-    ``torch.gather`` that the CD step pays.  The aggregate is a train
-    step's five launches."""
+    """The scatter kernel at every scatter of a train step
+    (``measure.SCATTER_CASES``: the gathers' backward with
+    ``gather_impl='pallas'``, ``knn_group``'s with ``fused_grouping``):
+    bit-equal run to run and to the CPU's sequential ``index_add_``, and
+    within ``SCATTER_SUM_REL`` of each row's sum of |g| from
+    ``index_add_`` on the card.  Plain: ``index_add_`` on the card
+    (atomics); library: ``scatter_add_`` under deterministic algorithms (a
+    sort, then ordered sums), the backward of ``torch.gather`` that the
+    CD step pays.  ``ms`` by CUDA events around back-to-back calls (at the
+    backbone's widths that is the host's work a call), ``device_ms`` the
+    profiler's device time of the kernels alone.  The aggregate is a
+    ``gather_impl='pallas'`` step's five launches."""
     import torch
 
     from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
                                                      scatter_rows_torch)
-    from dispu_tpu_torch.kernels.measure import (GATHER_CASES,
-                                                 gather_inputs)
+    from dispu_tpu_torch.kernels.measure import (SCATTER_CASES, device_ms,
+                                                 scatter_inputs)
     from dispu_tpu_torch.train.steps import deterministic
 
     gen = torch.Generator(device="cpu").manual_seed(10)
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
-    worst = 0.0
-    for label, n, c, per_point, per_step in GATHER_CASES:
-        _, idx = gather_inputs(gen, n, c, per_point)
-        b, q = idx.shape
-        g_cpu = torch.randn(b, q, c, generator=gen)
+               device_ms=0.0, t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    fused = dict(ms=0.0, device_ms=0.0, bound_ms=0.0)
+    for case in SCATTER_CASES:
+        g_cpu, idx = scatter_inputs(gen, case)
+        b, q, c, n = case.b, case.q, case.c, case.n
         g, idx = g_cpu.to(dev), idx.to(dev)
         got = scatter_rows_cuda(g, idx, n)
         again = scatter_rows_cuda(g, idx, n)
         plain = scatter_rows_torch(g, idx, n)
         torch.cuda.synchronize()
         require(torch.equal(got, again),
-                f"scatter_rows {label}: two runs differ")
+                f"scatter_rows {case.label}: two runs differ")
         require(torch.equal(got.cpu(), scatter_rows_torch(g_cpu, idx.cpu(),
                                                           n)),
-                f"scatter_rows {label}: differs from the CPU's index_add_")
+                f"scatter_rows {case.label}: differs from the CPU's "
+                "index_add_")
         abs_sum = scatter_rows_torch(g.abs(), idx, n)
         rel = float((torch.abs(got - plain) / abs_sum.clamp_min(1e-30))
                     .max())
-        worst = max(worst, rel)
         require(rel <= SCATTER_SUM_REL,
-                f"scatter_rows {label}: {rel} of the row sums from "
+                f"scatter_rows {case.label}: {rel} of the row sums from "
                 "index_add_")
         ms = timed_ms(lambda: scatter_rows_cuda(g, idx, n), reps=20)
+        dev_ms = device_ms(lambda: scatter_rows_cuda(g, idx, n), reps=20)
         plain_ms = timed_ms(lambda: scatter_rows_torch(g, idx, n), reps=20)
         flat = idx.long()[..., None].expand(-1, -1, c)
         zeros = torch.zeros((b, n, c), device=dev)
@@ -1140,19 +1150,31 @@ def check_scatter_rows(dev):
                 lambda: zeros.clone().scatter_add_(1, flat, g), reps=20)
         nbytes = 4 * (b * q * c + b * q + b * n * c)
         bms, by = bound(nbytes, b * q * c, F32_FLOPS)
-        log(f"scatter_rows {label} (b={b} q={q} c={c} -> n={n}): bit-equal "
-            f"run to run and to the CPU's index_add_; vs index_add_ on the "
-            f"card {rel:.2e} of the row sums of |g| (bound "
-            f"{SCATTER_SUM_REL}); kernel {ms:.4f} ms, index_add_ "
-            f"{plain_ms:.4f} ms, deterministic scatter_add_ {library_ms:.4f} "
-            f"ms, bound {bms:.4f} ms ({by})")
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", library_ms), ("bound_ms", bms)):
-            agg[key] += per_step * val
-        agg["t_bytes"] += per_step * nbytes / HBM_BYTES_PER_S
-        agg["t_ops"] += per_step * b * q * c / F32_FLOPS
+        log(f"scatter_rows {case.label} (b={b} q={q} c={c} -> n={n}): "
+            f"bit-equal run to run and to the CPU's index_add_; vs "
+            f"index_add_ on the card {rel:.2e} of the row sums of |g| "
+            f"(bound {SCATTER_SUM_REL}); kernel {ms:.4f} ms a call, "
+            f"{dev_ms:.4f} on the device ({bms / dev_ms:.1%} of its bound), "
+            f"index_add_ {plain_ms:.4f} ms, deterministic scatter_add_ "
+            f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if case.setting == "pallas":
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", library_ms), ("bound_ms", bms),
+                             ("device_ms", dev_ms)):
+                agg[key] += case.per_step * val
+            agg["t_bytes"] += case.per_step * nbytes / HBM_BYTES_PER_S
+            agg["t_ops"] += case.per_step * b * q * c / F32_FLOPS
+        else:
+            for key, val in (("ms", ms), ("device_ms", dev_ms),
+                             ("bound_ms", bms)):
+                fused[key] += case.per_step * val
         agg["max_abs_err"] = max(agg["max_abs_err"],
                                  float(torch.abs(got - plain).max()))
+    log(f"scatter_rows a step: gather_impl='pallas' {agg['ms']:.4f} ms by "
+        f"events, {agg['device_ms']:.4f} on the device, bound "
+        f"{agg['bound_ms']:.4f}; fused_grouping {fused['ms']:.4f} ms, "
+        f"{fused['device_ms']:.4f} on the device, bound "
+        f"{fused['bound_ms']:.4f}")
     return agg
 
 
@@ -1877,15 +1899,26 @@ def serve_large(card: str):
     ``refine_block``, pass 2's (8,192, past its shared memory) by the
     'fused' route; twice, with exact launch counts, bit-equal, and within
     'megafused''s 16× contract: Chamfer against the composed
-    ``fast_gather`` path through the kernels ≤ ``CHAMFER_MAX[16]``."""
+    ``fast_gather`` path through the kernels ≤ ``CHAMFER_MAX[16]``.  And
+    the turbo 4× request on the same 60,000-point cloud: the bucketed
+    merge of its 719,872 candidates in ``fps_bucketed.cu``'s large-bucket
+    form (64 buckets of 11,248 points), twice, finite, the right shape,
+    bit-equal, with exact launch counts."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from dispu_tpu_torch import GeneratorConfig, InferenceConfig, kernels
     from dispu_tpu_torch.inference import PatchUpsampler
 
+    turbo = turbo_config()
     total = {}
     cases = [("4x, 60,000 points", PatchUpsampler(seed=0),
+              big_cloud(60000, 11), None),
+             ("turbo 4x, 60,000 points", PatchUpsampler(
+                 seed=0, gen_cfg=turbo.generator, inf_cfg=dataclasses.replace(
+                     turbo.inference, final_ratio=4)),
               big_cloud(60000, 11), None),
              ("megafused 16x, patch 512", PatchUpsampler(
                  gen_cfg=GeneratorConfig(refine_local_impl="megafused"),

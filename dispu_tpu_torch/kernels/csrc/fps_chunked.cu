@@ -29,61 +29,13 @@
 
 namespace {
 
+using fps_round::Describe;
+using fps_round::first_holding;
+using fps_round::Form;
 using fps_round::kDevice;
 using fps_round::kRegisters;
 using fps_round::kShared;
-
-// A cluster of CL CTAs of T threads, P points a thread where M says
-// (P = 0 for kDevice, which holds any n).
-template <int CL, int T, int P, int M>
-struct Form {
-  static constexpr long long kCapacity = (long long)CL * T * P;
-};
-
-// Launch the form on b clouds of n points, or, with max_clusters set,
-// write how many of its clusters the current device holds at once.
-struct Launch {
-  const float* xyz;
-  int* out;
-  float* scratch;
-  int b, n, npoint;
-  cudaStream_t stream;
-  int* max_clusters;
-
-  template <int CL, int T, int P, int M>
-  int operator()(Form<CL, T, P, M>) const {
-    if (M == kDevice && max_clusters == nullptr && scratch == nullptr)
-      return (int)cudaErrorInvalidValue;
-    return fps_round::run<CL, T, P, M>(xyz, out, scratch, b, n, npoint,
-                                       stream, max_clusters);
-  }
-};
-
-// Write the form's shape: cluster, threads, points, storage.
-struct Describe {
-  int* shape;
-
-  template <int CL, int T, int P, int M>
-  int operator()(Form<CL, T, P, M>) const {
-    shape[0] = CL;
-    shape[1] = T;
-    shape[2] = P;
-    shape[3] = M;
-    return 0;
-  }
-};
-
-// op on the first of the forms F, Rest... that holds n; the last one is
-// the device form, which holds any n.
-template <class F, class... Rest, class Op>
-int first_holding(int n, const Op& op) {
-  if constexpr (sizeof...(Rest) == 0) {
-    return op(F{});
-  } else {
-    if (n <= F::kCapacity) return op(F{});
-    return first_holding<Rest...>(n, op);
-  }
-}
+using fps_round::Launch;
 
 // The forms, smallest first, each timed at its limit against the next
 // larger one with time_fps.  At 16 points a thread in registers, 5 or 6

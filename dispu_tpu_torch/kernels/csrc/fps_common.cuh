@@ -236,26 +236,42 @@ fps_kernel(const float* __restrict__ xyz, int* __restrict__ out,
   if constexpr (CL > 1) cg::this_cluster().sync();
 }
 
+// Set the form's attributes on the current device, once a device: its
+// dynamic shared memory at the form's capacity and, for clusters past 8
+// CTAs (non-portable), the attribute that allows them.
+template <int CL, int T, int P, int M>
+cudaError_t set_attributes() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  const auto kernel = fps_kernel<CL, T, P, M>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      M == kDevice ? 0 : (int)(3 * sizeof(float) * T * P));
+  if (err != cudaSuccess) return err;
+  if constexpr (CL > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  if (dev < 64) done[dev] = true;
+  return cudaSuccess;
+}
+
 // Launch the form on b clouds of n points (the caller has checked that
 // the chunk fits the form), or, with max_clusters != nullptr, write how
 // many of its clusters the current device holds at once
-// (cudaOccupancyMaxActiveClusters) and launch nothing.  Clusters past 8
-// CTAs are non-portable and need the attribute that allows them.
+// (cudaOccupancyMaxActiveClusters) and launch nothing.
 template <int CL, int T, int P, int M>
 int run(const float* xyz, int* out, float* scratch, int b, int n, int npoint,
         cudaStream_t stream, int* max_clusters) {
   const auto kernel = fps_kernel<CL, T, P, M>;
   const int chunk = (n + CL - 1) / CL;
   const size_t smem = M == kDevice ? 0 : 3 * sizeof(float) * (size_t)chunk;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      M == kDevice ? 0 : (int)(3 * sizeof(float) * T * P));
+  cudaError_t err = set_attributes<CL, T, P, M>();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (CL > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(b * CL);
   cfg.blockDim = dim3(T);
@@ -274,6 +290,58 @@ int run(const float* xyz, int* out, float* scratch, int b, int n, int npoint,
   err = cudaLaunchKernelEx(&cfg, kernel, xyz, out, scratch, n, npoint);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// A form: a cluster of CL CTAs of T threads, P points a thread where M
+// says (P = 0 for kDevice, which holds any n).
+template <int CL, int T, int P, int M>
+struct Form {
+  static constexpr long long kCapacity = (long long)CL * T * P;
+};
+
+// Launch the form on b clouds of n points, or, with max_clusters set,
+// write how many of its clusters the current device holds at once.
+struct Launch {
+  const float* xyz;
+  int* out;
+  float* scratch;
+  int b, n, npoint;
+  cudaStream_t stream;
+  int* max_clusters;
+
+  template <int CL, int T, int P, int M>
+  int operator()(Form<CL, T, P, M>) const {
+    if (M == kDevice && max_clusters == nullptr && scratch == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return run<CL, T, P, M>(xyz, out, scratch, b, n, npoint, stream,
+                            max_clusters);
+  }
+};
+
+// Write the form's shape: cluster, threads, points, storage.
+struct Describe {
+  int* shape;
+
+  template <int CL, int T, int P, int M>
+  int operator()(Form<CL, T, P, M>) const {
+    shape[0] = CL;
+    shape[1] = T;
+    shape[2] = P;
+    shape[3] = M;
+    return 0;
+  }
+};
+
+// op on the first of the forms F, Rest... that holds n; the last one is
+// the device form, which holds any n.
+template <class F, class... Rest, class Op>
+int first_holding(int n, const Op& op) {
+  if constexpr (sizeof...(Rest) == 0) {
+    return op(F{});
+  } else {
+    if (n <= F::kCapacity) return op(F{});
+    return first_holding<Rest...>(n, op);
+  }
 }
 
 }  // namespace fps_round

@@ -21,27 +21,44 @@
 //
 // Scatter-add: out[b, j, :] = sum over r with idx[b, r] == j of g[b, r, :],
 // deterministic and with no float atomics: every sum is taken in ascending
-// r, so two runs give the same bits (the TPU kernel sums in a fixed tile
-// order on the MXU).  It is the counting sort of the indices followed by
-// one ordered sum per destination row:
-//   1. count: per cloud and segment of 1024 positions, how many positions
-//      point at each row (integer shared-memory atomics: counts do not
-//      depend on their order);
-//   2. scan: per cloud, the exclusive prefix of the counts in (row,
-//      segment) order: where each (row, segment) run starts in the cloud's
-//      inverse index, and each row's span;
-//   3. place: per cloud and segment, each position written to its row's
-//      next slot in ascending order; inside a segment the 32 warps take
-//      their turns, and a warp ranks equal rows with __match_any_sync, so
-//      the placement does not depend on scheduling;
-//   4. sum: one warp per destination row adds its span's rows of g in
-//      order, lanes over the channels.
+// r from +0.0 with __fadd_rn, so two runs give the same bits, and those of
+// a sequential index_add_ (the TPU kernel sums in a fixed tile order on
+// the MXU).  It is a stable counting sort of the indices into a CSR
+// (rowptr: each row's first slot; perm: the cloud's positions by row,
+// ascending within a row) followed by one ordered sum per destination row.
 // Indices outside [0, n) are dropped.
+//  - The index build, one launch a cloud (build_kernel): one block of W
+//    warps, each owning a contiguous slice of the positions, with a count
+//    per (warp, row) and the cloud's perm in shared memory.  The counts
+//    are taken with shared atomics (a count does not depend on their
+//    order), scanned in (row, warp) order into each warp's first slot of
+//    each row, and the positions placed by a walk of 32 at a time: a
+//    lane's slot is its warp's next slot of its row plus its rank among
+//    the lanes of that row, whose mask one ballot a bit of the row gives
+//    (__match_any_sync gives the same mask; the build with it in both
+//    passes took 1.4 to 1.6x as long).  Slices and ranks ascend with the
+//    position, so the placement is stable and does not depend on
+//    scheduling.  The slots land anywhere in perm, so it is placed in
+//    shared memory and stored in order afterwards (placed straight into
+//    device memory, the build took 1.5x as long).  W is the most of 32,
+//    16, 8 or 4 warps whose counts and perm fit a block's shared memory
+//    (build_warps); a larger cloud takes the multi-pass route: count, scan
+//    and place kernels over segments of 1024 positions, with the counts in
+//    device memory.
+//  - The sum (sum_kernel): LR lanes a destination row, LR the power of
+//    two that covers its width, so a warp takes 32 / LR rows of up to 32
+//    elements (the backbone's c 24 as six float4s in eight lanes, the
+//    refiner's xyz as three floats in four) and a lane A elements of a
+//    wider row (c 131: five floats).  The lanes load U source rows' slots
+//    of perm, then U source rows, and only then add them in order: U loads
+//    in flight, one serial chain of adds.  Elements are float4s when c %
+//    4 == 0 and both g and out are 16-byte aligned, else floats.  Every
+//    (row, element) is written, rows that no index names as +0.0.
 //
 // What bounds them on an H100: bytes.  The gather reads its rows and writes
 // them once (b*q*c*4 bytes each way); the scatter reads g once (b*q*c*4
-// bytes) and writes b*n*c*4, plus 4 int passes over the indices, which are
-// c times smaller.
+// bytes) and writes b*n*c*4, plus the indices and the CSR, which are c
+// times smaller.
 
 #include <cstdint>
 
@@ -49,10 +66,26 @@
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;       // warps a block in the gather and the sum
-constexpr int kSeg = 1024;      // positions a segment; threads a block
-constexpr int kChan = 8;        // channels a lane holds in the sum
+constexpr int kSeg = 1024;      // positions a segment of the multi-pass route
 constexpr int kGroup = 32;      // rows a warp of the gather takes at once
+// a block's shared memory on Hopper, and what the index build may take of
+// it for its counts (the rest: its static scan scratch)
+constexpr int kBlockSmem = 232448;
+constexpr int kBuildSmem = kBlockSmem - 256;
+constexpr int kMaxN = kBlockSmem / 4;  // the multi-pass route's n a block
+
+// Warps of the one-launch index build for n rows and q positions: the
+// most of 32, 16, 8 and 4 whose counts (one int a warp and row) and the
+// cloud's perm (q ints) fit kBuildSmem; 0 where none does and the
+// multi-pass route takes the cloud.  kernels/gather_rows.py: build_warps
+// is the same formula.
+int build_warps(int n, int q) {
+  for (int w = 32; w >= 4; w >>= 1)
+    if (4LL * ((long long)w * n + q) <= kBuildSmem) return w;
+  return 0;
+}
 
 // V: float4 or float; cv: elements of V a row; U: loads a lane has in
 // flight before its stores.  Lane l's u-th element of a pass is e = e0 +
@@ -208,39 +241,242 @@ place_kernel(const int* __restrict__ idx, const int* __restrict__ starts,
   }
 }
 
-__global__ void sum_kernel(const float* __restrict__ g,
-                           const int* __restrict__ perm,
-                           const int* __restrict__ rowptr,
-                           float* __restrict__ out, int b, int n, int q,
-                           int c) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= (long long)b * n) return;
-  const long long cloud = row / n;
-  const int j = (int)(row % n);
-  const int* ptr = rowptr + cloud * (n + 1);
-  const int lo = ptr[j], hi = ptr[j + 1];
-  const int* pr = perm + cloud * q;
-  const float* gc = g + cloud * q * c;
-  float* dst = out + row * c;
-  for (int c0 = 0; c0 < c; c0 += 32 * kChan) {
-    float acc[kChan];
+// The row at position pos of a cloud's indices, -1 past end or outside
+// [0, n).
+__device__ __forceinline__ int row_at(const int* __restrict__ ix, int pos,
+                                      int end, int n) {
+  const int j = pos < end ? ix[pos] : -1;
+  return (unsigned)j < (unsigned)n ? j : -1;
+}
+
+// The lanes of the warp whose row is j (for j >= 0), from one ballot a bit
+// of the rows' nbits bits: what __match_any_sync gives, which the card
+// runs one warp at a time on an SM.
+__device__ __forceinline__ unsigned peers_of(int j, int nbits) {
+  unsigned m = __ballot_sync(kFull, j >= 0);
+  for (int bit = 0; bit < nbits; ++bit) {
+    const bool set = (j >> bit) & 1;
+    const unsigned ones = __ballot_sync(kFull, set);
+    m &= set ? ones : ~ones;
+  }
+  return m;
+}
+
+// One block a cloud, W = blockDim.x / 32 warps (build_warps(n, q));
+// dynamic shared memory: W * n + q ints.
+__global__ void __launch_bounds__(1024)
+build_kernel(const int* __restrict__ idx, int* __restrict__ rowptr,
+             int* __restrict__ perm, int n, int q) {
+  extern __shared__ int s_next[];  // [warp][row]: counts, then next slots
+  __shared__ int s_warp[32];
+  int* s_perm = s_next + (blockDim.x >> 5) * n;  // the cloud's perm
+  constexpr int kBatch = 4;  // index loads a lane has in flight
+  const int nw = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long cloud = blockIdx.x;
+  const int* ix = idx + cloud * q;
+  int* ptr = rowptr + cloud * (n + 1);
+  int* pm = perm + cloud * q;
+  for (int e = tid; e < nw * n; e += blockDim.x) s_next[e] = 0;
+  __syncthreads();
+  // warp w owns positions [p0, p1), slices ascending with w
+  const int slice = ((q + nw - 1) / nw + 31) & ~31;
+  const int p0 = min(q, warp * slice), p1 = min(q, p0 + slice);
+  int* mine = s_next + warp * n;
+  // counts do not depend on the order they are taken in: atomics
+  for (int base = p0; base < p1; base += 32 * kBatch) {
+    int j[kBatch];
 #pragma unroll
-    for (int u = 0; u < kChan; ++u) acc[u] = 0.f;
-    for (int s = lo; s < hi; ++s) {
-      const float* src = gc + (long long)pr[s] * c;
+    for (int u = 0; u < kBatch; ++u)
+      j[u] = row_at(ix, base + 32 * u + lane, p1, n);
 #pragma unroll
-      for (int u = 0; u < kChan; ++u) {
-        const int t = c0 + lane + 32 * u;
-        if (t < c) acc[u] = __fadd_rn(acc[u], src[t]);
+    for (int u = 0; u < kBatch; ++u)
+      if (j[u] >= 0) atomicAdd(&mine[j[u]], 1);
+  }
+  __syncthreads();
+  // scan in (row, warp) order: s_next[w][j] becomes warp w's first slot of
+  // row j, rowptr[j] row j's first slot
+  int carry = 0;
+  for (int j0 = 0; j0 < n; j0 += blockDim.x) {
+    const int j = j0 + tid;
+    int total = 0;
+    if (j < n) {
+      for (int w = 0; w < nw; ++w) {
+        const int c = s_next[w * n + j];
+        s_next[w * n + j] = total;
+        total += c;
       }
     }
+    int incl = total;
 #pragma unroll
-    for (int u = 0; u < kChan; ++u) {
-      const int t = c0 + lane + 32 * u;
-      if (t < c) dst[t] = acc[u];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += t;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int v = lane < nw ? s_warp[lane] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(kFull, v, off);
+        if (lane >= off) v += t;
+      }
+      s_warp[lane] = v;
+    }
+    __syncthreads();
+    const int start = carry + incl - total + (warp > 0 ? s_warp[warp - 1] : 0);
+    if (j < n) {
+      ptr[j] = start;
+      for (int w = 0; w < nw; ++w) s_next[w * n + j] += start;
+    }
+    carry += s_warp[nw - 1];
+    __syncthreads();  // s_warp is rewritten by the next chunk
+  }
+  if (tid == 0) ptr[n] = carry;
+  // place: the same walk, each lane at its warp's next slot of its row
+  // plus its rank among the lanes of that row
+  const int nbits = 32 - __clz(max(n - 1, 1));
+  for (int base = p0; base < p1; base += 32 * kBatch) {
+    int j[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      j[u] = row_at(ix, base + 32 * u + lane, p1, n);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const unsigned peers = peers_of(j[u], nbits);
+      const int rank = __popc(peers & ((1u << lane) - 1u));
+      if (j[u] >= 0) s_perm[mine[j[u]] + rank] = base + 32 * u + lane;
+      __syncwarp();
+      if (j[u] >= 0 && rank == 0) mine[j[u]] += __popc(peers);
+      __syncwarp();
     }
   }
+  // the slots land anywhere in the cloud's perm: placed in shared memory,
+  // then stored in order, coalesced
+  __syncthreads();
+  for (int e = tid; e < carry; e += blockDim.x) pm[e] = s_perm[e];
+}
+
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// V: float4 or float; cv: elements of V a row; LR lanes a destination row
+// (32 / LR rows a warp), A elements of V a lane, U source rows in flight.
+template <typename V, int LR, int A, int U>
+__global__ void __launch_bounds__(kWarps * 32)
+sum_kernel(const V* __restrict__ g, const int* __restrict__ perm,
+           const int* __restrict__ rowptr, V* __restrict__ out,
+           long long rows, int n, int q, int cv) {
+  const int lane = threadIdx.x & 31, gl = lane % LR;
+  const long long row =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / LR) +
+      lane / LR;
+  long long cloud = 0;
+  int lo = 0, len = 0;
+  if (row < rows) {
+    cloud = row / n;
+    const int* ptr = rowptr + cloud * (n + 1) + row % n;
+    lo = ptr[0];
+    len = ptr[1] - lo;
+  }
+  const int* pr = perm + cloud * q + lo;
+  const V* gc = g + cloud * q * cv;
+  const int most = __reduce_max_sync(kFull, len);
+  for (int c0 = 0; c0 < cv; c0 += LR * A) {
+    V acc[A];
+#pragma unroll
+    for (int a = 0; a < A; ++a) acc[a] = V{};
+    for (int s = 0; s < most; s += U) {
+      int src[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) src[u] = s + u < len ? pr[s + u] : -1;
+      V v[U][A];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const int t = c0 + gl + LR * a;
+          v[u][a] = V{};
+          if (src[u] >= 0 && t < cv) v[u][a] = gc[(long long)src[u] * cv + t];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (src[u] < 0) continue;  // ascending u: the sum's order
+#pragma unroll
+        for (int a = 0; a < A; ++a) acc[a] = add_rn(acc[a], v[u][a]);
+      }
+    }
+    if (row < rows) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const int t = c0 + gl + LR * a;
+        if (t < cv) out[row * cv + t] = acc[a];
+      }
+    }
+  }
+}
+
+// The sum's arguments: cv elements of V a row, rows = b * n.
+struct SumArgs {
+  const float* g;
+  const int* perm;
+  const int* rowptr;
+  float* out;
+  long long rows;
+  int n, q, cv;
+  cudaStream_t stream;
+};
+
+template <typename V, int LR, int A>
+int launch_sum(const SumArgs& a) {
+  // 16 to 64 registers of loads in flight a lane, at least two rows
+  constexpr int kWidth = A * (int)(sizeof(V) / sizeof(float));
+  constexpr int U = kWidth <= 4 ? 16 : kWidth <= 8 ? 8 : kWidth <= 16 ? 4 : 2;
+  const long long per_block = (long long)kWarps * (32 / LR);
+  sum_kernel<V, LR, A, U>
+      <<<(unsigned)((a.rows + per_block - 1) / per_block), kWarps * 32, 0,
+         a.stream>>>(reinterpret_cast<const V*>(a.g), a.perm, a.rowptr,
+                     reinterpret_cast<V*>(a.out), a.rows, a.n, a.q, a.cv);
+  return (int)cudaGetLastError();
+}
+
+// the lanes a row and elements a lane for rows of cv elements of V
+template <typename V>
+int sum_rows(const SumArgs& a) {
+  if (a.cv <= 1) return launch_sum<V, 1, 1>(a);
+  if (a.cv <= 2) return launch_sum<V, 2, 1>(a);
+  if (a.cv <= 4) return launch_sum<V, 4, 1>(a);
+  if (a.cv <= 8) return launch_sum<V, 8, 1>(a);
+  if (a.cv <= 16) return launch_sum<V, 16, 1>(a);
+  if (a.cv <= 32) return launch_sum<V, 32, 1>(a);
+  if (a.cv <= 64) return launch_sum<V, 32, 2>(a);
+  if (a.cv <= 128) return launch_sum<V, 32, 4>(a);
+  if (a.cv <= 160) return launch_sum<V, 32, 5>(a);
+  return launch_sum<V, 32, 8>(a);
+}
+
+// The shared-memory limits of the scatter's kernels, set once a device
+// (at their largest, so that no call sets them again).
+cudaError_t set_scatter_attributes() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if ((err = cudaFuncSetAttribute(build_kernel, attr, kBuildSmem)) ||
+      (err = cudaFuncSetAttribute(count_kernel, attr, kBlockSmem)) ||
+      (err = cudaFuncSetAttribute(place_kernel, attr, kBlockSmem)))
+    return err;
+  if (dev < 64) done[dev] = true;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -257,30 +493,46 @@ extern "C" int dispu_gather_rows(const float* table, const int* idx,
   return launch_gather<float, 8>(table, idx, out, rows, n, q, c, s);
 }
 
-// counts: b * ceil(q / 1024) * n ints, rowptr: b * (n + 1) ints, perm:
-// b * q ints, all scratch; n ints of a row table must fit shared memory.
+// Warps of the one-launch index build for n rows and q positions, 0 for
+// the multi-pass route (build_warps).
+extern "C" int dispu_scatter_build_warps(int n, int q) {
+  return build_warps(n, q);
+}
+
+// scratch, ints: rowptr b * (n + 1), then perm b * q, then for the
+// multi-pass route (build_warps(n, q) == 0) the counts b * ceil(q / 1024)
+// * n.  n <= 58,112: a row table of the multi-pass route fits a block.
 extern "C" int dispu_scatter_rows(const float* g, const int* idx, float* out,
-                                  int* counts, int* rowptr, int* perm, int b,
-                                  int n, int q, int c, void* stream) {
-  if (b < 1 || n < 1 || q < 1 || c < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                  int* scratch, int b, int n, int q, int c,
+                                  void* stream) {
+  if (b < 1 || n < 1 || q < 1 || c < 1 || n > kMaxN)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_scatter_attributes();
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const int nseg = (q + kSeg - 1) / kSeg;
-  const dim3 segs(nseg, b);
-  count_kernel<<<segs, kSeg, smem, s>>>(idx, counts, n, q, nseg);
+  int* rowptr = scratch;
+  int* perm = scratch + (size_t)b * (n + 1);
+  const int warps = build_warps(n, q);
+  if (warps > 0) {
+    build_kernel<<<b, 32 * warps, ((size_t)warps * n + q) * sizeof(int), s>>>(
+        idx, rowptr, perm, n, q);
+  } else {
+    int* counts = perm + (size_t)b * q;
+    const int nseg = (q + kSeg - 1) / kSeg;
+    const dim3 segs(nseg, b);
+    const size_t smem = (size_t)n * sizeof(int);
+    count_kernel<<<segs, kSeg, smem, s>>>(idx, counts, n, q, nseg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    scan_kernel<<<b, kSeg, 0, s>>>(counts, rowptr, n, nseg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    place_kernel<<<segs, kSeg, smem, s>>>(idx, counts, perm, n, q, nseg);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  scan_kernel<<<b, kSeg, 0, s>>>(counts, rowptr, n, nseg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  place_kernel<<<segs, kSeg, smem, s>>>(idx, counts, perm, n, q, nseg);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long rows = (long long)b * n;
-  sum_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kWarps * 32, 0, s>>>(
-      g, perm, rowptr, out, b, n, q, c);
-  return (int)cudaGetLastError();
+  SumArgs a{g, perm, rowptr, out, (long long)b * n, n, q, c, s};
+  if (c % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    a.cv = c / 4;
+    return sum_rows<float4>(a);
+  }
+  return sum_rows<float>(a);
 }

@@ -4,23 +4,27 @@ its plain version.
 Replaces ``fps_bucketed_pallas`` (``dispu_tpu/ops/pallas_kernels.py``), the
 merge FPS of the bucketed (turbo) merge,
 ``ops.sampling.farthest_point_sample_bucketed``.  On an H100 the kernel is
-bound by the latency of each bucket's serial argmax chain: one warp a
-bucket, one bucket a block, every bucket of a batch of clouds in one
-launch; see the note at the top of the source.
+bound by the latency of each bucket's serial argmax chain.  A bucket is
+one cloud of ``fps.cu``'s round (``csrc/fps_common.cuh``: the points in
+registers, ``redux.sync`` a level, one barrier a round), every bucket of a
+batch of clouds in one launch; the kernel picks the form for a bucket size
+(:func:`form_for` asks it): a block of 2 to 32 warps with three points a
+thread in registers (six up to 6,144 points), the coordinates in shared
+memory up to 18,432, both in device memory beyond, with a scratch of
+min-distances that the wrapper allocates.  See the note at the top of the
+source.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 from dispu_tpu_torch.kernels.fps import fps_torch
-
-#: buckets up to this many points keep their min-distances in registers;
-#: larger ones take the kernel's device-memory form
-REG_MAX_NB = 2048
+from dispu_tpu_torch.kernels.fps_chunked import STORAGES, Form
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +34,41 @@ def fps_bucketed_torch(m_b: int, buckets: torch.Tensor) -> torch.Tensor:
     """Plain version: exact FPS (:func:`fps_torch`) on each of the (K, n_b,
     3) buckets → (K, m_b) int32 local indices."""
     return fps_torch(m_b, buckets)
+
+
+@functools.cache
+def _lib():
+    """The kernel's library, built, loaded and bound once."""
+    from dispu_tpu_torch.kernels import _build
+
+    lib = _build.load("fps_bucketed")
+    lib.dispu_fps_bucketed_form.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.dispu_fps_bucketed.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    for fn in (lib.dispu_fps_bucketed_form, lib.dispu_fps_bucketed):
+        fn.restype = _I
+    return lib
+
+
+@functools.cache
+def form_for(nb: int) -> Form:
+    """The form the kernel takes for buckets of ``nb`` points (builds
+    it)."""
+    from dispu_tpu_torch.kernels import _build
+
+    shape = (_I * 4)()
+    _build.check(_lib().dispu_fps_bucketed_form(nb, shape),
+                 f"fps_bucketed form for n_b = {nb}")
+    cluster, threads, points, storage = shape
+    return Form(cluster, threads, points, STORAGES[storage])
+
+
+def forms_from(nb: int) -> list[Form]:
+    """The forms the kernel takes for buckets of ``nb`` points and more, in
+    order: each on-chip form up to its capacity, then the device form."""
+    forms = [form_for(nb)]
+    while forms[-1].storage != "device":
+        forms.append(form_for(forms[-1].capacity + 1))
+    return forms
 
 
 def fps_bucketed_cuda(m_b: int, buckets: torch.Tensor) -> torch.Tensor:
@@ -48,18 +87,16 @@ def fps_bucketed_cuda(m_b: int, buckets: torch.Tensor) -> torch.Tensor:
     if k < 1 or nb < 1 or m_b < 1:
         raise ValueError(f"fps_bucketed kernel needs K, n_b, m_b >= 1, got "
                          f"{(k, nb, m_b)}")
+    form = form_for(nb)
     scratch = (torch.empty((k, nb), dtype=torch.float32, device=buckets.device)
-               if nb > REG_MAX_NB else None)
+               if form.storage == "device" else None)
     out = torch.empty((k, m_b), dtype=torch.int32, device=buckets.device)
-    fn = _build.load("fps_bucketed").dispu_fps_bucketed
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-    fn.restype = _I
     with torch.cuda.device(buckets.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(buckets.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(),
-                    out.data_ptr(), k, nb, m_b, stream)
-    _build.check(status, "fps_bucketed kernel launch")
+        status = _lib().dispu_fps_bucketed(
+            buckets.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), k, nb, m_b, stream)
+    _build.check(status, f"fps_bucketed kernel launch ({form})")
     LAUNCHES["fps_bucketed"] += 1
     return out
 

@@ -10,25 +10,73 @@ inside the JAX package's gate.  The scatter is also the gather transpose of
 bytes of the rows they move; see the note at the top of the source.  The
 gather is bit-equal to ``torch.gather``; the scatter sums each row in
 ascending source position, so it is bit-equal run to run and, on the CPU,
-to ``index_add_``.
+to ``index_add_``.  The scatter is two launches, a stable counting sort of
+the indices (one block a cloud, :func:`build_warps`) and the ordered sums,
+into one scratch tensor (:func:`scratch_ints`); a call binds nothing anew
+and makes no host synchronization.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
 
-#: the scatter keeps a running slot for each of the n destination rows in
-#: one block's shared memory (232,448 bytes on Hopper)
-SCATTER_MAX_N = 232448 // 4
-#: positions a segment of the scatter's counting sort (its block size)
+#: a block's shared memory on Hopper
+BLOCK_SMEM = 232448
+#: the scatter's multi-pass route keeps a running slot for each of the n
+#: destination rows in one block's shared memory
+SCATTER_MAX_N = BLOCK_SMEM // 4
+#: positions a segment of the multi-pass route (its block size)
 SEGMENT = 1024
+#: shared memory the one-launch index build takes for its counts and its
+#: perm (the rest: its static scan scratch)
+BUILD_SMEM = BLOCK_SMEM - 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def build_warps(n: int, q: int) -> int:
+    """Warps of the scatter's one-launch index build for ``n`` rows and
+    ``q`` positions: the most of 32, 16, 8 and 4 whose counts (an int a
+    warp and row) and the cloud's perm (q ints) fit :data:`BUILD_SMEM`; 0
+    where none does and the multi-pass route takes the cloud
+    (``csrc/gather_rows.cu``: ``build_warps``)."""
+    for warps in (32, 16, 8, 4):
+        if 4 * (warps * n + q) <= BUILD_SMEM:
+            return warps
+    return 0
+
+
+def build_max_n(q: int) -> int:
+    """The largest n the one-launch index build takes at ``q`` positions
+    (four warps), 0 where it takes none."""
+    return max(0, (BUILD_SMEM // 4 - q) // 4)
+
+
+def scratch_ints(b: int, n: int, q: int) -> int:
+    """Ints of the scatter's scratch: rowptr b·(n + 1) and perm b·q, and
+    for the multi-pass route the counts b·ceil(q / SEGMENT)·n."""
+    size = b * (n + 1) + b * q
+    if build_warps(n, q) == 0:
+        size += b * -(-q // SEGMENT) * n
+    return size
+
+
+@functools.cache
+def _fn(name: str, argtypes: tuple):
+    """``csrc/gather_rows.cu``'s entry point ``name`` with its argument
+    types, loaded and bound once."""
+    from dispu_tpu_torch.kernels import _build
+
+    fn = getattr(_build.load("gather_rows"), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = _I
+    return fn
 
 
 def gather_rows_torch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -73,9 +121,7 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, n, c = table.shape
     q = idx.shape[1]
     out = torch.empty((b, q, c), dtype=torch.float32, device=table.device)
-    fn = _build.load("gather_rows").dispu_gather_rows
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
-    fn.restype = _I
+    fn = _fn("dispu_gather_rows", (_P, _P, _P, _I, _I, _I, _I, _P))
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, q,
@@ -87,8 +133,8 @@ def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def scatter_rows_cuda(g: torch.Tensor, idx: torch.Tensor,
                       n: int) -> torch.Tensor:
-    """Launch the scatter kernel (its four passes count as one launch).
-    Same contract as :func:`scatter_rows_torch`, for n ≤
+    """Launch the scatter kernel (the index build and the sum count as one
+    launch).  Same contract as :func:`scatter_rows_torch`, for n ≤
     :data:`SCATTER_MAX_N`; an index outside [0, n) is dropped."""
     from dispu_tpu_torch.kernels import _build
 
@@ -101,19 +147,14 @@ def scatter_rows_cuda(g: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"scatter_rows kernel takes n <= {SCATTER_MAX_N} "
                          f"rows, got {n}")
     dev = g.device
-    nseg = -(-q // SEGMENT)
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
-    counts = torch.empty(b * nseg * n, dtype=torch.int32, device=dev)
-    rowptr = torch.empty(b * (n + 1), dtype=torch.int32, device=dev)
-    perm = torch.empty(b * q, dtype=torch.int32, device=dev)
-    fn = _build.load("gather_rows").dispu_scatter_rows
-    fn.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-    fn.restype = _I
+    scratch = torch.empty(scratch_ints(b, n, q), dtype=torch.int32,
+                          device=dev)
+    fn = _fn("dispu_scatter_rows", (_P,) * 4 + (_I,) * 4 + (_P,))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(g.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                    counts.data_ptr(), rowptr.data_ptr(), perm.data_ptr(), b,
-                    n, q, c, stream)
+                    scratch.data_ptr(), b, n, q, c, stream)
     _build.check(status, "scatter_rows kernel launch")
     LAUNCHES["scatter_rows"] += 1
     return out

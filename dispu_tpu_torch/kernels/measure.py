@@ -4,12 +4,16 @@
 serving and training paths, with :func:`knn_inputs` and
 :func:`knn_group_inputs` to make their inputs from a seed;
 ``GATHER_CASES`` are the gather pair's shapes in a train step at batch 28
-with ``gather_impl='pallas'``; ``BALL_CASES`` the ball query's in a CD and
+with ``gather_impl='pallas'``; ``SCATTER_CASES`` the scatter kernel's in a
+train step with ``gather_impl='pallas'`` and with ``fused_grouping``;
+``BUCKETED_CASES`` the bucketed merge FPS's on the turbo serving path;
+``BALL_CASES`` the ball query's in a CD and
 a GAN step, with :func:`ball_inputs`; ``REFINE_CASES`` are the fused
 refiner kernels' two passes, with :func:`refine_params`,
 :func:`refine_ops` and :func:`refine_chain`; :func:`device_ms` is the
 device time of the
-kernels a call launches, from a ``torch.profiler`` trace.  Importing this
+kernels a call launches, from a ``torch.profiler`` trace, and
+:func:`device_ms_by_kernel` the same by kernel name.  Importing this
 module needs only ``torch``; ``time_fps`` also loads it by path into a
 checkout of another commit.
 """
@@ -165,6 +169,78 @@ def gather_inputs(gen: torch.Generator, n: int, c: int, per_point: int,
     return table, idx
 
 
+class ScatterCase(NamedTuple):
+    """One scatter-add launch of a CD train step at batch 28: ``b`` clouds
+    of ``q`` rows of ``c`` floats summed into ``n`` rows; ``setting``: the
+    step's ``GeneratorConfig`` flag that sends it to the kernel
+    (``"pallas"``: ``gather_impl='pallas'``, the gather's backward;
+    ``"fused_grouping"``: ``KnnGroupFunction``'s backward), ``per_step``:
+    launches in one such step."""
+    label: str
+    setting: str
+    b: int
+    q: int
+    c: int
+    n: int
+    per_step: int
+
+
+#: the gathers' backward with ``gather_impl='pallas'`` (``GATHER_CASES``'
+#: cotangents), and with ``fused_grouping`` the backbone's feature rows
+#: (k 16) and the refiner's feature and xyz rows (128 features, k 16)
+SCATTER_CASES = [
+    *(ScatterCase(f"pallas {label}", "pallas", 28, n * per_point, c, n,
+                  launches)
+      for label, n, c, per_point, launches in GATHER_CASES),
+    ScatterCase("fused backbone c24", "fused_grouping", 28, 4096, 24, 256, 1),
+    ScatterCase("fused backbone c48", "fused_grouping", 28, 4096, 48, 256, 3),
+    ScatterCase("fused refiner c128", "fused_grouping", 28, 16384, 128, 1024,
+                1),
+    ScatterCase("fused refiner xyz", "fused_grouping", 28, 16384, 3, 1024, 1),
+]
+
+
+def scatter_inputs(gen: torch.Generator, case: ScatterCase
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(g (b, q, c), int32 indices (b, q)) of the case on the CPU: the
+    indices of :func:`gather_inputs` (every ``q // n``-th a row's own), the
+    cotangents N(0, 1)."""
+    _, idx = gather_inputs(gen, case.n, 1, case.q // case.n, case.b)
+    return torch.randn(case.b, case.q, case.c, generator=gen), idx
+
+
+class BucketedCase(NamedTuple):
+    """One launch of the bucketed merge FPS: ``k`` buckets of ``nb``
+    points → ``mb`` local picks each; ``per_request``: launches in one
+    turbo request (or streaming call) of its kind."""
+    label: str
+    k: int
+    nb: int
+    mb: int
+    per_request: int
+
+
+#: the turbo merge of a 2048-point cloud at 4× (24,576 candidates → 64
+#: buckets) and at 16× (98,304), ``upsample_many`` of two such clouds
+#: (one launch, 128 buckets), and a 60,000-point cloud at 4× (719,872
+#: candidates → 240,000 points)
+BUCKETED_CASES = [
+    BucketedCase("4x merge", 64, 384, 128, 1),
+    BucketedCase("16x merge", 64, 1536, 512, 1),
+    BucketedCase("4x stream B=2", 128, 384, 128, 1),
+    BucketedCase("16x stream B=2", 128, 1536, 512, 1),
+    BucketedCase("60,000-point 4x", 64, 11248, 3750, 1),
+]
+
+
+def bucketed_inputs(gen: torch.Generator, case: BucketedCase) -> torch.Tensor:
+    """(k, nb, 3) buckets of the case on the CPU, N(0, 1), the last 10
+    points of each bucket repeating its first 10 (tied distances)."""
+    x = torch.randn(case.k, case.nb, 3, generator=gen)
+    x[:, case.nb - 10:] = x[:, :10]
+    return x
+
+
 class BallCase(NamedTuple):
     """One ball-query launch: ``b`` clouds of ``n`` points in ``c``
     dimensions, ``m`` queries each (every ``n // m``-th point), ``radius``,
@@ -286,11 +362,9 @@ def refine_chain(p):
     return run
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds a call of the kernels ``fn`` launches, from
-    a torch.profiler trace of ``reps`` calls after one warm-up: the
-    kernels' own time, without the host's work between launches that CUDA
-    events around back-to-back calls also time."""
+def _device_events(fn, reps: int) -> list:
+    """The device events of a torch.profiler trace of ``reps`` calls of
+    ``fn`` after one warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -303,8 +377,41 @@ def device_ms(fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(evt.time_range.elapsed_us() for evt in prof.events()
-                 if evt.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / reps
+        events = [evt for evt in prof.events()
+                  if evt.device_type == DeviceType.CUDA]
+        if sum(evt.time_range.elapsed_us() for evt in events) > 0:
+            return events
     raise RuntimeError("profiler: no device time traced in three traces")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds a call of the kernels ``fn`` launches, from
+    a torch.profiler trace of ``reps`` calls after one warm-up: the
+    kernels' own time, without the host's work between launches that CUDA
+    events around back-to-back calls also time."""
+    return sum(evt.time_range.elapsed_us()
+               for evt in _device_events(fn, reps)) / 1e3 / reps
+
+
+def kernel_name(name: str) -> str:
+    """A device event's kernel name without its namespace, return type
+    and arguments: ``"void (anonymous namespace)::sum_kernel<float, 4>(float
+    const*, ...)"`` → ``"sum_kernel<float, 4>"``."""
+    import re
+
+    if name.startswith(("Memcpy", "Memset")):
+        return name
+    m = re.search(r"(\w+)\s*(<[^()]*>)?\s*\(",
+                  name.replace("(anonymous namespace)::", "").replace(
+                      "void ", ""))
+    return (m.group(1) + (m.group(2) or "")) if m else name
+
+
+def device_ms_by_kernel(fn, reps: int) -> dict[str, float]:
+    """:func:`device_ms` split by kernel (:func:`kernel_name`): mean device
+    milliseconds a call of ``fn`` spends in each kernel it launches."""
+    out: dict[str, float] = {}
+    for evt in _device_events(fn, reps):
+        key = kernel_name(evt.name)
+        out[key] = out.get(key, 0.0) + evt.time_range.elapsed_us() / 1e3 / reps
+    return out

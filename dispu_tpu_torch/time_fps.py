@@ -3,7 +3,8 @@ checkouts on the card, in turns.
 
     python3 -m dispu_tpu_torch.time_fps [--b 1] [--n 98304] [--npoint 32768]
                                         [--reps 3]
-                                        [--kernel KERNEL | --request R]
+                                        [--kernel KERNEL | --request R
+                                         [--points N] | --steps]
                                         [TREE ...]
 
 Each TREE is the root of a checkout of this repository (default: the one
@@ -33,6 +34,22 @@ only within one such call.
   (``measure.device_ms``), a call each; the top-level numbers are a train
   step's aggregate (1 × c 24, 3 × c 48, 1 × c 131), ``shapes`` each
   shape's.
+- ``--kernel scatter_rows``: ``scatter_rows_cuda`` at every shape of
+  ``measure.SCATTER_CASES`` (inputs from ``measure.scatter_inputs`` with
+  seed 10): ``ms`` by CUDA events around ``--reps`` back-to-back calls,
+  ``kernel_ms`` the profiler's device time a call, ``kernels`` the same
+  by kernel name (each pass of the index build and the sum), ``syncs``
+  the ``cudaStreamSynchronize`` and ``cudaMemcpy*`` calls in the
+  profiler's CPU trace of one call, and a digest a shape; the top-level
+  numbers are a ``gather_impl='pallas'`` step's five launches, and
+  ``fused_`` ones a ``fused_grouping`` step's six.
+- ``--kernel fps_bucketed``: ``fps_bucketed_cuda`` at every shape of
+  ``measure.BUCKETED_CASES`` (inputs from ``measure.bucketed_inputs``
+  with seed 7): ``ms`` by CUDA events, ``kernel_ms`` the profiler's
+  device time, ``us_round`` the latter over the m_b − 1 rounds, and a
+  digest a shape; the top-level ``ms`` is the 4× merge's.  To time a
+  form, copy the package into ``_trees/NAME/`` with the list in
+  ``csrc/fps_bucketed.cu``'s ``with_form`` edited and pass that tree too.
 - ``--kernel knn``: ``knn_cuda`` at every shape of ``measure.KNN_CASES``
   (inputs from ``measure.knn_inputs`` with seed 1, the patch cut on the
   normalized ``demo/gt/Icosahedron.xyz``, ``measure`` loaded from this
@@ -71,6 +88,16 @@ only within one such call.
   1024), with the duplicate bias (c 24, k 17) and with +inf
   on all but 10 columns (k 16), each with a digest; the top-level ``ms``
   is the first, a 16× turbo request's one launch.
+- ``--steps``: CD train steps at batch 28 (``ExperimentConfig()``,
+  ``make_train_step`` from ``create_generator_state(seed=0)``, one fixed
+  batch of ``synthetic_patches`` with seed 0, as ``chip_smoke.py``'s
+  training phase), the default step and with ``gather_impl='pallas'``
+  (``pallas_``) and ``fused_grouping`` (``fused_``): the median host wall
+  ms of ``--reps`` warm steps, each ended by a host fetch of its loss,
+  and a digest of every step's loss.
+- ``--request R --points N``: the turbo request alone on a scan of N
+  points on a torus (``chip_smoke.py``'s ``big_cloud`` with seed 11),
+  under ``turbo_``.
 - ``--request R``: ``PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
   final_ratio=R)).upsample`` of ``demo/gt/fandisk.xyz``, host wall
   milliseconds a call (the result is on the host when it returns) over
@@ -121,22 +148,32 @@ if mode.startswith("request"):
     import numpy as np
     from dispu_tpu_torch import InferenceConfig, cli
     from dispu_tpu_torch.inference import PatchUpsampler
-    ratio = int(mode[len("request"):])
+    ratio, _, points = mode[len("request"):].partition("_")
+    ratio = int(ratio)
     turbo = cli.build_config(cli.parse_args(["--phase", "test", "--turbo",
                                              "true"]))
-    pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
     from dispu_tpu_torch import GeneratorConfig
-    result = {}
-    for key, up in (
-            ("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
-                final_ratio=ratio))),
-            ("turbo_", PatchUpsampler(
-                seed=0, gen_cfg=turbo.generator, inf_cfg=dataclasses.replace(
-                    turbo.inference, final_ratio=ratio))),
-            *((f"{impl}_", PatchUpsampler(
+    setups = [("turbo_", PatchUpsampler(
+        seed=0, gen_cfg=turbo.generator, inf_cfg=dataclasses.replace(
+            turbo.inference, final_ratio=ratio)))]
+    if points:
+        # a scan on a torus's surface (chip_smoke.py's big_cloud, seed 11)
+        rs = np.random.RandomState(11)
+        u, v = rs.uniform(0.0, 2.0 * np.pi, (2, int(points)))
+        ring = 1.0 + 0.35 * np.cos(v)
+        pc = np.stack([ring * np.cos(u), ring * np.sin(u), 0.35 * np.sin(v)],
+                      1)
+        pc = (pc + 0.002 * rs.randn(int(points), 3)).astype(np.float32)
+    else:
+        pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
+        setups = [("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
+            final_ratio=ratio)))] + setups + [
+            (f"{impl}_", PatchUpsampler(
                 seed=0, gen_cfg=GeneratorConfig(refine_local_impl=impl),
                 inf_cfg=InferenceConfig(final_ratio=ratio)))
-              for impl in ("fused", "megafused"))):
+            for impl in ("fused", "megafused")]
+    result = {}
+    for key, up in setups:
         out = up.upsample(pc)
         each = []
         for _ in range(reps):
@@ -145,6 +182,39 @@ if mode.startswith("request"):
             each.append((time.perf_counter() - t0) * 1e3)
         result.update({key + "ms": sum(each) / reps, key + "ms_each": each,
                        key + "digest": digest(out)})
+    print(json.dumps(result))
+elif mode == "steps":
+    import dataclasses
+    import statistics
+    import numpy as np
+    from dispu_tpu_torch.config import ExperimentConfig
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+    cfg = ExperimentConfig()
+    bs = cfg.train.batch_size
+    data = PatchDataset(h5_path="/nonexistent.h5",
+                        synthetic_patches_count=3 * bs, seed=0)
+    gt = torch.from_numpy(data.gt[:bs]).cuda()
+    radius = torch.from_numpy(data.radius[:bs]).cuda()
+    result = {}
+    for key, kw in (("", {}), ("pallas_", dict(gather_impl="pallas")),
+                    ("fused_", dict(fused_grouping=True))):
+        c = dataclasses.replace(cfg, generator=dataclasses.replace(
+            cfg.generator, **kw))
+        st = create_generator_state(c.generator, seed=0, device="cuda")
+        step = make_train_step(c)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        each, totals = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, gt, radius, gen)
+            totals.append(float(m["total"]))  # a host fetch: synchronized
+            each.append((time.perf_counter() - t0) * 1e3)
+        result.update({key + "ms": statistics.median(each[1:]),
+                       key + "ms_each": each[1:],
+                       key + "digest": digest(np.array(totals))})
     print(json.dumps(result))
 elif mode == "gather_rows":
     import importlib.util
@@ -169,6 +239,53 @@ elif mode == "gather_rows":
         for key, val in shapes[label].items():
             total[key] = total.get(key, 0.0) + launches * val
     print(json.dumps({**total, "shapes": shapes, "digest": digest(*outs)}))
+elif mode in ("scatter_rows", "fps_bucketed"):
+    import importlib.util
+    import numpy as np
+    spec = importlib.util.spec_from_file_location("measure", sys.argv[6])
+    measure = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(measure)
+    from torch.profiler import ProfilerActivity, profile
+    shapes, total = {}, {}
+    if mode == "scatter_rows":
+        from dispu_tpu_torch.kernels.gather_rows import scatter_rows_cuda
+        gen = torch.Generator().manual_seed(10)
+        cases = measure.SCATTER_CASES
+    else:
+        from dispu_tpu_torch.kernels.fps_bucketed import fps_bucketed_cuda
+        gen = torch.Generator().manual_seed(7)
+        cases = measure.BUCKETED_CASES
+    for case in cases:
+        if mode == "scatter_rows":
+            g, idx = (t.cuda() for t in measure.scatter_inputs(gen, case))
+            def call():
+                return scatter_rows_cuda(g, idx, case.n)
+        else:
+            x = measure.bucketed_inputs(gen, case).cuda()
+            def call():
+                return fps_bucketed_cuda(case.mb, x)
+        out = call().cpu().numpy()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        syncs = sum(1 for evt in prof.events()
+                    if "Synchronize" in evt.name or "Memcpy" in evt.name)
+        one = {"ms": event_ms(call),
+               "kernel_ms": measure.device_ms(call, reps),
+               "kernels": measure.device_ms_by_kernel(call, reps),
+               "syncs": syncs, "digest": digest(out)}
+        if mode == "scatter_rows":
+            key = "" if case.setting == "pallas" else "fused_"
+            for name in ("ms", "kernel_ms"):
+                total[key + name] = (total.get(key + name, 0.0)
+                                     + case.per_step * one[name])
+        else:
+            one["us_round"] = one["kernel_ms"] / (case.mb - 1) * 1e3
+            if not total:
+                total = {"ms": one["ms"], "kernel_ms": one["kernel_ms"]}
+        shapes[case.label] = one
+    joined = "".join(v["digest"] for v in shapes.values()).encode()
+    print(json.dumps({**total, "shapes": shapes,
+                      "digest": digest(np.frombuffer(joined, np.uint8))}))
 elif mode in ("knn", "knn_group"):
     import importlib.util
     import numpy as np
@@ -359,14 +476,25 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--kernel", default="route",
                         choices=("route", "fps", "fps_chunked",
-                                 "gather_rows", "knn", "knn_group",
+                                 "fps_bucketed", "gather_rows",
+                                 "scatter_rows", "knn", "knn_group",
                                  "knn_packed", "query_ball",
                                  "refine_local", "refine_block"))
     parser.add_argument("--request", type=int, default=None, metavar="R",
                         help="time whole upsample requests at final "
                              "ratio R instead of a kernel")
+    parser.add_argument("--points", type=int, default=0,
+                        help="with --request: a turbo request on a scan of "
+                             "this many points instead of demo/gt/fandisk.xyz")
+    parser.add_argument("--steps", action="store_true",
+                        help="time CD train steps instead of a kernel")
     args = parser.parse_args()
-    mode = args.kernel if args.request is None else f"request{args.request}"
+    mode = args.kernel
+    if args.request is not None:
+        mode = f"request{args.request}" + (
+            f"_{args.points}" if args.points else "")
+    elif args.steps:
+        mode = "steps"
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,9 +502,12 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     print(card, flush=True)
     if args.request is not None:
-        shape = {"ratio": args.request}
-    elif args.kernel in ("gather_rows", "knn", "knn_group", "knn_packed",
-                         "query_ball", "refine_local", "refine_block"):
+        shape = {"ratio": args.request, "points": args.points or 2048}
+    elif args.steps:
+        shape = {"steps": args.reps}
+    elif args.kernel in ("fps_bucketed", "gather_rows", "scatter_rows",
+                         "knn", "knn_group", "knn_packed", "query_ball",
+                         "refine_local", "refine_block"):
         shape = {"kernel": args.kernel}
     else:
         shape = {"kernel": args.kernel, "b": args.b, "n": args.n,

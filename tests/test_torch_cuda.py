@@ -8,6 +8,8 @@ JAX package, so it runs on a machine with PyTorch alone:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -16,10 +18,14 @@ from dispu_tpu_torch import GeneratorConfig, InferenceConfig, kernels
 from dispu_tpu_torch.inference import PatchUpsampler, pin_f32
 from dispu_tpu_torch.kernels.attention import attention_cuda, attention_torch
 from dispu_tpu_torch.kernels.fps import FPS_MAX_N, fps_cuda, fps_torch
+from dispu_tpu_torch.kernels import measure
 from dispu_tpu_torch.kernels.fps_chunked import (fps_chunked_cuda, form_for,
                                                  forms_from)
+from dispu_tpu_torch.kernels.gather_rows import (BUILD_SMEM, SCATTER_MAX_N,
+                                                 build_max_n, build_warps)
 from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
                                          knn_cuda, knn_torch)
+from dispu_tpu_torch.kernels.measure import SCATTER_CASES
 from dispu_tpu_torch.kernels.query_ball import (MAX_C, MAX_N, MAX_NSAMPLE,
                                                 query_ball_cuda,
                                                 query_ball_torch)
@@ -826,6 +832,48 @@ def test_fps_bucketed_kernel_bit_equal_to_plain(dev, K, nb, mb):
     assert torch.equal(fps_bucketed_cuda(mb, x), fps_bucketed_torch(mb, x))
 
 
+def _fps_bucketed_cases():
+    """(label, K, n_b, m_b) at both edges of every on-chip form of the
+    kernel (its capacity and one past it, the last one past the shared
+    memory form: the device form), then the 60,000-point cloud's 4×
+    buckets and more buckets than the card has SMs."""
+    from dispu_tpu_torch.kernels.fps_bucketed import forms_from
+
+    cases = []
+    for form in forms_from(1)[:-1]:
+        for nb in (form.capacity, form.capacity + 1):
+            cases.append((f"{form} edge {nb}", 3, nb, min(nb, 48)))
+    return cases + [("60,000-point 4x", 8, 11248, 3750),
+                    ("K 300", 300, 384, 128)]
+
+
+def test_fps_bucketed_kernel_bit_equal_at_its_forms_edges(dev):
+    from dispu_tpu_torch.kernels.fps_bucketed import (fps_bucketed_cuda,
+                                                      fps_bucketed_torch)
+
+    for i, (label, K, nb, mb) in enumerate(_fps_bucketed_cases()):
+        x = _randn(100 + i, K, nb, 3).to(dev)
+        x[:, nb - 10:] = x[:, :10]  # ties between the first and last threads
+        got = fps_bucketed_cuda(mb, x)
+        assert torch.equal(got, fps_bucketed_torch(mb, x)), label
+
+
+@pytest.mark.parametrize("nb,distinct,mb", [(384, 5, 128), (1536, 37, 512),
+                                            (100, 1, 20)])
+def test_fps_bucketed_kernel_more_samples_than_distinct_points(dev, nb,
+                                                               distinct, mb):
+    """Each bucket repeats a few points: ties in every round, and once
+    every min-distance is 0 every later pick is index 0."""
+    from dispu_tpu_torch.kernels.fps_bucketed import (fps_bucketed_cuda,
+                                                      fps_bucketed_torch)
+
+    pts = _randn(nb + distinct, 4, distinct, 3)
+    x = pts.repeat(1, nb // distinct + 1, 1)[:, :nb].contiguous().to(dev)
+    got = fps_bucketed_cuda(mb, x)
+    assert torch.equal(got, fps_bucketed_torch(mb, x))
+    assert bool((got[:, distinct:] == 0).all())
+
+
 def _own_spacing2(a):
     d = torch.cdist(a, a, compute_mode="donot_use_mm_for_euclid_dist") ** 2
     d.fill_diagonal_(float("inf"))
@@ -938,6 +986,104 @@ def test_scatter_rows_kernel_bit_equal_to_ordered_sum(dev, b, n, c, q):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), scatter_rows_torch(g.cpu(), idx.cpu(), n))
+
+
+def _scatter_bit_equal(g, idx, n):
+    """The kernel's output: bit-equal run to run and to the CPU's
+    ``index_add_``."""
+    from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
+                                                     scatter_rows_torch)
+
+    got = scatter_rows_cuda(g, idx, n)
+    again = scatter_rows_cuda(g, idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), scatter_rows_torch(g.cpu(), idx.cpu(), n))
+    return got
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES, ids=lambda c: c.label)
+def test_scatter_rows_kernel_bit_equal_at_the_train_steps_shapes(dev, case):
+    g, idx = measure.scatter_inputs(torch.Generator().manual_seed(10), case)
+    _scatter_bit_equal(g.to(dev), idx.to(dev), case.n)
+
+
+@pytest.mark.parametrize("c", [3, 4, 24, 131])
+def test_scatter_rows_kernel_bit_equal_from_unaligned_rows(dev, c):
+    """``g`` one float into its storage is not 16-byte aligned, nor then is
+    the output's row width at c 3 and 131: floats, not float4s."""
+    b, n, q = 3, 200, 3000
+    g = _randn(c, b * q * c + 1).to(dev)[1:].view(b, q, c)
+    assert g.data_ptr() % 16 != 0 and g.is_contiguous()
+    _scatter_bit_equal(g, _rows_idx(c, b, q, n).to(dev), n)
+
+
+def test_scatter_rows_kernel_unnamed_rows_are_positive_zeros(dev):
+    """Rows that no index names, and rows whose terms are all -0.0, come
+    out +0.0, as ``index_add_`` into zeros gives them."""
+    b, n, q, c = 2, 500, 4000, 8
+    g = _randn(5, b, q, c)
+    idx = _rows_idx(6, b, q, n // 2)   # rows n/2.. never named
+    idx[:, :64] = n // 2 - 1           # and row n/2 - 1 takes only -0.0s
+    idx[:, 64:][idx[:, 64:] == n // 2 - 1] = 0
+    g[:, :64] = -0.0
+    got = _scatter_bit_equal(g.to(dev), idx.to(dev), n)
+    assert not bool(torch.signbit(got[:, n // 2 - 1:]).any())
+    assert bool((got[:, n // 2 - 1:] == 0).all())
+
+
+@pytest.mark.parametrize("b,n,q,c", [(2, 300, 5000, 24), (1, 4, 40000, 3),
+                                     (3, 1024, 40000, 48)])
+def test_scatter_rows_kernel_one_row_takes_every_position(dev, b, n, q, c):
+    """Every position at one row, across every warp's slice of the index
+    build (q past one segment and past 32 warps' slices)."""
+    g = (_randn(q, b, q, c) * 10.0 ** _randn(c, b, q, 1)).to(dev)
+    idx = torch.full((b, q), n - 1, dtype=torch.int32, device=dev)
+    got = _scatter_bit_equal(g, idx, n)
+    assert bool((got[:, :n - 1] == 0).all())
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_scatter_rows_kernel_at_the_index_builds_limit(dev, past):
+    """The largest cloud the one-launch index build takes (4 warps) at q =
+    30,000 and one past it, which takes the multi-pass route."""
+    b, q, c = 2, 30000, 5
+    n = build_max_n(q) + past
+    assert (build_warps(n, q) > 0) == (past == 0)
+    g = (_randn(n, b, q, c) * 10.0 ** _randn(q, b, q, 1)).to(dev)
+    _scatter_bit_equal(g, _rows_idx(n + 1, b, q, n).to(dev), n)
+
+
+def test_scatter_rows_build_warps_is_the_kernels_formula(dev):
+    """``build_warps`` (Python) against ``dispu_scatter_build_warps`` (the
+    C formula that picks the route) at every edge of its steps."""
+    from dispu_tpu_torch.kernels import gather_rows
+
+    fn = gather_rows._fn("dispu_scatter_build_warps",
+                         (ctypes.c_int, ctypes.c_int))
+    cases = [(256, 4096), (1024, 16384), (SCATTER_MAX_N, 1)]
+    for q in (1, 4096, 16384, 30000):
+        for w in (32, 16, 8, 4):
+            n = (BUILD_SMEM // 4 - q) // w
+            cases += [(n, q), (n + 1, q)]
+    for n, q in cases:
+        if n >= 1:
+            assert fn(n, q) == build_warps(n, q), (n, q)
+
+
+def test_scatter_rows_kernel_makes_no_host_synchronization(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from dispu_tpu_torch.kernels.gather_rows import scatter_rows_cuda
+
+    g = _randn(1, 4, 4096, 24).to(dev)
+    idx = _rows_idx(2, 4, 4096, 256).to(dev)
+    scatter_rows_cuda(g, idx, 256)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        scatter_rows_cuda(g, idx, 256)
+    names = [evt.name for evt in prof.events()]
+    assert not [m for m in names if "Synchronize" in m or "Memcpy" in m]
 
 
 def test_scatter_rows_kernel_drops_indices_outside_the_table(dev):

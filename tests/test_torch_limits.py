@@ -1,7 +1,8 @@
 """The port past two kernels' limits, on the CPU: the exact kNN's split
 row form and the mega-fused refiner's route past its shared memory, whose
-decisions are made in Python from shapes alone, and the ball query's
-scalar radius squared on the host.  The kernels themselves run on the
+decisions are made in Python from shapes alone, the scatter's choice of
+its index build's route and the size of its scratch, and the ball
+query's scalar radius squared on the host.  The kernels themselves run on the
 card (``tests/test_torch_cuda.py``); here their wrappers are replaced by
 stand-ins that record which one a call reaches.
 """
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from dispu_tpu_torch.kernels import knn as knn_module
+from dispu_tpu_torch.kernels.gather_rows import (BUILD_SMEM, SCATTER_MAX_N,
+                                                 build_max_n, build_warps,
+                                                 scratch_ints)
 from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
                                          KnnFunction, knn_form, knn_torch,
                                          split_chunk, split_plan)
@@ -27,6 +31,46 @@ torch.set_num_threads(1)
 #: the refiner's grouped width and mlp at ``GeneratorConfig()``: 128
 #: features, [p - q | p | f]
 CF, MLP = 6 + 128, (128, 128, 256)
+
+
+# ------------------------------------------------- the scatter's two routes
+
+@pytest.mark.parametrize("n,q,warps", [
+    # the train step's shapes: 32 warps
+    (256, 4096, 32), (1024, 16384, 32),
+    # a count a (warp, row) and the perm: 4 (wn + q) <= BUILD_SMEM
+    (1, 1, 32), (1, 58016, 32), (1, 58017, 16), (1537, 8864, 32),
+    (1537, 8865, 16), (1, 58044, 4), (1, 58045, 0), (1813, 32, 32),
+    (1814, 32, 16),
+    (build_max_n(30000), 30000, 4), (build_max_n(30000) + 1, 30000, 0),
+    (SCATTER_MAX_N, 1, 0),
+])
+def test_scatter_build_warps_steps_with_n_and_q(n, q, warps):
+    """The one-launch index build keeps a count a warp and row and the
+    cloud's perm in a block's shared memory: the most of 32, 16, 8 and 4
+    warps that fit, else the multi-pass route."""
+    assert build_warps(n, q) == warps
+    assert 4 * (warps * n + q) <= BUILD_SMEM or warps == 0
+
+
+def test_scatter_index_builds_largest_cloud():
+    assert build_max_n(30000) == 7012
+    assert build_max_n(16384) == 10416 and build_max_n(58045) == 0
+    for q in (1, 4096, 16384, 30000, 58044):
+        n = build_max_n(q)
+        assert build_warps(n, q) == 4 and build_warps(n + 1, q) == 0
+
+
+@pytest.mark.parametrize("b,n,q,ints", [
+    # rowptr b(n + 1) and perm bq
+    (28, 256, 4096, 28 * 257 + 28 * 4096),
+    (28, 1024, 16384, 28 * 1025 + 28 * 16384),
+    # past the build: and the counts, b * ceil(q / 1024) * n
+    (2, 20000, 3000, 2 * 20001 + 2 * 3000 + 2 * 3 * 20000),
+    (1, 7013, 30000, 7014 + 30000 + 30 * 7013),
+])
+def test_scatter_scratch_holds_each_routes_arrays(b, n, q, ints):
+    assert scratch_ints(b, n, q) == ints
 
 
 # ------------------------------------------------------- the split row form

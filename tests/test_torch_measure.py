@@ -5,28 +5,35 @@ the gather kernel at the default widths, ``KNN_CASES`` and
 ``KNN_GROUP_CASES`` hold the kNN launches of a 4× request's generator
 pass (exact and turbo), ``REFINE_CASES`` the fused refiner's launches of
 a 4× and a 16× request's generator passes, ``BALL_CASES`` the ball
-queries of a CD and a GAN train step and the critic's ball grouping, and
-the input makers make what they say.
+queries of a CD and a GAN train step and the critic's ball grouping,
+``SCATTER_CASES`` the scatters of a train step's backward with
+``gather_impl='pallas'`` and with ``fused_grouping``, ``BUCKETED_CASES``
+the turbo merges, and the input makers make what they say.
 """
 
 import collections
+import dataclasses
 
 import pytest
 import torch
 
 from dispu_tpu_torch import GeneratorConfig, InferenceConfig, cli
 from dispu_tpu_torch.kernels import knn_group as knn_group_module
-from dispu_tpu_torch.kernels.measure import (BALL_CASES, GATHER_CASES,
-                                             KNN_CASES, KNN_GROUP_CASES,
-                                             REFINE_CASES, ball_inputs,
-                                             gather_inputs, knn_group_inputs,
+from dispu_tpu_torch.inference import plan_counts
+from dispu_tpu_torch.kernels.measure import (BALL_CASES, BUCKETED_CASES,
+                                             GATHER_CASES, KNN_CASES,
+                                             KNN_GROUP_CASES, REFINE_CASES,
+                                             SCATTER_CASES, ball_inputs,
+                                             bucketed_inputs, gather_inputs,
+                                             kernel_name, knn_group_inputs,
                                              knn_inputs, refine_ops,
-                                             refine_params)
+                                             refine_params, scatter_inputs)
 from dispu_tpu_torch.kernels.refine_local import LocalParams, param_dims
 from dispu_tpu_torch.models.generator import DisPUGenerator
 from dispu_tpu_torch.nn import refine as refine_module
 from dispu_tpu_torch.ops import grouping
 from dispu_tpu_torch.ops import knn as knn_ops
+from dispu_tpu_torch.ops import sampling
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +83,112 @@ def test_gather_inputs_are_seeded_with_self_rows():
     assert torch.equal(table, again) and torch.equal(idx, idx2)
     assert torch.equal(idx[:, ::4], torch.arange(40).expand(2, -1).int())
     assert int(idx.min()) >= 0 and int(idx.max()) < 40
+
+
+@pytest.fixture(scope="module")
+def step_scatters():
+    """setting → (b, q, c, n) → count of the scatter kernel's calls in one
+    training-mode forward and backward of the default generator at batch
+    28 with that setting, the kernels' wrappers replaced by their plain
+    versions and the scatter's by a recorder around its plain version."""
+    from dispu_tpu_torch.kernels import gather_rows as gather_module
+
+    seen = {}
+    for setting, cfg in (("pallas", GeneratorConfig(gather_impl="pallas")),
+                         ("fused_grouping",
+                          GeneratorConfig(fused_grouping=True))):
+        calls = seen[setting] = collections.Counter()
+
+        def record(g, idx, n, calls=calls):
+            calls[(*g.shape, n)] += 1
+            return gather_module.scatter_rows_torch(g, idx, n)
+
+        torch.manual_seed(0)
+        model = DisPUGenerator(cfg, impl="torch").train()
+        x = torch.randn(28, cfg.num_points, 3)
+        with pytest.MonkeyPatch.context() as mp:
+            for module in (grouping, gather_module, knn_group_module):
+                mp.setattr(module, "use_kernel", lambda impl, t: True)
+            mp.setattr(gather_module, "gather_rows_cuda",
+                       gather_module.gather_rows_torch)
+            mp.setattr(knn_group_module, "knn_group_cuda",
+                       knn_group_module.knn_group_torch)
+            for module in (gather_module, knn_group_module):
+                mp.setattr(module, "scatter_rows_cuda", record)
+            sum(out.sum() for out in model(x)).backward()
+    return seen
+
+
+@pytest.mark.parametrize("setting", ["pallas", "fused_grouping"])
+def test_scatter_cases_are_the_train_steps_scatters(step_scatters, setting):
+    """Each scatter of a train step's backward with ``gather_impl='pallas'``
+    (``fused_grouping``) is a row of ``SCATTER_CASES`` for that setting,
+    launched as often as its ``per_step`` says."""
+    want = {(case.b, case.q, case.c, case.n): case.per_step
+            for case in SCATTER_CASES if case.setting == setting}
+    assert dict(step_scatters[setting]) == want
+
+
+def test_scatter_inputs_follow_their_cases():
+    for case in SCATTER_CASES:
+        small = case._replace(b=2)
+        g, idx = scatter_inputs(torch.Generator().manual_seed(10), small)
+        assert g.shape == (2, case.q, case.c) and g.dtype == torch.float32
+        assert idx.shape == (2, case.q) and idx.dtype == torch.int32
+        assert int(idx.min()) >= 0 and int(idx.max()) < case.n
+        per = case.q // case.n
+        assert torch.equal(idx[:, ::per],
+                           torch.arange(case.n).expand(2, -1).int())
+
+
+@pytest.mark.parametrize("case", BUCKETED_CASES, ids=lambda c: c.label)
+def test_bucketed_cases_are_the_turbo_merges(case):
+    """The bucketed merge's launch for a turbo request on a 2048-point
+    cloud at 4× and 16×, for ``upsample_many`` of two at each, and for a
+    60,000-point cloud at 4×: the candidates (patches × patch points ×
+    ratio) of each cloud into the turbo configuration's buckets."""
+    turbo = cli.build_config(cli.parse_args(["--phase", "test", "--turbo",
+                                             "true"])).inference
+    n, ratio, clouds = {"4x merge": (2048, 4, 1), "16x merge": (2048, 16, 1),
+                        "4x stream B=2": (2048, 4, 2),
+                        "16x stream B=2": (2048, 16, 2),
+                        "60,000-point 4x": (60000, 4, 1)}[case.label]
+    inf = dataclasses.replace(turbo, final_ratio=ratio)
+    seeds, out_num = plan_counts(n, inf)
+    seen = []
+
+    def record(m_b, buckets, impl="auto"):
+        seen.append((buckets.shape[0], buckets.shape[1], m_b))
+        return torch.zeros((buckets.shape[0], m_b), dtype=torch.int32)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sampling._fps_bucketed, "fps_bucketed", record)
+        sampling.farthest_point_sample_bucketed(
+            out_num, torch.zeros(clouds, seeds * inf.patch_num_point * ratio,
+                                 3), n_buckets=inf.merge_fps_buckets)
+    assert inf.merge_fps == "bucketed"
+    assert seen == [(case.k, case.nb, case.mb)] and case.per_request == 1
+
+
+@pytest.mark.parametrize("name,short", [
+    ("void (anonymous namespace)::build_kernel(int const*, int*, int*, int, "
+     "int)", "build_kernel"),
+    ("void (anonymous namespace)::sum_kernel<float4, 8, 1, 16>(float4 "
+     "const*, int const*, int const*, float4*, long long, int, int, int)",
+     "sum_kernel<float4, 8, 1, 16>"),
+    ("void fps_round::fps_kernel<1, 128, 3, 0>(float const*, int*, float*, "
+     "int, int)", "fps_kernel<1, 128, 3, 0>"),
+    ("Memcpy DtoH (Device -> Pageable)", "Memcpy DtoH (Device -> Pageable)"),
+])
+def test_kernel_name_drops_namespace_return_type_and_arguments(name, short):
+    assert kernel_name(name) == short
+
+
+def test_bucketed_inputs_repeat_their_first_points():
+    case = BUCKETED_CASES[0]._replace(k=3)
+    x = bucketed_inputs(torch.Generator().manual_seed(7), case)
+    assert x.shape == (3, case.nb, 3) and x.dtype == torch.float32
+    assert torch.equal(x[:, -10:], x[:, :10])
 
 
 def _generator_pass(cfg, train):
