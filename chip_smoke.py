@@ -82,7 +82,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      plain versions (every generator and critic parameter), two bit-equal
      5-step runs, the ``d_clip=0`` game and the critic's fused grouping,
      each with exact launch counts; and the CLI's test phase on the GAN
-     log dir (its generator half);
+     log dir (its generator half).  Then the evaluation: two shapes of
+     the evaluation set made with the port's ``meshgen``, upsampled 4×,
+     scored by ``evaluate_dirs`` on the card (1000 disk seeds, timed by
+     stage) and by ``python -m dispu_tpu_torch.evaluate``, held against
+     the port's plain CPU run, and ``cd_hd`` of the four demo outputs
+     (the kNN kernel at k = 1, one launch each);
   5. print one JSON line listing every kernel with its numbers;
   6. print {"ok": true, "device": {...}} as the last line.
 
@@ -2047,6 +2052,212 @@ def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),
         f"the process's start) on {card}")
 
 
+# ---------------------------------------------------- phase 4: evaluation
+
+# the evaluation on the card against the port's plain CPU run: CD and HD
+# relative (the card's kNN kernel or cuBLAS argmin against the CPU's, so
+# near-tie swaps and sum orders apart; tests/test_torch_eval.py's bound
+# against JAX), the point-to-face distances absolute on the unit-scale
+# meshes (the sums of three products may round apart)
+EVAL_CD_REL = 1e-5
+EVAL_P2F_ABS = 1e-6
+EVAL_CPU_POINTS = 2048     # points of each prediction scanned on the CPU too
+HELDOUT_SEED = 7_777_777   # scripts/build_heldout.py's evaluation set
+EVAL_STAGES = (("cd_hd", "cd_hd"), ("point_to_mesh_distance", "P2F"),
+               ("geodesic_distances", "geodesic"),
+               ("uniformity_measure", "uniformity"), ("evaluate_pair", "pair"))
+
+
+def evaluate_phase(card: str) -> dict:
+    """The port's evaluation path on the card, as ``evaluate.py`` scores a
+    directory.  Two shapes of the evaluation set (``make_corpus(2,
+    seed=7_777_777)``, gt 8192 and input 2048 points by Poisson-disk
+    sampling, as ``scripts/build_heldout.py`` builds it) written under
+    ``chiprun_out/eval_smoke/``; the 4× ``PatchUpsampler`` (seeded init)
+    on the inputs; ``evaluate_dirs(device='cuda')`` with 1000 disk seeds,
+    timed by stage; the same directories through ``python -m
+    dispu_tpu_torch.evaluate --disk_seeds 100`` (its CD, hausdorff and p2f
+    equal to the in-process run's); CD/HD and the point-to-face distances
+    held against the port's plain CPU run; ``cd_hd`` of the four demo
+    outputs against ``demo/gt`` (the kNN kernel's direction) against the
+    plain argmin on the card, printed beside the tracked
+    ``demo/outputs/evaluation.csv`` (a TPU's, for information).  The kNN
+    launches must be the gate's: none for a pair with an 8192-point gt,
+    one for each demo pair.  Returns the phase's launch counts."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import kernels
+    from dispu_tpu_torch.data.meshgen import make_corpus, poisson_disk_sample
+    from dispu_tpu_torch.evaluation import metrics, report
+    from dispu_tpu_torch.evaluation.meshio import (read_off, read_xyz,
+                                                   write_off, write_xyz)
+    from dispu_tpu_torch.inference import PatchUpsampler
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "chiprun_out", "eval_smoke")
+    dirs = {sub: os.path.join(root, sub)
+            for sub in ("input", "gt", "mesh", "pred")}
+    for path in dirs.values():
+        os.makedirs(path, exist_ok=True)
+    t0 = time.perf_counter()
+    names = []
+    for name, (verts, faces) in make_corpus(2, seed=HELDOUT_SEED):
+        name = "ho_" + name
+        gt = poisson_disk_sample(verts, faces, 8192, seed=HELDOUT_SEED + 1)
+        inp = poisson_disk_sample(verts, faces, 2048, seed=HELDOUT_SEED + 2)
+        write_xyz(os.path.join(dirs["input"], name + ".xyz"), inp)
+        write_xyz(os.path.join(dirs["gt"], name + ".xyz"), gt)
+        write_off(os.path.join(dirs["mesh"], name + ".off"), verts, faces)
+        names.append(name)
+        log(f"evaluation set: {name}: {len(verts)} vertices, {len(faces)} "
+            f"faces, gt {gt.shape}, input {inp.shape}")
+    log(f"evaluation set made in {time.perf_counter() - t0:.1f} s")
+
+    up = PatchUpsampler(device="cuda", seed=0)
+    for name in names:
+        out = up.upsample(read_xyz(os.path.join(dirs["input"],
+                                                name + ".xyz"))[:, :3])
+        require(out.shape == (8192, 3) and np.isfinite(out).all(),
+                f"{name}: upsampled {out.shape}")
+        write_xyz(os.path.join(dirs["pred"], name + "_X4.xyz"), out)
+
+    # evaluate_dirs with each stage's function wrapped in a synchronized
+    # timer (report's own names: it imported them)
+    stage_ms = {label: [] for _, label in EVAL_STAGES}
+
+    def timed(fn, label):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_ms[label].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    saved = {attr: getattr(report, attr) for attr, _ in EVAL_STAGES}
+    for attr, label in EVAL_STAGES:
+        setattr(report, attr, timed(saved[attr], label))
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        summary = report.evaluate_dirs(dirs["pred"], dirs["gt"],
+                                       mesh_dir=dirs["mesh"], device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        for attr, fn in saved.items():
+            setattr(report, attr, fn)
+    counts = kernels.launch_counts()
+    log(f"evaluate_dirs (1000 disk seeds, 2 pairs): {wall:.2f} s; launches "
+        f"{counts}; stage ms a pair: " + "; ".join(
+            f"{label} " + ", ".join("%.1f" % ms for ms in times)
+            for label, times in stage_ms.items()) + f" on {card}")
+    require(all(n == 0 for n in counts.values()),
+            f"evaluate_dirs with 8192-point gt clouds launched {counts}: "
+            f"the gate admits no kernel there")
+    require(all(len(t) == 2 for t in stage_ms.values()),
+            f"stages timed {[len(t) for t in stage_ms.values()]}")
+
+    def read_rows(path):
+        with open(path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        require(len(rows) == len(names) + 1 and rows[-1]["name"] == "-",
+                f"{path}: rows {[r['name'] for r in rows]}")
+        for row in rows:
+            require(len(row) == 7 and all(
+                np.isfinite(float(v)) for k, v in row.items() if k != "name"),
+                f"{path}: row {row}")
+        return rows
+
+    rows = read_rows(os.path.join(dirs["pred"], "evaluation.csv"))
+    require({k: float(v) for k, v in rows[-1].items() if k != "name"}
+            == summary, "evaluation.csv's summary row is not the summary")
+    for row in rows:
+        log("evaluation.csv: " + ", ".join(f"{k} {v}" for k, v in
+                                           row.items()))
+
+    cli_csv = os.path.join(root, "cli_evaluation.csv")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "dispu_tpu_torch.evaluate", "--pred",
+         dirs["pred"], "--gt", dirs["gt"], "--mesh", dirs["mesh"],
+         "--disk_seeds", "100", "--out_csv", cli_csv],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"python -m dispu_tpu_torch.evaluate "
+            f"exited {out.returncode}: {out.stderr[-3000:]}")
+    printed = json.loads(out.stdout)
+    cli_rows = read_rows(cli_csv)
+    require({k: float(v) for k, v in cli_rows[-1].items() if k != "name"}
+            == printed, "the CLI's summary is not its CSV's summary row")
+    for row, cli_row in zip(rows, cli_rows):
+        for key in ("name", "CD", "hausdorff", "p2f avg", "p2f std"):
+            require(row[key] == cli_row[key],
+                    f"CLI {key} {cli_row[key]} != in-process {row[key]}")
+    log(f"python -m dispu_tpu_torch.evaluate --disk_seeds 100: "
+        f"{time.perf_counter() - t0:.1f} s with the process's start; CD, "
+        f"hausdorff and p2f equal to the in-process run; uniform "
+        + ", ".join(f"{r['uniform_0']}/{r['uniform_1']}" for r in cli_rows))
+
+    # the card against the port's plain CPU run
+    by_name = {row["name"]: row for row in rows}
+    for name in names:
+        row = by_name[name + "_X4.xyz"]
+        pred = read_xyz(os.path.join(dirs["pred"], name + "_X4.xyz"))[:, :3]
+        gt = read_xyz(os.path.join(dirs["gt"], name + ".xyz"))[:, :3]
+        cpu = [float(x) for x in metrics.cd_hd(torch.from_numpy(pred),
+                                               torch.from_numpy(gt))]
+        card_cd_hd = [float(row["CD"]), float(row["hausdorff"])]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_cd_hd, cpu))
+        verts, faces = read_off(os.path.join(dirs["mesh"], name + ".off"))
+        d_card, p_card = metrics.point_to_mesh_distance(pred, verts, faces)
+        require(float(np.nanmean(d_card)) == float(row["p2f avg"]),
+                f"{name}: P2F on the card {float(np.nanmean(d_card))} != "
+                f"the report's {row['p2f avg']}")
+        t0 = time.perf_counter()
+        d_cpu, _ = metrics.point_to_mesh_distance(
+            pred[:EVAL_CPU_POINTS], verts, faces, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        p2f_err = float(np.abs(d_card[:EVAL_CPU_POINTS] - d_cpu).max())
+        log(f"{name}: card vs CPU: CD/HD {card_cd_hd} vs {cpu}, rel "
+            f"{rel:.2e} (bound {EVAL_CD_REL}); P2F of {EVAL_CPU_POINTS} "
+            f"points max|d| {p2f_err:.2e} (bound {EVAL_P2F_ABS}; the CPU "
+            f"scan {cpu_s:.1f} s)")
+        require(rel <= EVAL_CD_REL, f"{name}: CD/HD card vs CPU {rel}")
+        require(p2f_err <= EVAL_P2F_ABS, f"{name}: P2F card vs CPU {p2f_err}")
+
+    # the demo outputs: the gate's kernel direction (gt 2048 points)
+    with open(os.path.join(REPO, "demo", "outputs", "evaluation.csv"),
+              newline="") as f:
+        tracked = {row["name"]: row for row in csv.DictReader(f)}
+    kernels.reset_launch_counts()
+    demo = {}
+    for name in ("Icosahedron_X4", "Icosahedron_X16", "fandisk_X4",
+                 "fandisk_X16"):
+        pred = torch.from_numpy(read_xyz(os.path.join(
+            REPO, "demo", "outputs", name + ".xyz"))[:, :3]).cuda()
+        gt = torch.from_numpy(load_cloud(name.split("_X")[0] + ".xyz")).cuda()
+        demo[name] = (pred, gt, [float(x) for x in metrics.cd_hd(pred, gt)])
+    demo_counts = kernels.launch_counts()
+    for name, (pred, gt, got) in demo.items():
+        plain = [float(x) for x in metrics.cd_hd(pred, gt, impl="torch")]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, plain))
+        log(f"demo {name} ({pred.shape[0]} -> {gt.shape[0]}): CD {got[0]!r}, "
+            f"hausdorff {got[1]!r}; kernel vs plain argmin rel {rel:.2e} "
+            f"(bound {EVAL_CD_REL}); demo/outputs/evaluation.csv (TPU, "
+            f"informative): CD {tracked[name + '.xyz']['CD']}, hausdorff "
+            f"{tracked[name + '.xyz']['hausdorff']}")
+        require(rel <= EVAL_CD_REL, f"demo {name}: kernel vs plain {rel}")
+    require(demo_counts["knn"] == len(demo) and sum(demo_counts.values())
+            == len(demo), f"demo cd_hd launches {demo_counts}: one knn a "
+            f"pair expected")
+    log(f"evaluation phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return add_counts(counts, demo_counts)
+
+
+
 # ------------------------------------------------------ phase 4: training
 
 
@@ -2802,6 +3013,7 @@ def main() -> int:
     gan_counts, gan_dir = gan_phase(card, args.profile)
     counts = add_counts(counts, gan_counts)
     cli_phase(card, gan_dir, ("--use_gan", "true"), "cli_gan_smoke")
+    counts = add_counts(counts, evaluate_phase(card))
     if args.profile:
         import dataclasses
 

@@ -16,8 +16,9 @@ the generator of a CD or a GAN checkpoint alike.
     python -m dispu_tpu_torch.cli --phase test --log_dir log \\
         --test_data 'demo/gt/*.xyz' --turbo true --out_folder outputs
 
-Not ported (``NotImplementedError``, naming the ROADMAP.md item):
-``--phase export`` (``serving.py``).
+Scoring the outputs is ``python -m dispu_tpu_torch.evaluate``, the twin
+of ``evaluate.py``.  Not ported (``NotImplementedError``, naming the
+ROADMAP.md item): ``--phase export`` (``serving.py``).
 """
 
 from __future__ import annotations

@@ -49,7 +49,9 @@ class KnnCase(NamedTuple):
 #: the 4× request's kNN (the patch cut over the demo cloud, the backbone's
 #: four edge convolutions at c 24 and 48, the refiner's grouping), pass 2
 #: of a 16× request, a train step at batch 28 (the same layers, and the
-#: chamfer losses' argmins at k = 1)
+#: chamfer losses' argmins at k = 1), and the evaluation's ``cd_hd``
+#: argmin at k = 1 of a 4× and a 16× output (8,192 and 32,768 queries)
+#: against a 2048-point gt cloud
 KNN_CASES = [
     KnnCase("patch k256", 1, 2048, 24, 3, 256, False, "patch", 1),
     KnnCase("backbone c24", 32, 256, 256, 24, 17, True, "self", 1),
@@ -62,6 +64,8 @@ KNN_CASES = [
     KnnCase("train bb c48", 28, 256, 256, 48, 17, True, "self", 0, 3),
     KnnCase("train refiner", 28, 1024, 1024, 3, 16, False, "self", 0, 1),
     KnnCase("chamfer k1", 28, 1024, 1024, 3, 1, False, "other", 0, 8),
+    KnnCase("eval 4x k1", 1, 2048, 8192, 3, 1, False, "other", 0),
+    KnnCase("eval 16x k1", 1, 2048, 32768, 3, 1, False, "other", 0),
 ]
 
 

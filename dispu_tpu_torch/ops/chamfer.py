@@ -5,7 +5,8 @@ Each direction picks the nearest point by the expansion-form distances
 (on the card the kNN kernel at k = 1, where the JAX package runs its
 Pallas kNN), then recomputes the exact ``|p − q*|²`` from the matched
 pair.  :class:`NnDistance` carries the JAX package's analytic backward,
-``±2·g·(p − q*)`` scattered to both clouds.
+``±2·g·(p − q*)`` scattered to both clouds.  :func:`nn_distance_chunked`
+is the streaming form for whole clouds (evaluation).
 """
 
 from __future__ import annotations
@@ -88,3 +89,31 @@ def chamfer_distance(pred: torch.Tensor, gt: torch.Tensor, radius=1.0,
     dist_f, _, dist_b, _ = nn_distance(gt, pred, impl)
     cd = torch.mean(dist_f, dim=1) + torch.mean(dist_b, dim=1)
     return torch.mean(cd / radius)
+
+
+@torch.no_grad()
+def nn_distance_chunked(xyz1: torch.Tensor, xyz2: torch.Tensor,
+                        chunk: int = 4096):
+    """Streaming bidirectional NN distance for large clouds (counterpart of
+    ``pallas_kernels.nn_distance_chunked``, which is XLA, not a kernel).
+
+    The results of :func:`nn_distance`'s plain path, but no more than
+    (chunk, m) of the distance matrix exists at a time: each block of
+    ``chunk`` query rows takes its first-occurrence argmin on the
+    expansion-form distances and the exact ``|p − q*|²`` of the matched
+    pair.  No gradient (evaluation only).
+    """
+    def directed(a, b):
+        dists, idxs = [], []
+        for lo in range(0, a.shape[1], chunk):
+            block = a[:, lo:lo + chunk]
+            idx = torch.argmin(pairwise_sq_dist(block, b), dim=-1).to(
+                torch.int32)
+            dists.append(torch.sum((block - gather_point(b, idx)) ** 2,
+                                   dim=-1))
+            idxs.append(idx)
+        return torch.cat(dists, dim=1), torch.cat(idxs, dim=1)
+
+    d1, i1 = directed(xyz1, xyz2)
+    d2, i2 = directed(xyz2, xyz1)
+    return d1, i1, d2, i2

@@ -1421,3 +1421,71 @@ def test_upsampler_goes_through_the_refine_kernels(dev, setting, counts):
     # an eval-mode forward through a refine kernel cannot be differentiated
     with pytest.raises(RuntimeError, match="inference only"):
         model(x)[1].sum().backward()
+
+
+def _surface_probe(verts, faces, n, seed):
+    """n points on faces, n at vertices and n off the surface by 0.02."""
+    rs = np.random.RandomState(seed)
+    tri = verts[faces[rs.randint(len(faces), size=n)]].astype(np.float64)
+    u, v = rs.rand(n, 1), rs.rand(n, 1)
+    flip = u + v > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    on_face = tri[:, 0] + u * (tri[:, 1] - tri[:, 0]) + v * (
+        tri[:, 2] - tri[:, 0])
+    return np.concatenate([on_face, verts[rs.randint(len(verts), size=n)],
+                           on_face + rs.randn(n, 3) * 0.02]).astype(
+        np.float32)
+
+
+def test_point_to_mesh_on_the_card_matches_the_cpu(dev):
+    """The point-to-face scan on the card against the same code on the
+    CPU (both plain torch; the sums of three products may round apart):
+    distances within 1e-6, mapped points within 1e-6 where the faces are
+    equal, and a face only swapped where the CPU's own distances to both
+    faces are within 1e-6 (a shared edge); at a swap the mapped points lie
+    within dc + dg + 1e-6 of each other.  More points than one block."""
+    from dispu_tpu_torch.data.meshgen import make_corpus
+    from dispu_tpu_torch.evaluation import metrics
+
+    (_, (verts, faces)), = make_corpus(1, seed=7_777_777)
+    points = _surface_probe(verts, faces, 1500, 0)
+    assert len(points) > metrics.POINT_CHUNK
+    dg, pg, fg = metrics.point_to_mesh_distance(points, verts, faces,
+                                                return_faces=True)
+    dc, pc_, fc = metrics.point_to_mesh_distance(points, verts, faces,
+                                                 return_faces=True,
+                                                 device="cpu")
+    assert np.abs(dg - dc).max() <= 1e-6
+    same = fg == fc
+    assert np.abs(pg[same] - pc_[same]).max() <= 1e-6
+    swap = np.nonzero(~same)[0]
+    tri = torch.from_numpy(verts)[torch.from_numpy(faces).long()]
+    p = torch.from_numpy(points[swap])
+
+    def to_face(face_idx):
+        t = tri[torch.from_numpy(face_idx).long()]
+        return torch.sqrt(metrics._point_triangle_sq_dist(
+            p, t[:, 0], t[:, 1], t[:, 2])[0]).numpy()
+
+    assert (np.abs(to_face(fg[swap]) - to_face(fc[swap])) <= 1e-6).all()
+    assert (np.linalg.norm(pg[swap] - pc_[swap], axis=1)
+            <= dg[swap] + dc[swap] + 1e-6).all()
+
+
+@pytest.mark.parametrize("n_pred,n_gt,launches", [
+    (8192, 2048, 1), (32768, 2048, 1), (8192, 8192, 0)])
+def test_cd_hd_kernel_argmin_matches_plain(dev, n_pred, n_gt, launches):
+    """``cd_hd`` on the card: the pred → gt argmin is the kNN kernel at
+    k = 1 where gt has 64 to 4096 points (one launch; gt → pred never,
+    its dataset is past 4096), the plain argmin otherwise; CD and HD
+    within 1e-5 relative of the plain argmin's (near-tie swaps move a
+    mean or a max by the expansion's round-off)."""
+    from dispu_tpu_torch.evaluation.metrics import cd_hd
+
+    pred = _randn(n_pred, n_pred, 3).to(dev)
+    gt = _randn(n_gt + 1, n_gt, 3).to(dev)
+    kernels.reset_launch_counts()
+    got = [float(x) for x in cd_hd(pred, gt)]
+    assert kernels.launch_counts()["knn"] == launches
+    want = [float(x) for x in cd_hd(pred, gt, impl="torch")]
+    np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -49,6 +49,9 @@ def test_import_leaves_jax_unloaded():
             "dispu_tpu_torch.kernels.knn_group, dispu_tpu_torch.cli, "
             "dispu_tpu_torch.kernels.fps_bucketed, "
             "dispu_tpu_torch.evaluation.meshio, "
+            "dispu_tpu_torch.evaluation.metrics, "
+            "dispu_tpu_torch.evaluation.report, "
+            "dispu_tpu_torch.evaluate, dispu_tpu_torch.data.meshgen, "
             "dispu_tpu_torch.kernels.gather_rows, "
             "dispu_tpu_torch.models.discriminator, "
             "dispu_tpu_torch.train.gan_steps, "
