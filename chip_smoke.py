@@ -61,7 +61,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      bucketed merge's large buckets); 'megafused' at ``patch_num_point`` 512
      and 16× (pass 2's refiner past ``refine_block.cu``'s shared memory
      takes the 'fused' route) against the composed ``fast_gather`` path.
-     Then CD training at the
+     The serving export (``serve_export``): 4× and 16× exact, 4× turbo
+     and 4× 'megafused' exported with ``serving.export_upsampler``, each
+     entry loaded by a process that cannot import the model code and
+     served bit-equal to the live ``upsample`` with its launch counts;
+     export seconds, artifact bytes, and served against live ms per
+     request, in turns.  Then CD training at the
      same width with the training defaults (batch 28, random input,
      augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
      steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
@@ -76,7 +81,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (the composed refiner: the default step's launches and metrics).
      ``python -m dispu_tpu_torch.cli --phase test
      --turbo true`` restores the training's checkpoint and upsamples both
-     demo clouds into files.  Then GAN training at full width with
+     demo clouds into files; ``--phase export`` restores it into an
+     artifact that serves both clouds bit-equal to a live upsampler
+     restored from the same checkpoint.  Then GAN training at full width with
      ``dispu.py --use_gan true``'s defaults: ``GANTrainer.train(epochs=2)``
      with a bit-equal restore, 20 steps (ms per step), kernels against
      plain versions (every generator and critic parameter), two bit-equal
@@ -1963,6 +1970,144 @@ def serve_large(card: str):
     return total
 
 
+# the loader process of serve_export: the model code cannot be imported,
+# so each entry runs from its artifact, torch and the op registrations
+EXPORT_LOADER = r"""
+import json, sys, time
+for name in ("dispu_tpu_torch.models", "dispu_tpu_torch.nn",
+             "dispu_tpu_torch.inference", "dispu_tpu_torch.convert"):
+    sys.modules[name] = None
+import numpy as np
+from dispu_tpu_torch import kernels
+from dispu_tpu_torch.serving import ServedUpsampler
+pc = np.load(sys.argv[1])
+result = {}
+for label, path in json.loads(sys.argv[2]).items():
+    t0 = time.perf_counter()
+    served = ServedUpsampler(path)
+    served.warmup()
+    load_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    out = served.upsample(pc)
+    result[label] = {"counts": kernels.launch_counts(), "load_s": load_s}
+    np.save(path + "/served.npy", out)
+print(json.dumps({"result": result, "forbidden": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "dispu_tpu"))}))
+"""
+
+
+def serve_export(card: str):
+    """The serving export at full width from the port's seeded init, on
+    demo/gt/Icosahedron.xyz: 4× and 16× exact, 4× turbo and 4×
+    'megafused', each exported (``serving.export_upsampler`` of the live
+    upsampler's state dict) into ``chiprun_out/serve_export/``, with its
+    seconds and bytes.  One process that cannot import the model code
+    (``EXPORT_LOADER``) loads each entry and serves the cloud once: its
+    output must be bit-equal to the live ``upsample``, and its launches
+    equal ``expected_counts``, as the live call's must.  Then live and
+    served requests in turns, ms each."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import GeneratorConfig, InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.serving import ServedUpsampler, export_upsampler
+
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "chiprun_out", "serve_export")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    turbo = turbo_config()
+    settings = {
+        "4x": (GeneratorConfig(), InferenceConfig()),
+        "16x": (GeneratorConfig(), InferenceConfig(final_ratio=16)),
+        "turbo 4x": (turbo.generator, dataclasses.replace(
+            turbo.inference, final_ratio=4)),
+        "megafused 4x": (GeneratorConfig(refine_local_impl="megafused"),
+                         InferenceConfig()),
+    }
+    pc = load_cloud("Icosahedron.xyz")
+    n = pc.shape[0]
+    np.save(os.path.join(work, "pc.npy"), pc)
+    total, paths, live, expected, ups = {}, {}, {}, {}, {}
+    for label, (gen_cfg, inf_cfg) in settings.items():
+        up = PatchUpsampler(gen_cfg=gen_cfg, inf_cfg=inf_cfg, seed=0)
+        path = os.path.join(work, label.replace(" ", "_"))
+        t0 = time.perf_counter()
+        manifest = export_upsampler(up.model.state_dict(), [n], path,
+                                    gen_cfg=gen_cfg, inf_cfg=inf_cfg)
+        seconds = time.perf_counter() - t0
+        entry = manifest["entries"][0]
+        nbytes = os.path.getsize(os.path.join(path, entry["file"]))
+        expected[label] = expected_counts(up, n)
+        kernels.reset_launch_counts()
+        live[label] = up.upsample(pc)
+        counts = kernels.launch_counts()
+        require(counts == expected[label],
+                f"{label}: live launches {counts} != {expected[label]}")
+        require(sorted(k for k, v in counts.items() if v)
+                == entry["kernels"],
+                f"{label}: the entry's ops {entry['kernels']} are not the "
+                f"kernels the live call launched {counts}")
+        log(f"serve_export {label}: exported in {seconds:.2f} s, "
+            f"{entry['file']} {nbytes} bytes, ops {entry['kernels']}")
+        total = add_counts(total, counts)
+        paths[label], ups[label] = path, up
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", EXPORT_LOADER,
+         os.path.join(work, "pc.npy"), json.dumps(paths)], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=600)
+    require(out.returncode == 0,
+            f"serve_export loader exited {out.returncode}: "
+            f"{out.stderr[-3000:]}")
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    require(report["forbidden"] == [],
+            f"the loader imported {report['forbidden']}")
+    log(f"serve_export: the loader process took "
+        f"{time.perf_counter() - t0:.1f} s with its start")
+    for label, path in paths.items():
+        got = report["result"][label]
+        served = np.load(os.path.join(path, "served.npy"))
+        require(np.array_equal(served, live[label]),
+                f"{label}: served output differs from the live upsample")
+        require(got["counts"] == expected[label],
+                f"{label}: served launches {got['counts']} != "
+                f"{expected[label]}")
+        log(f"serve_export {label}: served in a process without the model "
+            f"code: bit-equal to live, launches {got['counts']} (= live), "
+            f"load and warmup {got['load_s']:.2f} s")
+        total = add_counts(total, got["counts"])
+
+    for label, path in paths.items():
+        up, served = ups[label], ServedUpsampler(path)
+        reps = 3 if up.inf_cfg.final_ratio == 16 else 5
+        laps = {"live": [], "served": []}
+        for rep in range(reps + 1):  # the first round warms both
+            for kind, fn in (("live", up.upsample),
+                             ("served", served.upsample)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(pc)  # returns on the host: synchronized
+                if rep:
+                    laps[kind].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in laps.items()}
+        log(f"serve_export {label}: ms per 2048-point request, in turns, "
+            f"median of {reps}: live {med['live']:.2f} ("
+            f"{', '.join('%.2f' % t for t in laps['live'])}), served "
+            f"{med['served']:.2f} ({', '.join('%.2f' % t for t in laps['served'])}"
+            f"), served / live {med['served'] / med['live']:.3f} on {card}")
+    log(f"serve_export: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def merge_candidates(up, pcs):
     """``upsample_many``'s stages up to its merge for (B, n, 3) clouds:
     (generator rows (B·s, p·r, 3) in patch units, merge candidates (B,
@@ -2015,10 +2160,12 @@ def hold_merge_candidates(up, ref, plain, cases):
 
 
 def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),
-              name: str = "cli_smoke"):
+              name: str = "cli_smoke", phase: str = "test"):
     """``python -m dispu_tpu_torch.cli --phase test`` with ``flags`` on the
     two demo clouds, restoring the newest checkpoint in ``log_dir``: both
-    output files exist with n·4 finite rows."""
+    output files exist with n·4 finite rows.  With ``phase='export'`` the
+    export phase instead, held by :func:`hold_cli_export`, whose launch
+    counts it returns."""
     import shutil
 
     import numpy as np
@@ -2030,7 +2177,7 @@ def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),
     for name in names:
         shutil.copy(os.path.join(REPO, "demo", "gt", f"{name}.xyz"),
                     os.path.join(work, "in"))
-    cmd = [sys.executable, "-m", "dispu_tpu_torch.cli", "--phase", "test",
+    cmd = [sys.executable, "-m", "dispu_tpu_torch.cli", "--phase", phase,
            *flags, "--log_dir", log_dir, "--test_data",
            os.path.join(work, "in", "*.xyz"), "--out_folder",
            os.path.join(work, "out")]
@@ -2039,7 +2186,11 @@ def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),
                          timeout=600)
     seconds = time.perf_counter() - t0
     require(out.returncode == 0,
-            f"cli test phase exited {out.returncode}: {out.stderr[-3000:]}")
+            f"cli {phase} phase exited {out.returncode}: "
+            f"{out.stderr[-3000:]}")
+    if phase == "export":
+        return hold_cli_export(card, log_dir, flags, names,
+                               os.path.join(work, "out"), seconds)
     for name in names:
         n = load_cloud(f"{name}.xyz").shape[0]
         path = os.path.join(work, "out", f"{name}_X4.xyz")
@@ -2050,6 +2201,39 @@ def cli_phase(card: str, log_dir: str, flags=("--turbo", "true"),
     log(f"cli --phase test {' '.join(flags)}: restored {log_dir}, wrote "
         f"{', '.join(f'{n}_X4.xyz' for n in names)} ({seconds:.1f} s with "
         f"the process's start) on {card}")
+
+
+def hold_cli_export(card: str, log_dir: str, flags, names, out: str,
+                    seconds: float) -> dict:
+    """The artifact of ``--phase export`` (one entry, both demo clouds
+    have 2048 points) against a live upsampler restored from the same
+    checkpoint as the CLI restores it: bit-equal on both clouds, each call
+    with ``expected_counts``' launches."""
+    import numpy as np
+
+    from dispu_tpu_torch import cli, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.serving import ServedUpsampler
+
+    cfg = cli.build_config(cli.parse_args(
+        ["--phase", "export", *flags, "--log_dir", log_dir]))
+    up = PatchUpsampler(gen_cfg=cfg.generator, inf_cfg=cfg.inference, seed=0)
+    up.model.load_state_dict(cli.restore_generator_weights(cfg, up.device))
+    served = ServedUpsampler(out)
+    require(served.sizes == [2048], f"cli export sizes {served.sizes}")
+    kernels.reset_launch_counts()
+    for name in names:
+        pc = load_cloud(f"{name}.xyz")
+        require(np.array_equal(served.upsample(pc), up.upsample(pc)),
+                f"cli export: served {name} differs from the live upsample")
+    counts = kernels.launch_counts()
+    expected = add_counts({}, expected_counts(up, 2048), 2 * len(names))
+    require(counts == expected, f"cli export launches {counts} != {expected}")
+    log(f"cli --phase export{''.join(' ' + f for f in flags)}: restored "
+        f"{log_dir}, wrote "
+        f"{out} ({seconds:.1f} s with the process's start); served = live "
+        f"on {', '.join(names)}, launches {counts} on {card}")
+    return counts
 
 
 # ---------------------------------------------------- phase 4: evaluation
@@ -2487,8 +2671,8 @@ def train_phase(card: str, profile: bool):
     compare_steps("training", m_k, g_k, m_p, g_p, extra=(
         "; NL cell conv_kv / conv_query max|g| " + ", ".join(
             "%.3e" % float(g_k[n].abs().max()) for n in g_k
-            if "nonlocal.conv_kv.dense.weight" in n
-            or "nonlocal.conv_query.dense.weight" in n)))
+            if "non_local.conv_kv.dense.weight" in n
+            or "non_local.conv_query.dense.weight" in n)))
 
     # (d) two runs of 5 steps from the same state and seed: bit-equal
     require_repeatable("training", lambda: run("auto", 5, seed=3)[0].model)
@@ -3008,8 +3192,12 @@ def main() -> int:
     counts = add_counts(counts, serve_turbo(card))
     counts = add_counts(counts, serve_refine(card))
     counts = add_counts(counts, serve_large(card))
+    counts = add_counts(counts, serve_export(card))
     counts = add_counts(counts, train_phase(card, args.profile))
-    cli_phase(card, os.path.join(REPO, "chiprun_out", "train_smoke"))
+    train_dir = os.path.join(REPO, "chiprun_out", "train_smoke")
+    cli_phase(card, train_dir)
+    counts = add_counts(counts, cli_phase(card, train_dir, (), "cli_export",
+                                          "export"))
     gan_counts, gan_dir = gan_phase(card, args.profile)
     counts = add_counts(counts, gan_counts)
     cli_phase(card, gan_dir, ("--use_gan", "true"), "cli_gan_smoke")

@@ -1,4 +1,5 @@
-"""Command line of the port: train or test the Dis-PU generator on the card.
+"""Command line of the port: train, test or export the Dis-PU generator on
+the card.
 
 The twin of ``dispu.py``: the same flags and the same ``build_config``,
 so one command line gives the same configuration in both packages.
@@ -15,10 +16,15 @@ the generator of a CD or a GAN checkpoint alike.
         --synthetic 84 --epochs 2 --d_clip 0
     python -m dispu_tpu_torch.cli --phase test --log_dir log \\
         --test_data 'demo/gt/*.xyz' --turbo true --out_folder outputs
+    python -m dispu_tpu_torch.cli --phase export --log_dir log \\
+        --test_data 'demo/gt/*.xyz'
 
-Scoring the outputs is ``python -m dispu_tpu_torch.evaluate``, the twin
-of ``evaluate.py``.  Not ported (``NotImplementedError``, naming the
-ROADMAP.md item): ``--phase export`` (``serving.py``).
+``--phase export`` writes a serving artifact (``serving.export_upsampler``:
+one ``torch.export`` entry for each input size, from ``--export_sizes`` or
+the point counts of the ``--test_data`` files) into ``--out_folder`` or
+``<log_dir>/export``, which ``serving.ServedUpsampler`` loads.  Scoring
+the outputs is ``python -m dispu_tpu_torch.evaluate``, the twin of
+``evaluate.py``.
 """
 
 from __future__ import annotations
@@ -94,7 +100,8 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=None,
                    help="override training_epoch (smoke runs)")
     p.add_argument("--export_sizes", type=int, nargs="+", default=None,
-                   help="export phase (not ported)")
+                   help="export phase: the input sizes to export (default: "
+                        "the point counts of the --test_data files)")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 is not ported and raises")
@@ -242,16 +249,40 @@ def run_test(args, cfg):
                 write_out(name, out)
 
 
+def run_export(args, cfg):
+    """The upsampler restored from the newest checkpoint, exported as a
+    serving artifact (``serving.export_upsampler``), one entry for each
+    size of ``--export_sizes`` or of the ``--test_data`` files' point
+    counts; ``dispu.py``'s ``run_export``."""
+    from dispu_tpu_torch.config import check_supported
+    from dispu_tpu_torch.evaluation.meshio import read_xyz
+    from dispu_tpu_torch.inference import resolve_device
+    from dispu_tpu_torch.serving import export_upsampler
+
+    check_supported(cfg.generator, cfg.inference)  # before any file is read
+    sizes = args.export_sizes or sorted(
+        {len(read_xyz(p)) for p in glob(args.test_data)})
+    if not sizes:
+        raise SystemExit(
+            "no input sizes: pass --export_sizes or a --test_data glob")
+    weights = restore_generator_weights(cfg, resolve_device(args.device))
+    out = args.out_folder or os.path.join(cfg.log_dir, "export")
+    manifest = export_upsampler(weights, sizes=sizes, path=out,
+                                gen_cfg=cfg.generator, inf_cfg=cfg.inference,
+                                device=args.device)
+    logging.info("exported %d entries (%s) to %s", len(manifest["entries"]),
+                 sizes, out)
+    return manifest
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
     cfg = build_config(args)
-    if args.phase == "export":
-        raise NotImplementedError(
-            "--phase export is not ported yet (ROADMAP.md, queue 1: "
-            "serving.py)")
     if args.phase == "train":
         run_train(args, cfg)
+    elif args.phase == "export":
+        run_export(args, cfg)
     else:
         run_test(args, cfg)
 

@@ -4,8 +4,9 @@ into the port.
 The JAX package's variables are ``{'params': ..., 'batch_stats': ...}``
 nested by module scope.  The port names its submodules by the same scopes,
 so a leaf's path maps onto a ``state_dict`` key by joining it with dots,
-with one rename: a dense ``kernel`` (stored (in, out)) becomes ``weight``
-((out, in), transposed).  ``_PermutedRowDense`` keeps its stored row
+with two renames: a dense ``kernel`` (stored (in, out)) becomes ``weight``
+((out, in), transposed), and the refiner's ``nonlocal`` (a Python
+keyword) ``non_local``.  ``_PermutedRowDense`` keeps its stored row
 layout and permutes at apply time, so its kernel converts like any other.
 Batch-norm ``scale``/``bias`` and ``mean``/``var`` keep their names.
 """
@@ -17,6 +18,8 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from dispu_tpu_torch.utils.checkpoint import current_key
 
 COLLECTIONS = ("params", "batch_stats")
 
@@ -32,8 +35,8 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[tuple]:
 def _torch_key(path: Tuple[str, ...]) -> Tuple[str, bool]:
     """(state_dict key, whether the value is transposed)."""
     if path[-1] == "kernel":
-        return ".".join(path[:-1] + ("weight",)), True
-    return ".".join(path), False
+        return current_key(".".join(path[:-1] + ("weight",))), True
+    return current_key(".".join(path)), False
 
 
 def _collect(tree, what: str, targets: Dict[str, torch.Tensor],

@@ -7,8 +7,10 @@ of ``patch_batch`` patches (the count padded with copies of the first
 patch), ``num_passes`` chained passes a chunk (1 at 4×, 2 at 16×) →
 un-normalize the patches → merge FPS down to n·final_ratio points a cloud
 (exact, or with ``merge_fps='bucketed'`` by Morton buckets) → un-normalize
-the clouds.  ``upsample_many`` runs B same-size clouds through each stage
-at once; ``upsample`` is its one-cloud case.  The turbo serving flags of
+the clouds.  :meth:`PatchUpsampler.pipeline` is that whole function of
+the clouds' tensor; ``upsample_many`` runs it on B same-size clouds at
+once, ``upsample`` is its one-cloud case, and ``serving.export_upsampler``
+traces it.  The turbo serving flags of
 ``dispu.py --turbo`` are a ``GeneratorConfig`` and an ``InferenceConfig``
 (``cli.build_config``).
 """
@@ -23,23 +25,12 @@ import torch
 from dispu_tpu_torch.config import (GeneratorConfig, InferenceConfig,
                                     check_supported)
 from dispu_tpu_torch.convert import from_flax_variables
+from dispu_tpu_torch.kernels import pin_f32
 from dispu_tpu_torch.models.generator import DisPUGenerator
 from dispu_tpu_torch.ops.geometry import normalize_point_cloud
 from dispu_tpu_torch.ops.knn import knn
 from dispu_tpu_torch.ops.sampling import (farthest_point_sample,
                                           farthest_point_sample_bucketed)
-
-
-def pin_f32() -> None:
-    """Keep f32 products in f32 on the card.
-
-    PyTorch may run f32 matmuls and convolutions in TF32 (about three
-    decimal digits); the distances behind kNN selection and the network's
-    f32 compute need full f32, as the JAX package asks for with
-    ``precision=HIGHEST``.
-    """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device) -> torch.device:
@@ -152,6 +143,20 @@ class PatchUpsampler:
             idx = farthest_point_sample(out_num, points, impl=impl)
         return _take(points, idx)
 
+    def pipeline(self, pcs: torch.Tensor) -> torch.Tensor:
+        """(B, n, 3) same-size f32 clouds on the device → (B,
+        n·final_ratio, 3): normalize, :meth:`prepare`, :meth:`generate`,
+        un-normalize the patches, :meth:`merge`, un-normalize the clouds.
+        The one function that live requests run and that an export
+        traces."""
+        b, n, _ = pcs.shape
+        seed_num, out_num = plan_counts(n, self.inf_cfg)
+        pcs_n, centroid, furthest = normalize_point_cloud(pcs)
+        patches, p_centroid, p_furthest, _ = self.prepare(pcs_n, seed_num)
+        pred = self.generate(patches) * p_furthest + p_centroid
+        out = self.merge(pred.reshape(b, -1, 3), out_num)
+        return out * furthest + centroid
+
     # ------------------------------------------------------------------- API
 
     @torch.inference_mode()
@@ -163,14 +168,8 @@ class PatchUpsampler:
         with the other clouds' and the padding differs, which moves the
         f32 round-off of each chunk's products."""
         pcs = np.asarray(pcs, np.float32)[:, :, :3]
-        b, n, _ = pcs.shape
-        seed_num, out_num = plan_counts(n, self.inf_cfg)
-        pcs_n, centroid, furthest = normalize_point_cloud(
-            torch.from_numpy(pcs).to(self.device))
-        patches, p_centroid, p_furthest, _ = self.prepare(pcs_n, seed_num)
-        pred = self.generate(patches) * p_furthest + p_centroid
-        out = self.merge(pred.reshape(b, -1, 3), out_num)
-        return (out * furthest + centroid).cpu().numpy()
+        return self.pipeline(torch.from_numpy(pcs).to(self.device)
+                             ).cpu().numpy()
 
     def upsample(self, pc) -> np.ndarray:
         """(n, 3) cloud → (n·final_ratio, 3) upsampled cloud (numpy)."""

@@ -7,7 +7,8 @@ scratch that :func:`attention_cuda` allocates, and runs both products on
 the tensor cores (``mma.sync``, f32 accumulators), keeping the TPU
 kernel's rounding points; see the note at the top of the source.
 :func:`attention` is differentiable through :class:`AttentionFunction`,
-which carries ``attention_pallas_diff``'s backward rule in torch ops.
+which carries ``attention_pallas_diff``'s backward rule in torch ops; its
+forward is the custom op ``dispu_tpu_torch::attention``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import ctypes
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
 
 #: widths the kernel takes
 MAX_C = 256
@@ -115,15 +117,31 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def attention_op_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The op's CPU form: :func:`attention_torch` in the kernel's bf16
+    numerics."""
+    return attention_torch(q, k, v, scale, bf16_operands=True)
+
+
+def attention_fake(q, k, v, scale):
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+
+
+attention_op = custom_op("attention", attention_op_torch, attention_cuda,
+                         attention_fake)
+
+
 class AttentionFunction(torch.autograd.Function):
     """Attention whose output is differentiable in q, k and v: forward by
-    the kernel (``use_cuda``) or by its plain bf16 version, backward by
+    the kernel (``use_cuda``) or by its plain bf16 version, through the
+    custom op (:func:`~dispu_tpu_torch.kernels.forward_of`), backward by
     :func:`attention_backward`."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, use_cuda):
-        out = (attention_cuda(q, k, v, scale) if use_cuda
-               else attention_torch(q, k, v, scale, bf16_operands=True))
+        out = forward_of(use_cuda, q, attention_op, attention_cuda,
+                         attention_op_torch)(q, k, v, scale)
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
         return out

@@ -16,6 +16,8 @@ takes clouds of up to :data:`FPS_MAX_N` points: the seed FPS and the 4×
 merge of the serving path, the critic's and the ``uniform`` metric's FPS
 in training.  Larger clouds (the 16× merge) go to the cluster kernel in
 ``fps_chunked.py``, which :func:`fps_torch` is the plain version of too.
+:func:`fps` calls the custom op ``dispu_tpu_torch::fps``; :func:`fps_lite`
+stays a ``ctypes`` call.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import ctypes
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,12 +88,19 @@ def fps_cuda(npoint: int, xyz: torch.Tensor,
     return out
 
 
+def fps_fake(npoint, xyz):
+    """The FPS ops' shape: (b, npoint) int32."""
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
+
+
+fps_op = custom_op("fps", fps_torch, fps_cuda, fps_fake)
+
+
 def fps(npoint: int, xyz: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """(b, n, 3) → (b, npoint) int32 FPS indices; the kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
-    if use_kernel(impl, xyz):
-        return fps_cuda(npoint, xyz)
-    return fps_torch(npoint, xyz)
+    return forward_of(use_kernel(impl, xyz), xyz, fps_op, fps_cuda,
+                      fps_torch)(npoint, xyz)
 
 
 def fps_lite(npoint: int, xyz: torch.Tensor, impl: str = "auto"

@@ -12,7 +12,8 @@ batch of clouds in one launch; the kernel picks the form for a bucket size
 thread in registers (six up to 6,144 points), the coordinates in shared
 memory up to 18,432, both in device memory beyond, with a scratch of
 min-distances that the wrapper allocates.  See the note at the top of the
-source.
+source.  :func:`fps_bucketed` calls the custom op
+``dispu_tpu_torch::fps_bucketed``.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import functools
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
-from dispu_tpu_torch.kernels.fps import fps_torch
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
+from dispu_tpu_torch.kernels.fps import fps_fake, fps_torch
 from dispu_tpu_torch.kernels.fps_chunked import STORAGES, Form
 
 _P = ctypes.c_void_p
@@ -101,10 +103,13 @@ def fps_bucketed_cuda(m_b: int, buckets: torch.Tensor) -> torch.Tensor:
     return out
 
 
+fps_bucketed_op = custom_op("fps_bucketed", fps_bucketed_torch,
+                            fps_bucketed_cuda, fps_fake)
+
+
 def fps_bucketed(m_b: int, buckets: torch.Tensor,
                  impl: str = "auto") -> torch.Tensor:
     """(K, n_b, 3) buckets → (K, m_b) int32 local FPS indices; the kernel
     for a CUDA tensor, the plain version for a CPU tensor."""
-    if use_kernel(impl, buckets):
-        return fps_bucketed_cuda(m_b, buckets)
-    return fps_bucketed_torch(m_b, buckets)
+    return forward_of(use_kernel(impl, buckets), buckets, fps_bucketed_op,
+                      fps_bucketed_cuda, fps_bucketed_torch)(m_b, buckets)

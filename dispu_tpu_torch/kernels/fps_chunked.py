@@ -16,7 +16,7 @@ Its plain version is :func:`dispu_tpu_torch.kernels.fps.fps_torch`, which
 computes this same function (seed index 0, min-distances from 1e38,
 first-occurrence argmax), so it is not repeated here.  The serving path
 sends this kernel the clouds past ``fps.cu``'s limit
-(``ops/sampling.py``).
+(``ops/sampling.py``), through the custom op ``dispu_tpu_torch::fps_chunked``.
 """
 
 from __future__ import annotations
@@ -26,8 +26,9 @@ from typing import NamedTuple
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
-from dispu_tpu_torch.kernels.fps import fps_torch
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
+from dispu_tpu_torch.kernels.fps import fps_fake, fps_torch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -147,10 +148,13 @@ def fps_chunked_cuda(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
     return out
 
 
+fps_chunked_op = custom_op("fps_chunked", fps_torch, fps_chunked_cuda,
+                           fps_fake)
+
+
 def fps_chunked(npoint: int, xyz: torch.Tensor,
                 impl: str = "auto") -> torch.Tensor:
     """(b, n, 3) → (b, npoint) int32 FPS indices; the kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
-    if use_kernel(impl, xyz):
-        return fps_chunked_cuda(npoint, xyz)
-    return fps_torch(npoint, xyz)
+    return forward_of(use_kernel(impl, xyz), xyz, fps_chunked_op,
+                      fps_chunked_cuda, fps_torch)(npoint, xyz)

@@ -14,7 +14,9 @@ the exact selection splits the row into chunks (:func:`knn_split_cuda`),
 which :func:`knn_kernel_cuda` picks by shape.  See the note at the top of
 the source.  :func:`knn` is differentiable through :class:`KnnFunction`,
 which carries ``knn_pallas_diff``'s backward rule in torch ops; so is
-:func:`knn_packed`, by the same rule.
+:func:`knn_packed`, by the same rule.  Both selections are custom ops,
+``dispu_tpu_torch::knn`` (the shape gate of :func:`knn_kernel_cuda`
+included) and ``dispu_tpu_torch::knn_packed``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import ctypes
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
 from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
 
 #: the largest k of the tiled form, which takes any n
@@ -40,7 +43,8 @@ _I = ctypes.c_int
 
 
 def knn_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
-              bias: torch.Tensor | None = None):
+              bias: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: the full distance matrix, then a stable sort.
 
     ``torch.topk`` does not pin the order of ties; the stable sort gives
@@ -198,9 +202,20 @@ def knn_backward(points: torch.Tensor, queries: torch.Tensor,
     return d_points, d_queries
 
 
+def knn_fake(k, points, queries, bias=None):
+    """The selections' shapes: ((b, m, k) f32, (b, m, k) int32)."""
+    b, m = queries.shape[:2]
+    return (queries.new_empty((b, m, k)),
+            queries.new_empty((b, m, k), dtype=torch.int32))
+
+
+knn_op = custom_op("knn", knn_torch, knn_kernel_cuda, knn_fake)
+
+
 class KnnFunction(torch.autograd.Function):
     """kNN whose distances are differentiable in the points and queries:
-    forward by the kernel (``use_cuda``) or by its plain version, the
+    forward by the kernel (``use_cuda``) or by its plain version, through
+    the custom op (:func:`~dispu_tpu_torch.kernels.forward_of`), the
     exact selection or with ``packed`` the packed one; backward by
     :func:`knn_backward` for both, the selection held fixed, as
     ``knn_pallas_diff`` does for every variant.  Indices and the bias
@@ -209,9 +224,11 @@ class KnnFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, points, queries, bias, use_cuda, packed=False):
         if packed:
-            run = knn_packed_cuda if use_cuda else knn_packed_torch
+            run = forward_of(use_cuda, points, knn_packed_op,
+                             knn_packed_cuda, knn_packed_torch)
         else:
-            run = knn_kernel_cuda if use_cuda else knn_torch
+            run = forward_of(use_cuda, points, knn_op, knn_kernel_cuda,
+                             knn_torch)
         dists, idx = run(k, points, queries, bias)
         ctx.save_for_backward(points, queries, idx)
         ctx.mark_non_differentiable(idx)
@@ -234,6 +251,35 @@ def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
                              use_kernel(impl, points), False)
 
 
+def duplicate_rows_torch(points: torch.Tensor) -> torch.Tensor:
+    """(..., n, c) → (..., n) bool: True where an identical row exists at a
+    smaller index of the same cloud (rows of finite values; -0.0 equals
+    0.0): the columns that the duplicate bias of ``knn_unique`` sorts last.
+
+    One lexicographic sort groups identical rows (``torch.unique`` over
+    rows, with the cloud's index as a leading column, exact below 2²⁴
+    clouds); a row is marked unless it has the smallest index of its
+    group.  No (..., n, n) plane is formed."""
+    n, c = points.shape[-2:]
+    flat = points.reshape(-1, c)
+    index = torch.arange(flat.shape[0], device=points.device)
+    cloud = torch.div(index, n, rounding_mode="floor").to(points.dtype)
+    _, group = torch.unique(torch.cat([cloud[:, None], flat], dim=1), dim=0,
+                            return_inverse=True)
+    first = torch.full_like(index, flat.shape[0]).scatter_reduce_(
+        0, group, index, "amin")
+    return (first[group] != index).reshape(points.shape[:-1])
+
+
+# plain torch on every device, an op so that an exported graph holds it as
+# one node: traced, ``torch.unique``'s output size is data-dependent, and
+# some torch releases' shape-only form of it gives the inverse a float type
+duplicate_rows_op = torch.library.custom_op(
+    "dispu_tpu_torch::duplicate_rows", duplicate_rows_torch, mutates_args=())
+duplicate_rows_op.register_fake(
+    lambda points: points.new_empty(points.shape[:-1], dtype=torch.bool))
+
+
 # ----------------------------------------------------- packed-key variant
 
 
@@ -246,7 +292,8 @@ def packed_lane_bits(n: int) -> int:
 
 
 def knn_packed_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
-                     bias: torch.Tensor | None = None):
+                     bias: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the packed (turbo) selection: the distance matrix
     of :func:`knn_torch`, each entry's bits with the low
     :func:`packed_lane_bits` bits replaced by its column index, and the k
@@ -289,6 +336,10 @@ def knn_packed_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
     _build.check(status, "packed knn kernel launch")
     LAUNCHES["knn_packed"] += 1
     return dists, idx
+
+
+knn_packed_op = custom_op("knn_packed", knn_packed_torch, knn_packed_cuda,
+                          knn_fake)
 
 
 def knn_packed(k: int, points: torch.Tensor, queries: torch.Tensor,

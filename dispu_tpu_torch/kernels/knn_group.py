@@ -14,7 +14,9 @@ the bytes of its gathered rows; see the note at the top of the source.
 Its (dists, idx) are bit-equal to the kNN kernel's on the same inputs.
 :class:`KnnGroupFunction` carries ``knn_group_pallas_diff``'s backward
 rule, whose gather transposes are the deterministic scatter-add kernel of
-``kernels/gather_rows.py`` on the card.
+``kernels/gather_rows.py`` on the card.  The forward is the custom op
+``dispu_tpu_torch::knn_group``, whose grouped xyz is an empty tensor
+where ``with_xyz`` is False (an op returns no None).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import ctypes
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
 from dispu_tpu_torch.kernels.gather_rows import (scatter_rows_cuda,
                                                  scatter_rows_torch)
 from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
@@ -138,9 +141,47 @@ def knn_group_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
     return dists, idx, gxyz, gfeat
 
 
+def _no_none(out, like: torch.Tensor):
+    d, idx, gxyz, gfeat = out
+    return d, idx, like.new_empty((0,)) if gxyz is None else gxyz, gfeat
+
+
+def knn_group_op_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
+                       feats: torch.Tensor, column_bias: torch.Tensor | None,
+                       exact: bool, with_xyz: bool, drop_first: bool
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """The op's CPU form: :func:`knn_group_torch`, the grouped xyz empty
+    where ``with_xyz`` is False."""
+    return _no_none(knn_group_torch(k, points, queries, feats, column_bias,
+                                    exact, with_xyz, drop_first), points)
+
+
+def knn_group_op_cuda(k, points, queries, feats, column_bias, exact,
+                      with_xyz, drop_first):
+    """The op's CUDA form: :func:`knn_group_cuda`, likewise."""
+    return _no_none(knn_group_cuda(k, points, queries, feats, column_bias,
+                                   exact, with_xyz, drop_first), points)
+
+
+def knn_group_fake(k, points, queries, feats, column_bias, exact, with_xyz,
+                   drop_first):
+    b, m = queries.shape[:2]
+    return (queries.new_empty((b, m, k)),
+            queries.new_empty((b, m, k), dtype=torch.int32),
+            points.new_empty((b, m, k, 3) if with_xyz else (0,)),
+            feats.new_empty((b, m, k, feats.shape[2])))
+
+
+knn_group_op = custom_op("knn_group", knn_group_op_torch, knn_group_op_cuda,
+                         knn_group_fake)
+
+
 class KnnGroupFunction(torch.autograd.Function):
     """``knn_group_pallas_diff``: forward by the kernel (``use_cuda``) or
-    by :func:`knn_group_torch`; backward ``_knn_group_bwd``, the selection
+    by :func:`knn_group_torch`, through the custom op
+    (:func:`~dispu_tpu_torch.kernels.forward_of`); backward
+    ``_knn_group_bwd``, the selection
     held fixed.  The grouped-feature and grouped-xyz cotangents scatter-add
     back to ``feats`` and ``points`` at the chosen indices, and the
     distance cotangent gives ``2·g·(q − p)`` to each query and its
@@ -153,14 +194,15 @@ class KnnGroupFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, points, queries, feats, column_bias, exact,
                 with_xyz, drop_first, use_cuda):
-        run = knn_group_cuda if use_cuda else knn_group_torch
-        out = run(k, points, queries, feats, column_bias, exact, with_xyz,
-                  drop_first)
-        ctx.save_for_backward(points, queries, out[1])
+        run = forward_of(use_cuda, points, knn_group_op, knn_group_cuda,
+                         knn_group_torch)
+        d, idx, gxyz, gfeat = run(k, points, queries, feats, column_bias,
+                                  exact, with_xyz, drop_first)
+        ctx.save_for_backward(points, queries, idx)
         ctx.n_feats, ctx.use_cuda = feats.shape[1], use_cuda
-        ctx.mark_non_differentiable(out[1])
+        ctx.mark_non_differentiable(idx)
         ctx.set_materialize_grads(False)
-        return out
+        return d, idx, gxyz if with_xyz else None, gfeat
 
     @staticmethod
     def backward(ctx, g_dist, _g_idx, g_gxyz, g_gfeat):

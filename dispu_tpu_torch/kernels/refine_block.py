@@ -7,7 +7,8 @@ self-kNN of the coarse points (k ≤ 16, the kNN kernel's bits), the
 neighbourhood gathers (xyz exact, features rounded once to bf16) and the
 local + skip branches of :mod:`dispu_tpu_torch.kernels.refine_local`, with
 no grouped tensor in device memory.  Inference only, as in the JAX
-package: :class:`RefineBlockFunction` raises in backward.
+package: :class:`RefineBlockFunction` raises in backward.  Its forward is
+the custom op ``dispu_tpu_torch::refine_block``.
 """
 
 from __future__ import annotations
@@ -16,11 +17,13 @@ import ctypes
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
 from dispu_tpu_torch.kernels.knn import knn_torch
 from dispu_tpu_torch.kernels.knn_group import bf16_round, rows_at
 from dispu_tpu_torch.kernels.refine_local import (LocalParams, cuda_args,
                                                   packed_scratch, param_dims,
+                                                  refine_fake,
                                                   refine_local_torch,
                                                   tile_queries)
 
@@ -160,17 +163,34 @@ def refine_block_cuda(xyz: torch.Tensor, feats: torch.Tensor,
     return (out, idx) if with_idx else out
 
 
+def refine_block_op_torch(xyz: torch.Tensor, feats: torch.Tensor,
+                          params: list[torch.Tensor]) -> torch.Tensor:
+    """The op's CPU form: :func:`refine_block_torch`."""
+    return refine_block_torch(xyz, feats, LocalParams(*params))
+
+
+def refine_block_op_cuda(xyz, feats, params):
+    """The op's CUDA form: :func:`refine_block_cuda`."""
+    return refine_block_cuda(xyz, feats, LocalParams(*params))
+
+
+refine_block_op = custom_op(
+    "refine_block", refine_block_op_torch, refine_block_op_cuda,
+    lambda xyz, feats, params: refine_fake(xyz, params))
+
+
 class RefineBlockFunction(torch.autograd.Function):
     """The mega-fused block, forward by the kernel (``use_cuda``) or by
-    :func:`refine_block_torch`.  No backward rule: the JAX package's
-    kernel has none, and its training path keeps the composed form."""
+    :func:`refine_block_torch`, through the custom op
+    (:func:`~dispu_tpu_torch.kernels.forward_of`).  No backward rule: the
+    JAX package's kernel has none, and its training path keeps the
+    composed form."""
 
     @staticmethod
     def forward(ctx, xyz, feats, use_cuda, *params):
-        p = LocalParams(*params)
-        if use_cuda:
-            return refine_block_cuda(xyz, feats, p)
-        return refine_block_torch(xyz, feats, p)
+        return forward_of(use_cuda, xyz, refine_block_op,
+                          refine_block_op_cuda, refine_block_op_torch)(
+                              xyz, feats, list(params))
 
     @staticmethod
     def backward(ctx, *grads):

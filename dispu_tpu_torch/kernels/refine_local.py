@@ -10,7 +10,8 @@ products on the tensor cores at f32 grade (3xTF32), in clusters of two
 blocks that share the weights' stream and the heads; see the notes at the
 top of ``csrc/refine_local.cu`` and ``csrc/refine_common.cuh``.  Inference
 only, as in the JAX package: :class:`RefineLocalFunction` raises in
-backward.
+backward.  Its forward is the custom op ``dispu_tpu_torch::refine_local``,
+which takes the parameters as a list in :class:`LocalParams`' order.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from typing import NamedTuple
 
 import torch
 
-from dispu_tpu_torch.kernels import LAUNCHES, use_kernel
+from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
+                                     use_kernel)
 
 #: n must be a multiple of this, as ``refine_local_pallas``'s ``tile_n``
 TILE_N = 128
@@ -151,15 +153,38 @@ def refine_local_cuda(grouped: torch.Tensor, p: LocalParams) -> torch.Tensor:
     return out
 
 
+def refine_local_op_torch(grouped: torch.Tensor,
+                          params: list[torch.Tensor]) -> torch.Tensor:
+    """The op's CPU form: :func:`refine_local_torch`."""
+    return refine_local_torch(grouped, LocalParams(*params))
+
+
+def refine_local_op_cuda(grouped, params):
+    """The op's CUDA form: :func:`refine_local_cuda`."""
+    return refine_local_cuda(grouped, LocalParams(*params))
+
+
+def refine_fake(rows, params):
+    """The refiner ops' shape: (b, n, c_out) f32, c_out from ``baf``."""
+    return rows.new_empty((rows.shape[0], rows.shape[1], params[-1].shape[0]))
+
+
+refine_local_op = custom_op("refine_local", refine_local_op_torch,
+                            refine_local_op_cuda, refine_fake)
+
+
 class RefineLocalFunction(torch.autograd.Function):
     """The fused branch, forward by the kernel (``use_cuda``) or by
-    :func:`refine_local_torch`.  No backward rule: the JAX package's
-    kernel has none, and its training path keeps the composed form."""
+    :func:`refine_local_torch`, through the custom op
+    (:func:`~dispu_tpu_torch.kernels.forward_of`).  No backward rule: the
+    JAX package's kernel has none, and its training path keeps the
+    composed form."""
 
     @staticmethod
     def forward(ctx, grouped, use_cuda, *params):
-        run = refine_local_cuda if use_cuda else refine_local_torch
-        return run(grouped, LocalParams(*params))
+        return forward_of(use_cuda, grouped, refine_local_op,
+                          refine_local_op_cuda, refine_local_op_torch)(
+                              grouped, list(params))
 
     @staticmethod
     def backward(ctx, *grads):

@@ -37,6 +37,16 @@ from dispu_tpu_torch.kernels.refine_local import LocalParams, refine_local
 from dispu_tpu_torch.nn.attention import PointNonLocalCell
 from dispu_tpu_torch.nn.layers import PointConv, WeightNetHidden
 from dispu_tpu_torch.ops.grouping import grouping
+from dispu_tpu_torch.utils.checkpoint import current_key
+
+
+def _rename_old_keys(module, state_dict, prefix, *args) -> None:
+    """Load-state-dict pre-hook: this module's keys of an older state dict
+    under their current names (:func:`current_key`)."""
+    for key in [k for k in state_dict if k.startswith(prefix)]:
+        new = prefix + current_key(key[len(prefix):])
+        if new != key:
+            state_dict[new] = state_dict.pop(key)
 
 
 class PointShuffle2(nn.Module):
@@ -68,10 +78,13 @@ class PointShuffle2(nn.Module):
                                                           local_impl, use_bn)
         self.use_nonlocal, self.use_local = use_nonlocal, use_local
         if use_nonlocal:
-            # 'nonlocal' is a Python keyword: the flax name needs add_module
-            self.add_module("nonlocal", PointNonLocalCell(
+            # flax's 'nonlocal' is a Python keyword, which the code of an
+            # exported program cannot hold as an attribute; a state dict
+            # under the old name still loads
+            self.non_local = PointNonLocalCell(
                 c, c, bottleneck=max(32, c // 2), out_features=out_c,
-                impl=impl, **kw))
+                impl=impl, **kw)
+            self.register_load_state_dict_pre_hook(_rename_old_keys)
         grouped = 6 + c  # [centred xyz | raw xyz | feature]
         self.skip = PointConv(grouped, out_c, **kw)
         width = grouped
@@ -153,7 +166,7 @@ class PointShuffle2(nn.Module):
             grouped_feat = torch.cat([centered, grouped_feat], dim=-1)
 
         if self.use_nonlocal:
-            nl = getattr(self, "nonlocal")(feature, feature[:, None])[:, 0]
+            nl = self.non_local(feature, feature[:, None])[:, 0]
         if self.use_nonlocal and not self.use_local:
             y = nl
         else:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from dispu_tpu_torch.kernels.knn import duplicate_rows_op as _duplicate_rows
 from dispu_tpu_torch.kernels.knn import knn as _knn_kernel
 from dispu_tpu_torch.kernels.knn import knn_packed as _knn_packed
 
@@ -20,21 +21,11 @@ VARIANTS = ("auto", "packed")
 
 def mask_duplicate_rows(points: torch.Tensor) -> torch.Tensor:
     """(..., n, c) → (..., n) bool: True where an identical row exists at a
-    smaller index (rows of finite values; -0.0 equals 0.0).
-
-    One lexicographic sort groups identical rows (``torch.unique`` over
-    rows, with the cloud's index as a leading column, exact below 2²⁴
-    clouds); a row is marked unless it has the smallest index of its
-    group.  No (..., n, n) plane is formed."""
-    n, c = points.shape[-2:]
-    flat = points.reshape(-1, c)
-    index = torch.arange(flat.shape[0], device=points.device)
-    cloud = torch.div(index, n, rounding_mode="floor").to(points.dtype)
-    _, group = torch.unique(torch.cat([cloud[:, None], flat], dim=1), dim=0,
-                            return_inverse=True)
-    first = torch.full_like(index, flat.shape[0]).scatter_reduce_(
-        0, group, index, "amin")
-    return (first[group] != index).reshape(points.shape[:-1])
+    smaller index (rows of finite values; -0.0 equals 0.0).  The op
+    ``dispu_tpu_torch::duplicate_rows``
+    (:func:`dispu_tpu_torch.kernels.knn.duplicate_rows_torch`), one node
+    of an exported graph."""
+    return _duplicate_rows(points)
 
 
 def _use_packed(variant: str, points: torch.Tensor, k: int) -> bool:

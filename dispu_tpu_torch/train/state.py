@@ -17,6 +17,7 @@ import torch
 
 from dispu_tpu_torch.config import GeneratorConfig, TrainConfig
 from dispu_tpu_torch.models.generator import DisPUGenerator
+from dispu_tpu_torch.utils.checkpoint import current_key
 
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
@@ -42,11 +43,13 @@ class GeneratorState:
                 "epoch": self.epoch, "step": self.step}
 
     def load_state_dict(self, saved: dict) -> "GeneratorState":
-        """Copy a :meth:`state_dict` into this state's tensors."""
+        """Copy a :meth:`state_dict` into this state's tensors (one
+        written under older module names too: :func:`current_key`)."""
         self.model.load_state_dict(saved["model"])
         with torch.no_grad():
             for mine, theirs in ((self.mu, saved["mu"]),
                                  (self.nu, saved["nu"])):
+                theirs = {current_key(k): v for k, v in theirs.items()}
                 if set(mine) != set(theirs):
                     raise ValueError("saved Adam moments do not match the "
                                      "model's parameters")

@@ -16,6 +16,16 @@ import torch
 
 _CKPT_RE = re.compile(r"model-(\d+)\.pt$")
 
+#: submodules renamed since checkpoints were first written, old → new:
+#: the refiner's ``nonlocal`` (flax's name, a Python keyword)
+RENAMED = {"nonlocal": "non_local"}
+
+
+def current_key(key: str) -> str:
+    """A parameter name of an older state dict, or of the flax tree, under
+    the port's current module names (:data:`RENAMED`)."""
+    return ".".join(RENAMED.get(part, part) for part in key.split("."))
+
 
 def save_checkpoint(log_dir: str, state, epoch: int) -> str:
     os.makedirs(log_dir, exist_ok=True)

@@ -1489,3 +1489,82 @@ def test_cd_hd_kernel_argmin_matches_plain(dev, n_pred, n_gt, launches):
     assert kernels.launch_counts()["knn"] == launches
     want = [float(x) for x in cd_hd(pred, gt, impl="torch")]
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# ------------------------------------------------ custom ops and serving
+
+
+def _on(dev, arg):
+    if isinstance(arg, torch.Tensor):
+        return arg.to(dev)
+    if isinstance(arg, list):
+        return [t.to(dev) for t in arg]
+    return arg
+
+
+def _op_cases():
+    from test_torch_ops import CASES
+
+    return CASES
+
+
+@pytest.mark.parametrize("name,args", [c[1:] for c in _op_cases()],
+                         ids=[c[0] for c in _op_cases()])
+def test_op_passes_opcheck_on_the_card(dev, name, args):
+    """Every ``opcheck`` check succeeds on CUDA tensors, and the op's CUDA
+    form is the hand-written kernel: it counts launches, and its result is
+    bit-equal to the kernel's wrapper called directly."""
+    op = getattr(torch.ops.dispu_tpu_torch, name).default
+    args = [_on(dev, a) for a in args]
+    kernels.reset_launch_counts()
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+    if name == "duplicate_rows":  # plain torch on every device
+        from dispu_tpu_torch.kernels.knn import duplicate_rows_torch
+
+        assert torch.equal(op(*args), duplicate_rows_torch(*args))
+        return
+    assert kernels.launch_counts()[name] > 0
+    kernels.reset_launch_counts()
+    got = op(*args)
+    assert kernels.launch_counts()[name] == 1
+    from dispu_tpu_torch.kernels import (attention, fps, fps_bucketed,
+                                         fps_chunked, knn, knn_group,
+                                         refine_block, refine_local)
+
+    direct = {"knn": knn.knn_kernel_cuda, "knn_packed": knn.knn_packed_cuda,
+              "knn_group": knn_group.knn_group_op_cuda, "fps": fps.fps_cuda,
+              "fps_chunked": fps_chunked.fps_chunked_cuda,
+              "fps_bucketed": fps_bucketed.fps_bucketed_cuda,
+              "attention": attention.attention_cuda,
+              "refine_local": refine_local.refine_local_op_cuda,
+              "refine_block": refine_block.refine_block_op_cuda}[name]
+    want = direct(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_served_entry_on_the_card_is_bit_equal_to_live(dev, tmp_path):
+    """A 4× entry exported on the card and loaded back returns the live
+    ``upsample``'s bits through the same kernel launches."""
+    from dispu_tpu_torch.serving import ServedUpsampler, export_upsampler
+
+    inf = InferenceConfig(patch_num_point=128, patch_batch=8)
+    up = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf)
+    manifest = export_upsampler(up.model.state_dict(), [600], str(tmp_path),
+                                gen_cfg=up.gen_cfg, inf_cfg=inf)
+    assert manifest["entries"][0]["device"] == "cuda"
+    assert manifest["entries"][0]["kernels"] == ["attention", "fps", "knn"]
+    served = ServedUpsampler(str(tmp_path))
+    served.warmup()
+    pc = _randn(0, 600, 3).numpy()
+    kernels.reset_launch_counts()
+    want = up.upsample(pc)
+    live_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    got = served.upsample(pc)
+    assert kernels.launch_counts() == live_counts
+    assert live_counts["knn"] == 11 and live_counts["attention"] == 2
+    np.testing.assert_array_equal(got, want)

@@ -44,6 +44,7 @@ def test_import_leaves_jax_unloaded():
             "dispu_tpu_torch.kernels.knn, dispu_tpu_torch.kernels.fps, "
             "dispu_tpu_torch.kernels.fps_chunked, "
             "dispu_tpu_torch.kernels.attention, dispu_tpu_torch.time_fps, "
+            "dispu_tpu_torch.serving, "
             "dispu_tpu_torch.kernels.query_ball, dispu_tpu_torch.losses, "
             "dispu_tpu_torch.train.trainer, dispu_tpu_torch.ops.chamfer, "
             "dispu_tpu_torch.kernels.knn_group, dispu_tpu_torch.cli, "

@@ -570,14 +570,15 @@ def test_cli_test_phase_writes_what_the_upsampler_returns(tmp_path,
                 == (tmp_path / f"{name}_want.xyz").read_bytes())
 
 
-# --use_gan true is ported: with bf16 compute, which is not, both phases
-# still raise
+# --use_gan true and --phase export are ported: with bf16 compute, which
+# is not, these phases still raise
 @pytest.mark.parametrize("argv,match", [
     (["--phase", "train", "--use_gan", "true", "--compute_dtype",
       "bfloat16"], "bfloat16"),
     (["--phase", "test", "--use_gan", "true", "--compute_dtype",
       "bfloat16"], "bfloat16"),
-    (["--phase", "export"], "serving"),
+    (["--phase", "export", "--export_sizes", "128", "--compute_dtype",
+      "bfloat16"], "bfloat16"),
 ], ids=["argv0-GAN", "argv1-GAN", "argv2-serving"])
 def test_cli_unported_phases_raise(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
