@@ -3118,6 +3118,382 @@ def profile_request(up, pc):
 # ------------------------------------------------------------------ main
 
 
+# ----------------------------------------------------- multi-device phase
+
+
+#: sharded evaluation against the one-process ``cd_hd``, relative
+MD_EVAL_REL = 1e-6
+#: turns of (mesh-less, mesh) requests a serving setting
+REQUEST_TURNS = 8
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def md_train_steps(card: str, mesh, label: str, cfg, make_state, make_step,
+                   per_step: dict, checked: int, timed: int):
+    """``checked`` steps of the mesh-less step and of the mesh step in
+    turns from the same seeded state, batch and generator seed (batch 28
+    of synthetic patches): metrics and every state tensor bit-equal, and
+    each run with ``per_step`` launches a step; then ``timed`` more turns
+    of each (plain, mesh, mesh, plain, ...), and the median ms of their
+    warm steps."""
+    import statistics
+
+    import torch
+
+    from dispu_tpu_torch import kernels
+    from dispu_tpu_torch.data.dataset import synthetic_patches
+    from dispu_tpu_torch.train.trainer import state_tensors
+
+    bs = cfg.train.batch_size
+    _, gt, radius = (torch.from_numpy(a).cuda() for a in synthetic_patches(
+        bs, cfg.generator.num_out_points, seed=0))
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        runs[name] = dict(state=make_state(), step=make_step(m),
+                          gen=torch.Generator(device="cuda").manual_seed(0),
+                          metrics=[], ms=[], counts={})
+
+    def turn(name):
+        r = runs[name]
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r["state"], m = r["step"](r["state"], gt, radius, r["gen"])
+        host = {k: float(v) for k, v in m.items()}  # synchronized
+        r["ms"].append((time.perf_counter() - t) * 1e3)
+        r["metrics"].append(host)
+        return kernels.launch_counts()
+
+    for _ in range(checked):
+        for name in runs:
+            runs[name]["counts"] = add_counts(runs[name]["counts"],
+                                              turn(name))
+    want = add_counts({}, per_step, checked)
+    same_metrics = runs["plain"]["metrics"] == runs["mesh"]["metrics"]
+    a, b = (state_tensors(runs[n]["state"].state_dict())
+            for n in ("plain", "mesh"))
+    n_diff = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    log(f"multi_device {label}: {checked} steps of batch {bs}, world size "
+        f"1 mesh against the mesh-less step: metrics bit-equal "
+        f"{same_metrics}, state tensors that differ {n_diff} of "
+        f"{len(a)}; launches mesh "
+        f"{nonzero(runs['mesh']['counts'])} (expected {nonzero(want)})")
+    require(same_metrics, f"multi_device {label}: metrics differ")
+    require(n_diff == 0, f"multi_device {label}: {n_diff} tensors differ")
+    for name in runs:
+        require(runs[name]["counts"] == want,
+                f"multi_device {label}: {name} launches "
+                f"{runs[name]['counts']}")
+    counts = runs["mesh"]["counts"]
+    for i in range(timed):
+        for name in (("plain", "mesh") if i % 2 == 0 else ("mesh", "plain")):
+            c = turn(name)
+            if name == "mesh":
+                counts = add_counts(counts, c)
+    med = {n: statistics.median(r["ms"][1:]) for n, r in runs.items()}
+    log(f"multi_device {label}: ms per warm step in turns, median of "
+        f"{checked + timed - 1}: mesh {med['mesh']:.3f}, plain "
+        f"{med['plain']:.3f}, mesh / plain {med['mesh'] / med['plain']:.4f}"
+        f"; on {card}")
+    return counts
+
+
+def md_serve(card: str, mesh):
+    """4× and 16× exact and 4× turbo requests on demo/gt/Icosahedron.xyz
+    through the mesh upsampler: bit-equal to the mesh-less one, with its
+    launch counts, timed in turns; then ``upsample_many`` of both demo
+    clouds at 4× and 16× through it, bit-equal to the mesh-less call."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from dispu_tpu_torch import InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+
+    pc = load_cloud("Icosahedron.xyz")
+    pcs = np.stack([pc, load_cloud("fandisk.xyz")])
+    turbo = turbo_config()
+    settings = {"4x": (None, InferenceConfig()),
+                "16x": (None, InferenceConfig(final_ratio=16)),
+                "4x turbo": (turbo.generator, dataclasses.replace(
+                    turbo.inference, final_ratio=4))}
+    total = {}
+    for label, (gen_cfg, inf) in settings.items():
+        kw = {} if gen_cfg is None else dict(gen_cfg=gen_cfg)
+        ups = {name: PatchUpsampler(seed=0, inf_cfg=inf, mesh=m, **kw)
+               for name, m in (("plain", None), ("mesh", mesh))}
+        want = expected_counts(ups["plain"], pc.shape[0])
+        outs, ms = {}, {name: [] for name in ups}
+        for rep in range(REQUEST_TURNS):
+            for name in (tuple(ups) if rep % 2 == 0
+                         else tuple(reversed(ups))):
+                up = ups[name]
+                kernels.reset_launch_counts()
+                t = time.perf_counter()
+                out = up.upsample(pc)  # returns on the host: synchronized
+                ms[name].append((time.perf_counter() - t) * 1e3)
+                counts = kernels.launch_counts()
+                require(counts == want, f"multi_device {label} {name}: "
+                        f"launches {counts} != {want}")
+                if name != "plain":
+                    total = add_counts(total, counts)
+                if rep == 0:
+                    outs[name] = out
+                require(np.array_equal(out, outs["plain"]),
+                        f"multi_device {label} {name}: output differs from "
+                        "the mesh-less request")
+        med = {n: statistics.median(t[1:]) for n, t in ms.items()}
+        log(f"multi_device {label} request, {pc.shape[0]} points: mesh "
+            f"output bit-equal to the mesh-less one, launches "
+            f"{nonzero(want)} each; ms in turns, median of "
+            f"{REQUEST_TURNS - 1} warm: plain {med['plain']:.3f}"
+            f", mesh {med['mesh']:.3f} "
+            f"({med['mesh'] / med['plain']:.4f}); on {card}")
+    for ratio in (4, 16):
+        inf = InferenceConfig(final_ratio=ratio)
+        plain = PatchUpsampler(seed=0, inf_cfg=inf)
+        meshed = PatchUpsampler(seed=0, inf_cfg=inf, mesh=mesh)
+        want = expected_counts(plain, pcs.shape[1], b=2)
+        kernels.reset_launch_counts()
+        got = meshed.upsample_many(pcs)
+        counts = kernels.launch_counts()
+        total = add_counts(total, counts)
+        same = np.array_equal(got, plain.upsample_many(pcs))
+        log(f"multi_device upsample_many of 2 clouds at {ratio}x over the "
+            f"mesh: bit-equal to the mesh-less call {same}; launches "
+            f"{nonzero(counts)} (expected {nonzero(want)})")
+        require(same, f"multi_device upsample_many {ratio}x differs")
+        require(counts == want, f"multi_device upsample_many {ratio}x "
+                f"launches {counts}")
+    return total
+
+
+def md_eval_step(cfg, mesh):
+    """The evaluation step (``train.steps.make_eval_step``) of the seeded
+    generator on a batch of synthetic patches, over the mesh and without
+    it: coarse and fine points and the metrics bit-equal, with the same
+    launches."""
+    import torch
+
+    from dispu_tpu_torch import kernels
+    from dispu_tpu_torch.data.dataset import synthetic_patches
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_eval_step
+
+    bs = cfg.train.batch_size
+    g = cfg.generator
+    _, gt, radius = (torch.from_numpy(a).cuda() for a in
+                     synthetic_patches(bs, g.num_out_points, seed=1))
+    inputs = gt[:, ::g.num_out_points // g.num_points].contiguous()
+    model = create_generator_state(cfg.generator, seed=0,
+                                   device="cuda").model
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        kernels.reset_launch_counts()
+        coarse, fine, metrics = make_eval_step(cfg, mesh=m)(
+            model, inputs, gt, radius)
+        runs[name] = (coarse, fine, {k: float(v) for k, v in
+                                     metrics.items()},
+                      kernels.launch_counts())
+    (c0, f0, m0, n0), (c1, f1, m1, n1) = runs["plain"], runs["mesh"]
+    same = torch.equal(c0, c1) and torch.equal(f0, f1) and m0 == m1
+    log(f"multi_device eval step, batch {bs}: points and metrics bit-equal "
+        f"to the mesh-less step {same}; launches {nonzero(n1)}")
+    require(same, "multi_device eval step differs")
+    require(n1 == n0 and nonzero(n1), f"multi_device eval step launches "
+            f"{n1} != {n0}")
+    return n1
+
+
+def md_merge(mesh):
+    """The sharded bucketed merge on a 16× request's merge candidates:
+    bit-equal to the call without a mesh."""
+    import torch
+
+    from dispu_tpu_torch import InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.ops.sampling import farthest_point_sample_bucketed
+
+    up = PatchUpsampler(seed=0, inf_cfg=InferenceConfig(final_ratio=16))
+    _, cand, out_num, _, _ = merge_candidates(
+        up, load_cloud("Icosahedron.xyz")[None])
+    k = InferenceConfig().merge_fps_buckets
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        got = farthest_point_sample_bucketed(out_num, cand, n_buckets=k,
+                                             mesh=mesh)
+        counts = kernels.launch_counts()
+        want = farthest_point_sample_bucketed(out_num, cand, n_buckets=k)
+    same = torch.equal(got, want)
+    log(f"multi_device sharded bucketed merge: {out_num} of "
+        f"{cand.shape[1]} candidates in {k} buckets, bit-equal to the "
+        f"mesh-less call {same}; launches {nonzero(counts)}")
+    require(same, "multi_device sharded merge differs")
+    require(counts["fps_bucketed"] == 1, f"sharded merge launches {counts}")
+    return counts
+
+
+def md_eval(mesh):
+    """``sharded_cd_hd`` of the demo outputs against demo/gt, on the clouds
+    ``cd_hd`` normalizes, within ``MD_EVAL_REL`` of ``cd_hd``."""
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch.evaluation.metrics import cd_hd
+    from dispu_tpu_torch.ops.geometry import normalize_point_cloud
+    from dispu_tpu_torch.parallel.sharded_eval import sharded_cd_hd
+
+    worst = 0.0
+    for name in ("Icosahedron", "fandisk"):
+        gt = torch.from_numpy(load_cloud(f"{name}.xyz")).cuda()
+        for ratio in (4, 16):
+            path = os.path.join(REPO, "demo", "outputs",
+                                f"{name}_X{ratio}.xyz")
+            pred = torch.from_numpy(np.loadtxt(path, dtype=np.float32)[
+                :, :3]).cuda()
+            with torch.inference_mode():
+                want = [float(v) for v in cd_hd(pred, gt)]
+                got = [float(v) for v in sharded_cd_hd(
+                    mesh, normalize_point_cloud(pred)[0],
+                    normalize_point_cloud(gt)[0])]
+            rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+            worst = max(worst, rel)
+            log(f"multi_device sharded_cd_hd {name}_X{ratio} "
+                f"({pred.shape[0]} vs {gt.shape[0]} points): (cd, hd) "
+                f"{got} against cd_hd {want}, rel {rel:.3e}")
+    require(worst <= MD_EVAL_REL, f"sharded_cd_hd deviates {worst}")
+
+
+def md_all_reduce(card: str, mesh):
+    """The default generator's gradient all-reduce as a step makes it
+    (``train.steps.reduce_grads_``: ``all_reduce_mean_`` of the 68
+    gradients, flattened into one buffer, all-reduced, divided and copied
+    back) beside a bare ``dist.all_reduce`` of the same 4.19 MB, by CUDA
+    events over 200 calls each."""
+    import torch
+    import torch.distributed as dist
+
+    from dispu_tpu_torch.models.generator import DisPUGenerator
+    from dispu_tpu_torch.train.steps import reduce_grads_
+
+    model = DisPUGenerator(impl="torch").cuda()
+    for p in model.parameters():
+        p.grad = torch.randn_like(p)
+    grads = [p.grad for p in model.parameters()]
+    n = sum(g.numel() for g in grads)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    group = mesh.get_group(0)
+    step_ms = timed_ms(lambda: reduce_grads_(model, mesh), 200)
+    bare_ms = timed_ms(lambda: dist.all_reduce(flat, group=group), 200)
+    log(f"multi_device gradient all-reduce, {len(grads)} gradients, {n} "
+        f"f32 weights ({4 * n / 1e6:.2f} MB), world size 1 over "
+        f"{dist.get_backend()}: a step's reduce_grads_ "
+        f"{step_ms * 1e3:.1f} us, bare dist.all_reduce "
+        f"{bare_ms * 1e3:.1f} us; on {card}")
+
+
+def multi_device(card: str) -> dict:
+    """The mesh paths at world size 1 on the card, over NCCL: a one-rank
+    group (``file://`` init) and ``make_mesh(device="cuda")``, destroyed in
+    a ``finally``; each mesh path bit-equal to its mesh-less run with its
+    launches (NCCL refuses two ranks on one device, so ranks > 1 run on
+    the CPU only, in the tests and ``parallel.dryrun``)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from dispu_tpu_torch import cli, kernels
+    from dispu_tpu_torch.config import ExperimentConfig, TrainConfig
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.parallel.mesh import make_mesh
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+    from dispu_tpu_torch.train.trainer import Trainer, state_tensors
+    from dispu_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                  restore_checkpoint)
+
+    t_phase = time.perf_counter()
+    require(not dist.is_initialized(), "a process group exists already")
+    tmp = tempfile.mkdtemp(prefix="md_group_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/group",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cuda")
+        log(f"multi_device: {mesh} over {dist.get_backend()}")
+        cfg = ExperimentConfig()
+        counts = md_train_steps(
+            card, mesh, "CD step", cfg,
+            lambda: create_generator_state(cfg.generator, seed=0,
+                                           device="cuda"),
+            lambda m: make_train_step(cfg, mesh=m),
+            expected_train_counts(cfg), checked=3, timed=30)
+        gcfg = cli.build_config(cli.parse_args(
+            ["--phase", "train", "--use_gan", "true", "--d_clip", "0"]))
+        c = md_train_steps(
+            card, mesh, "GAN step (d_clip 0)", gcfg,
+            lambda: create_gan_state(gcfg, seed=0, device="cuda"),
+            lambda m: make_gan_train_step(gcfg, mesh=m),
+            expected_gan_counts(gcfg), checked=2, timed=20)
+        counts = add_counts(counts, c)
+
+        # the trainer over the mesh: one epoch of 2 steps, its checkpoint
+        # restores bit-equal, and its state is the mesh-less trainer's
+        states = {}
+        for name, m in (("mesh", mesh), ("plain", None)):
+            log_dir = os.path.join(REPO, "chiprun_out", f"md_trainer_{name}")
+            shutil.rmtree(log_dir, ignore_errors=True)
+            tcfg = dataclasses.replace(cfg, log_dir=log_dir,
+                                       train=dataclasses.replace(
+                                           TrainConfig(), epoch_per_save=1))
+            ds = PatchDataset(h5_path=os.path.join(log_dir, "absent.h5"),
+                              synthetic_patches_count=2 * cfg.train.batch_size,
+                              seed=0)
+            kernels.reset_launch_counts()
+            states[name] = Trainer(tcfg, dataset=ds, mesh=m).train(epochs=1)
+            c = kernels.launch_counts()
+            want = add_counts({}, expected_train_counts(cfg), 2)
+            require(c == want, f"multi_device trainer ({name}) launches {c}")
+            if m is not None:
+                counts = add_counts(counts, c)
+                epoch, path = latest_checkpoint(log_dir)
+                back = restore_checkpoint(path, create_generator_state(
+                    cfg.generator, seed=11, device="cuda"))
+                same = all(torch.equal(a, b) for a, b in zip(
+                    state_tensors(states[name].state_dict()),
+                    state_tensors(back.state_dict())))
+                require(epoch == 1 and same,
+                        "multi_device trainer checkpoint does not restore")
+        same = all(torch.equal(a, b) for a, b in zip(
+            state_tensors(states["mesh"].state_dict()),
+            state_tensors(states["plain"].state_dict())))
+        log(f"multi_device Trainer(mesh=mesh).train(epochs=1), 2 steps: "
+            f"checkpoint restores bit-equal; state bit-equal to the "
+            f"mesh-less trainer's {same}")
+        require(same, "multi_device trainer differs from the mesh-less one")
+
+        counts = add_counts(counts, md_eval_step(cfg, mesh))
+        counts = add_counts(counts, md_serve(card, mesh))
+        counts = add_counts(counts, md_merge(mesh))
+        md_eval(mesh)
+        md_all_reduce(card, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(not dist.is_initialized(), "the process group outlived the phase")
+    log(f"multi_device phase: {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3202,6 +3578,7 @@ def main() -> int:
     counts = add_counts(counts, gan_counts)
     cli_phase(card, gan_dir, ("--use_gan", "true"), "cli_gan_smoke")
     counts = add_counts(counts, evaluate_phase(card))
+    counts = add_counts(counts, multi_device(card))
     if args.profile:
         import dataclasses
 

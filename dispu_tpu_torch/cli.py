@@ -19,6 +19,13 @@ the generator of a CD or a GAN checkpoint alike.
     python -m dispu_tpu_torch.cli --phase export --log_dir log \\
         --test_data 'demo/gt/*.xyz'
 
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+-m dispu_tpu_torch.cli --phase train ...``; with ``--device cpu`` the
+processes meet over gloo) the train phase is data-parallel: the trainers
+build their mesh from the launcher's environment (``WORLD_SIZE``), every
+process takes its rows of each batch, and only rank 0 writes the log dir.
+The test and export phases stay single-process, as ``dispu.py``'s do.
+
 ``--phase export`` writes a serving artifact (``serving.export_upsampler``:
 one ``torch.export`` entry for each input size, from ``--export_sizes`` or
 the point counts of the ``--test_data`` files) into ``--out_folder`` or

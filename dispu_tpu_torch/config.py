@@ -180,10 +180,13 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout (multi-device runs are not ported)."""
+    """Device-mesh layout for data-parallel training (no analog in the
+    reference, which is single-GPU): the name of the data axis, and the
+    processes it spans (0 = every process the launcher started, the only
+    other value being that count; ``parallel.mesh.make_mesh``)."""
 
     data_axis: str = "data"
-    num_devices: int = 0
+    num_devices: int = 0         # 0 = all available
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,12 +249,16 @@ def check_supported(gen_cfg: GeneratorConfig,
                      "ops/sampling.py, the rest (item 12)")
 
 
-def check_train_supported(cfg: ExperimentConfig) -> None:
+def check_train_supported(cfg: ExperimentConfig,
+                          data_parallel: bool = False) -> None:
     """Raise ``NotImplementedError`` for training settings outside the
-    ported slice, naming the ROADMAP.md queue item that will bring each.
+    ported slice, naming the ROADMAP.md queue item that will bring each;
+    ``ValueError`` for the GAN's fake pool when the run is
+    ``data_parallel``.
 
-    Ported: CD and GAN training (``use_gan``, ``fake_pool_size``) on one
-    device in f32, with any exact ``gather_impl`` ('pallas' through the
+    Ported: CD and GAN training (``use_gan``, ``fake_pool_size``) in f32,
+    on one device or data-parallel over a mesh (the fake pool stays
+    single-device), with any exact ``gather_impl`` ('pallas' through the
     gather and scatter-add kernels) or with ``fused_grouping`` alone (the
     ``knn_group`` kernel and its backward rule), for the generator and
     the critic.  The other turbo flags serve only.  Any
@@ -277,5 +284,7 @@ def check_train_supported(cfg: ExperimentConfig) -> None:
         _unsupported("visualize (training renders)", host)
     if cfg.train.profile:
         _unsupported("profile (the trainer's trace of its first epoch)", host)
-    if cfg.mesh.num_devices > 1:
-        _unsupported("a device mesh", "multi-GPU runs")
+    if data_parallel and cfg.use_gan and cfg.train.fake_pool_size > 0:
+        raise ValueError(
+            "the fake pool is a host round trip, single-device only; "
+            "run on one device or set --fake_pool_size 0")

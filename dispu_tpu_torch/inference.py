@@ -1,5 +1,5 @@
 """Whole-cloud upsampling through batched patches (counterpart of
-``inference.py``, single device).
+``inference.py``).
 
 normalize each cloud → FPS seeds → kNN patches (k = patch size; the kNN
 kernel on the card) → per-patch normalization → the generator in chunks
@@ -13,6 +13,16 @@ once, ``upsample`` is its one-cloud case, and ``serving.export_upsampler``
 traces it.  The turbo serving flags of
 ``dispu.py --turbo`` are a ``GeneratorConfig`` and an ``InferenceConfig``
 (``cli.build_config``).
+
+Patch-parallel serving (``mesh``): every process runs the same request.
+``patch_batch`` is rounded up to a multiple of the mesh's data axis; every
+process prepares the patches (the same in each), runs the generator on its
+rows of each chunk, and the predictions are all-gathered, so that every
+process merges all of them.  This one eager path stands for both of the
+JAX package's mesh paths, its staged one and its single-program one
+(``mesh_fused``): ``upsample`` and ``upsample_many`` both take it.  The
+merge is not sharded (the JAX package does not pass its mesh to the
+merge either).
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ from dispu_tpu_torch.ops.geometry import normalize_point_cloud
 from dispu_tpu_torch.ops.knn import knn
 from dispu_tpu_torch.ops.sampling import (farthest_point_sample,
                                           farthest_point_sample_bucketed)
+from dispu_tpu_torch.parallel.mesh import (all_gather_rows, data_size,
+                                           local_rows)
 
 
 def resolve_device(device) -> torch.device:
@@ -66,7 +78,8 @@ class PatchUpsampler:
     arrays) to load, or None for the port's own init from ``seed``.
     device: 'cuda' by default; 'cpu' runs the kernels' plain versions.
     impl: 'auto', 'cuda' or 'torch' for the kNN, FPS and attention
-    kernels (see ``dispu_tpu_torch.kernels``).
+    kernels (see ``dispu_tpu_torch.kernels``).  mesh: patch-parallel over
+    this mesh (module docstring).
     """
 
     def __init__(self, variables=None,
@@ -74,15 +87,14 @@ class PatchUpsampler:
                  inf_cfg: InferenceConfig = InferenceConfig(),
                  device="cuda", impl: str = "auto", seed: int = 0,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device inference is not ported yet (ROADMAP.md, "
-                "queue 1: multi-GPU runs)"
-            )
         check_supported(gen_cfg, inf_cfg)
         self.device = resolve_device(device)
         pin_f32()
         self.gen_cfg, self.inf_cfg, self.impl = gen_cfg, inf_cfg, impl
+        self.mesh = mesh
+        # chunks tile the data axis, so every process has as many rows
+        bs, w = inf_cfg.patch_batch, 1 if mesh is None else data_size(mesh)
+        self.patch_batch = -(-bs // w) * w
         # chained passes of the generator: 4× → 1, 16× → 2
         self.num_passes = max(
             1, round(math.log(inf_cfg.final_ratio, inf_cfg.step_ratio)))
@@ -107,9 +119,10 @@ class PatchUpsampler:
         return patches, centroid, furthest, seeds_idx
 
     def chunks(self, patches: torch.Tensor):
-        """The patches padded to a multiple of ``patch_batch`` with copies
-        of the first patch, as a list of (patch_batch, p, 3) chunks."""
-        bs = self.inf_cfg.patch_batch
+        """The patches padded to a multiple of ``patch_batch`` (rounded up
+        to the data axis under a mesh) with copies of the first patch, as
+        a list of (patch_batch, p, 3) chunks."""
+        bs = self.patch_batch
         pad = (-patches.shape[0]) % bs
         if pad:
             filler = patches[:1].expand((pad,) + patches.shape[1:])
@@ -119,13 +132,23 @@ class PatchUpsampler:
     def generate(self, patches: torch.Tensor) -> torch.Tensor:
         """(s, p, 3) normalized patches → (s, p·r^num_passes, 3) fine
         points: each chunk goes through the generator ``num_passes`` times,
-        each pass taking the previous pass's fine points."""
+        each pass taking the previous pass's fine points.  Under a mesh
+        each process runs its rows of every chunk, and one all-gather
+        brings every process all of them."""
+        chunks = self.chunks(patches)
+        if self.mesh is not None:
+            mine = local_rows(self.mesh, self.patch_batch)
+            chunks = [c[mine] for c in chunks]
         preds = []
-        for pred in self.chunks(patches):
+        for pred in chunks:
             for _ in range(self.num_passes):
                 pred = self.model(pred)[1]
             preds.append(pred)
-        return torch.cat(preds, dim=0)[: patches.shape[0]]
+        if self.mesh is None:
+            return torch.cat(preds, dim=0)[: patches.shape[0]]
+        # (W, chunks, rows, ...) → chunk by chunk, each in rank order
+        every = all_gather_rows(torch.stack(preds), self.mesh)
+        return every.transpose(0, 1).flatten(0, 2)[: patches.shape[0]]
 
     def merge(self, points: torch.Tensor, out_num: int) -> torch.Tensor:
         """Merge FPS of B clouds' candidates, one FPS call for all B (the

@@ -9,6 +9,7 @@ with flax's parameter names and convention.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence
 
@@ -55,7 +56,18 @@ class BatchNorm(nn.Module):
     0.95) and the same for ``var``: the opposite direction to
     ``torch.nn.BatchNorm1d``'s momentum, whose running variance is also
     unbiased.
+
+    Under a mesh (``mesh`` set, as :func:`synced_batch_stats` does for a
+    train step) the batch moments are the global batch's: the local
+    ``E[x]`` and ``E[x²]`` in one tensor, summed over the data axis by a
+    differentiable all-reduce and divided by the axis size, then flax's
+    formula.  (``torch.nn.SyncBatchNorm`` combines Welford moments
+    instead.)  ``.eval()`` never touches a process group.
     """
+
+    #: the device mesh whose global batch the training moments span, or
+    #: None for this process's batch
+    mesh = None
 
     def __init__(self, features: int, momentum: float = 0.95,
                  epsilon: float = BN_EPSILON):
@@ -78,8 +90,15 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean = torch.mean(x, dim=axes)
-            var = torch.maximum(torch.mean(x * x, dim=axes) - mean * mean,
-                                x.new_zeros(()))
+            mean_sq = torch.mean(x * x, dim=axes)
+            if self.mesh is not None:
+                from dispu_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                                           data_size)
+
+                both = all_reduce_sum(torch.cat([mean, mean_sq]),
+                                      self.mesh) / data_size(self.mesh)
+                mean, mean_sq = both[:mean.shape[0]], both[mean.shape[0]:]
+            var = torch.maximum(mean_sq - mean * mean, x.new_zeros(()))
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -88,6 +107,24 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return (x - mean) * mul + self.bias
+
+
+@contextlib.contextmanager
+def synced_batch_stats(module: nn.Module, mesh):
+    """Every :class:`BatchNorm` under ``module`` takes its training
+    moments over ``mesh``'s global batch inside the block (nothing changes
+    when ``mesh`` is None)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    if mesh is None or not norms:
+        yield
+        return
+    for m in norms:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.mesh = None
 
 
 class _PermutedRowDense(nn.Module):

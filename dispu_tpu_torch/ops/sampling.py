@@ -9,6 +9,8 @@ import torch
 from dispu_tpu_torch.kernels import fps as _fps
 from dispu_tpu_torch.kernels import fps_bucketed as _fps_bucketed
 from dispu_tpu_torch.kernels import fps_chunked as _fps_chunked
+from dispu_tpu_torch.parallel.mesh import (all_gather_rows, data_size,
+                                           local_rows)
 
 
 def fps_kernel_for(n: int) -> str:
@@ -68,7 +70,8 @@ def morton_codes(xyz: torch.Tensor, bits: int = 10) -> torch.Tensor:
 
 def farthest_point_sample_bucketed(npoint: int, xyz: torch.Tensor,
                                    n_buckets: int = 64, impl: str = "auto",
-                                   rank_impl: str = "argsort") -> torch.Tensor:
+                                   rank_impl: str = "argsort",
+                                   mesh=None) -> torch.Tensor:
     """Approximate FPS of B clouds by spatial buckets: (B, n, 3) → (B,
     npoint) int32 indices (the JAX package's function of one cloud, for
     each cloud of the batch).
@@ -79,7 +82,16 @@ def farthest_point_sample_bucketed(npoint: int, xyz: torch.Tensor,
     / K); every bucket of every cloud runs exact FPS for m_b points in one
     ``fps_bucketed`` call (the kernel on a CUDA tensor); the picks come
     back round-robin by bucket, cut to ``npoint``.  ``rank_impl='radix'``
-    (``morton_rank`` over 4-bit codes) is not ported."""
+    (``morton_rank`` over 4-bit codes) is not ported.
+
+    ``mesh``: each process selects in its ``n_buckets`` / W buckets of
+    every cloud and the picks are all-gathered; the buckets are
+    independent, so the result is the single-device selection bit for bit.
+    ``n_buckets`` must be divisible by the data axis."""
+    if mesh is not None and n_buckets % data_size(mesh):
+        raise ValueError(
+            f"n_buckets={n_buckets} must be divisible by the data axis "
+            f"({data_size(mesh)} devices)")
     if rank_impl == "radix":
         raise NotImplementedError(
             "rank_impl='radix' (morton_rank) is not ported yet (ROADMAP.md, "
@@ -96,7 +108,17 @@ def farthest_point_sample_bucketed(npoint: int, xyz: torch.Tensor,
     if pad:
         order = torch.cat([order, order[:, -1:].expand(b, pad)], dim=1)
     buckets = gather_point(xyz, order).reshape(b * k, n_b, 3)
-    local = _fps_bucketed.fps_bucketed(m_b, buckets.contiguous(), impl=impl)
+    if mesh is None:
+        local = _fps_bucketed.fps_bucketed(m_b, buckets.contiguous(),
+                                           impl=impl)
+    else:
+        w = data_size(mesh)
+        mine = buckets.reshape(b, k, n_b, 3)[:, local_rows(mesh, k)]
+        picks = _fps_bucketed.fps_bucketed(
+            m_b, mine.reshape(b * k // w, n_b, 3).contiguous(), impl=impl)
+        # (W, b, K/W, m_b) → each cloud's buckets in rank order
+        every = all_gather_rows(picks.reshape(b, k // w, m_b), mesh)
+        local = every.transpose(0, 1).reshape(b * k, m_b)
     picked = torch.gather(order.reshape(b * k, n_b), 1, local.long())
     # round-robin: every bucket's j-th pick before any (j+1)-th
     picked = picked.reshape(b, k, m_b).transpose(1, 2).reshape(b, k * m_b)

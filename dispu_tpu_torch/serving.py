@@ -94,7 +94,7 @@ def export_upsampler(
     if mesh is not None:
         raise NotImplementedError(
             "multi-device export is not ported yet (ROADMAP.md, queue 1, "
-            "item 19: multi-device runs)")
+            "item 19b: SPMD export)")
     from dispu_tpu_torch.inference import PatchUpsampler
 
     flax_tree = variables is not None and "params" in variables

@@ -29,6 +29,15 @@ pooled batch comes back), with its own geometry; the generator is scored
 against the current output.  On the card the step runs under
 deterministic algorithms (``train.steps.deterministic``).  The state is
 updated in place.
+
+With a ``mesh`` the step is data-parallel as the CD step is
+(``train.steps``): the draws on the global batch in every process, the
+networks on each process's rows, each network's gradients averaged in one
+flat all-reduce before its Adam update, the metrics global.  The critic's
+``d_var`` is the global batch's variance, from each process's variance
+and mean (the law of total variance, exact at world size 1), and
+``d_gap`` the difference of the global means.  The fake pool stays
+single-device: with a mesh it raises.
 """
 
 from __future__ import annotations
@@ -46,9 +55,13 @@ from dispu_tpu_torch.inference import pin_f32, resolve_device
 from dispu_tpu_torch.models.discriminator import (
     PatchDiscriminator, paired_neighborhoods,
     paired_neighborhoods_with_pred_indices, regather_pred, split_real_fake)
+from dispu_tpu_torch.nn.layers import synced_batch_stats
+from dispu_tpu_torch.parallel.mesh import (all_reduce_mean_, local_rows,
+                                           shard_batch)
 from dispu_tpu_torch.train.state import (GeneratorState, adam_step,
                                          adam_update, create_generator_state)
-from dispu_tpu_torch.train.steps import deterministic
+from dispu_tpu_torch.train.steps import (deterministic, global_metrics,
+                                         reduce_grads_)
 
 
 @dataclasses.dataclass
@@ -112,15 +125,19 @@ def create_gan_state(cfg: ExperimentConfig, seed: int = 0,
 
 
 def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
-                        impl: str = "auto", fake_pool=None):
+                        impl: str = "auto", fake_pool=None, mesh=None):
     """The GAN train step on ``device`` ('cuda' by default; 'cpu' runs the
     kernels' plain versions).  ``impl`` routes the kernels of the losses
     and of the critic's geometry.  The signature follows the input mode as
     the CD step's does (``train.steps.make_train_step``):
     ``step(state, gt, radius, generator)`` with ``random_input``, else
     ``step(state, gt, inputs, radius, generator)``.  ``fake_pool``: an
-    optional :class:`~dispu_tpu_torch.utils.visu.PointPool`.  Returns
+    optional :class:`~dispu_tpu_torch.utils.visu.PointPool`.  ``mesh``:
+    data-parallel over this mesh (module docstring).  Returns
     ``(state, metrics)``."""
+    if fake_pool is not None and mesh is not None:
+        raise ValueError("the fake pool is a host round trip, single-device "
+                         "only")
     check_train_supported(cfg)
     dev = resolve_device(device)
     pin_f32()
@@ -132,7 +149,7 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
         values = state.disc(fake, gt, groups=groups)
         real, fake_v = split_real_fake(values)
         aux = (torch.mean(real), torch.mean(fake_v),
-               torch.var(values, unbiased=False))
+               torch.var(values, unbiased=False), torch.mean(values))
         return L.discriminator_loss(real, fake_v), aux
 
     def critic_update(state, lr_d, fake, gt, groups):
@@ -149,6 +166,8 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
             return d_loss, aux, no_clip_frac
         d_loss, aux = critic(state, fake, gt, groups)
         d_loss.backward()
+        if mesh is not None:
+            reduce_grads_(disc, mesh)
         state.d_count += 1
         adam_step(disc.named_parameters(), state.d_mu, state.d_nu,
                   state.d_count, lr_d, cfg.train.beta1, clip=clip)
@@ -169,6 +188,8 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
                 scale_high=cfg.data.scale_high)
         else:
             gt_aug = gt
+        if mesh is not None:
+            inputs, gt_aug, radius = shard_batch(mesh, inputs, gt_aug, radius)
         gen = state.gen
         weight_fine = L.weight_fine_schedule(
             gen.epoch, cfg.loss.weight_fine_boundaries,
@@ -179,7 +200,7 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
             decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
         lr_d = cfg.train.base_lr_d  # constant, as the JAX package's
         model = gen.model.train()
-        with deterministic(dev):
+        with deterministic(dev), synced_batch_stats(model, mesh):
             model.zero_grad(set_to_none=True)
             coarse, fine = model(inputs)  # the one generator forward
             fine0 = fine.detach()
@@ -193,8 +214,9 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
                         np.asarray(pooled, np.float32)).to(dev)
                     d_fake_groups = paired_neighborhoods(dcfg, gt_aug, d_fake,
                                                          impl)
-            d_loss, (d_real, d_fake_mean, d_var), d_clip_frac = critic_update(
+            d_loss, aux, d_clip_frac = critic_update(
                 state, lr_d, d_fake, gt_aug, d_fake_groups)
+            d_real, d_fake_mean, d_var, d_mean = (t.detach() for t in aux)
 
             # the generator against the updated critic, frozen
             frozen = [p for p in state.disc.parameters()]
@@ -214,24 +236,35 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
                     p.requires_grad_(True)
             with torch.no_grad():
                 uniform = 10.0 * L.uniform(fine0, impl=impl)
+            if mesh is not None:
+                reduce_grads_(model, mesh)
             adam_update(gen, lr_g, cfg.train)
         gen.step += 1
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
+        metrics = dict(metrics, g_gan=g_gan.detach(), uniform=uniform,
+                       total=total.detach(), d_loss=d_loss.detach(), lr=lr_g,
+                       d_real_mean=d_real, d_fake_mean=d_fake_mean)
+        if mesh is not None:
+            metrics = global_metrics(dict(metrics, d_mean=d_mean), mesh)
+            # the law of total variance over equal-size local batches
+            d_var = d_var + (d_mean - metrics.pop("d_mean")) ** 2
+            all_reduce_mean_([d_var], mesh)
         return state, dict(
-            metrics, g_gan=g_gan.detach(), uniform=uniform,
-            total=total.detach(), d_loss=d_loss.detach(), lr=lr_g,
-            d_real_mean=d_real.detach(), d_fake_mean=d_fake_mean.detach(),
-            d_gap=(d_real - d_fake_mean).detach(), d_var=d_var.detach(),
-            d_clip_frac=d_clip_frac)
+            metrics, d_gap=metrics["d_real_mean"] - metrics["d_fake_mean"],
+            d_var=d_var, d_clip_frac=d_clip_frac)
 
     if cfg.data.random_input:
         def step(state: GANState, gt, radius, generator):
+            if mesh is not None:
+                local_rows(mesh, gt.shape[0])  # refuse before any draw
             inputs = sample_training_inputs(
                 gt, n_in, generator, cluster_prob=cfg.data.cluster_prob,
                 cluster_size=cfg.data.cluster_size)
             return step_core(state, gt, inputs, radius, generator)
     else:
         def step(state: GANState, gt, inputs, radius, generator):
+            if mesh is not None:
+                local_rows(mesh, gt.shape[0])
             return step_core(state, gt, inputs, radius, generator)
     return step

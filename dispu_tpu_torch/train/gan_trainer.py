@@ -25,13 +25,9 @@ class GANTrainer(BaseTrainer):
         "d_gap", "d_var", "d_clip_frac",
     )
 
-    def __init__(self, cfg, *args, mesh=None, **kwargs):
-        if mesh is not None and cfg.train.fake_pool_size > 0:
-            raise ValueError(
-                "the fake pool is a host round trip, single-device only; "
-                "run on one device or set --fake_pool_size 0")
+    def __init__(self, cfg, *args, **kwargs):
         self._pool = None
-        super().__init__(cfg, *args, mesh=mesh, **kwargs)
+        super().__init__(cfg, *args, **kwargs)
         if self.cfg.train.d_clip > 0:
             msg = (
                 "WARNING: d_clip=%g reproduces the reference's collapsed "
@@ -48,7 +44,8 @@ class GANTrainer(BaseTrainer):
                 % self.cfg.train.gen_update)
         else:
             return
-        print(msg, flush=True)
+        if self.writer:
+            print(msg, flush=True)
         self.logger.text(msg)
 
     def _fake_pool(self):
@@ -65,7 +62,8 @@ class GANTrainer(BaseTrainer):
     def _make_step(self):
         return make_gan_train_step(self.cfg, device=self.device,
                                    impl=self.impl,
-                                   fake_pool=self._fake_pool())
+                                   fake_pool=self._fake_pool(),
+                                   mesh=self.mesh)
 
     def _make_state(self):
         return create_gan_state(self.cfg, seed=self.cfg.train.seed,

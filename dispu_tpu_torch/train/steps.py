@@ -8,6 +8,22 @@ in place.  It returns the JAX package's metrics dict, as 0-d tensors on
 the device (and ``lr``, ``weight_fine`` as floats), so a caller fetches
 them only when it prints.
 
+With a ``mesh`` (``parallel.mesh.make_mesh``) the step is data-parallel
+and computes the single-device step's function of the global batch, as the
+JAX package's sharded step does.  Every process is handed the whole global
+batch and the same ``torch.Generator`` state: the input draw and the
+augmentation run on the global batch in each, so the draws are the
+single-device step's; each process then keeps its rows for the forward
+and the backward (batch norm's moments over the global batch,
+``nn.layers.synced_batch_stats``).  The parameters' gradients are
+averaged in one flat all-reduce and Adam runs replicated.  Every metric
+is the global one: the means averaged, the maxima (:data:`MAX_METRICS`)
+reduced by their maximum.  The losses are means over equal-size local
+batches, so the average of the local gradients is the global loss's; the
+moments' all-reduce carries each process's loss back to every process's
+rows.  At world size 1 every collective is an identity and the step is
+the mesh-less one, bit for bit.
+
 On the card the step runs under ``torch.use_deterministic_algorithms``:
 PyTorch's CUDA scatter-adds (the backward of ``torch.gather``, the kNN and
 Chamfer rules' ``scatter_add_``) otherwise add in an order that changes
@@ -27,7 +43,15 @@ from dispu_tpu_torch import losses as L
 from dispu_tpu_torch.config import ExperimentConfig, check_train_supported
 from dispu_tpu_torch.data.augment import augment_batch, sample_training_inputs
 from dispu_tpu_torch.inference import pin_f32, resolve_device
+from dispu_tpu_torch.nn.layers import synced_batch_stats
+from dispu_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce_max_,
+                                           all_reduce_mean_, local_rows,
+                                           shard_batch)
 from dispu_tpu_torch.train.state import GeneratorState, adam_update
+
+#: metrics that are a maximum over the batch; every other tensor metric is
+#: a mean over it (floats, such as ``lr``, are the same in every process)
+MAX_METRICS = frozenset({"coarse_hd", "fine_hd", "offset_max"})
 
 
 @contextlib.contextmanager
@@ -54,10 +78,41 @@ def deterministic(device: torch.device):
         det.fill_uninitialized_memory = before[2]
 
 
-def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto"):
+def reduce_grads_(module: torch.nn.Module, mesh) -> None:
+    """Average ``module``'s parameter gradients over the mesh in one flat
+    all-reduce (a missing gradient counts as zero, as Adam takes it)."""
+    params = list(module.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    all_reduce_mean_([p.grad for p in params], mesh)
+
+
+def global_metrics(metrics: dict, mesh) -> dict:
+    """The global batch's metrics from each process's: the tensors of
+    :data:`MAX_METRICS` by their maximum over the mesh, every other tensor
+    by its mean, each kind stacked into one all-reduce; other values as
+    they are."""
+    out = dict(metrics)
+    for reduce_, keys in (
+            (all_reduce_mean_, [k for k, v in metrics.items()
+                                if torch.is_tensor(v)
+                                and k not in MAX_METRICS]),
+            (all_reduce_max_, [k for k in metrics if k in MAX_METRICS])):
+        if keys:
+            stacked = torch.stack([metrics[k] for k in keys])
+            reduce_([stacked], mesh)
+            out.update(zip(keys, stacked.unbind()))
+    return out
+
+
+def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
+                    mesh=None):
     """The CD-path train step on ``device`` ('cuda' by default; it raises
     without a card unless 'cpu' is passed).  ``impl`` routes the losses'
     kernels (the model's own routing is fixed when its state is made).
+    ``mesh``: data-parallel over this mesh (see the module docstring); the
+    step is then handed the global batch in every process.
 
     Its signature follows the input mode:
 
@@ -83,6 +138,8 @@ def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto"):
                 scale_high=cfg.data.scale_high)
         else:
             gt_aug = gt
+        if mesh is not None:
+            inputs, gt_aug, radius = shard_batch(mesh, inputs, gt_aug, radius)
         weight_fine = L.weight_fine_schedule(
             state.epoch, cfg.loss.weight_fine_boundaries,
             cfg.loss.weight_fine_values)
@@ -91,38 +148,53 @@ def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto"):
             decay_step_epochs=cfg.train.decay_step_epochs,
             decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
         model = state.model.train()
-        with deterministic(dev):
+        with deterministic(dev), synced_batch_stats(model, mesh):
             model.zero_grad(set_to_none=True)
             coarse, fine = model(inputs)
             total, metrics = L.pu_losses(coarse, fine, gt_aug, radius,
                                          weight_fine, cfg.loss, impl=impl)
             total.backward()
+            if mesh is not None:
+                reduce_grads_(model, mesh)
             adam_update(state, lr, cfg.train)
         state.step += 1
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
-        return state, dict(metrics, total=total.detach(), lr=lr)
+        metrics = dict(metrics, total=total.detach(), lr=lr)
+        if mesh is not None:
+            metrics = global_metrics(metrics, mesh)
+        return state, metrics
 
     if cfg.data.random_input:
         def step(state: GeneratorState, gt, radius, generator):
+            if mesh is not None:
+                local_rows(mesh, gt.shape[0])  # refuse before any draw
             inputs = sample_training_inputs(
                 gt, n_in, generator, cluster_prob=cfg.data.cluster_prob,
                 cluster_size=cfg.data.cluster_size)
             return step_core(state, gt, inputs, radius, generator)
     else:
         def step(state: GeneratorState, gt, inputs, radius, generator):
+            if mesh is not None:
+                local_rows(mesh, gt.shape[0])
             return step_core(state, gt, inputs, radius, generator)
     return step
 
 
-def make_eval_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto"):
+def make_eval_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
+                   mesh=None):
     """``step(model, inputs, gt, radius) → (coarse, fine, metrics)``: the
-    generator in inference mode and the evaluation metrics."""
+    generator in inference mode and the evaluation metrics.  With a
+    ``mesh`` each process runs its rows of the global batch it is handed;
+    ``coarse`` and ``fine`` come back whole (gathered) and the metrics
+    global, in every process."""
     resolve_device(device)
     pin_f32()
 
     @torch.no_grad()
     def step(model, inputs, gt, radius):
+        if mesh is not None:
+            inputs, gt, radius = shard_batch(mesh, inputs, gt, radius)
         coarse, fine = model.eval()(inputs)
         off = torch.sqrt(torch.sum((fine - coarse) ** 2, dim=-1) + 1e-20)
         metrics = {
@@ -134,6 +206,10 @@ def make_eval_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto"):
                                                    impl=impl),
             "offset_mean": torch.mean(off),
         }
+        if mesh is not None:
+            metrics = global_metrics(metrics, mesh)
+            coarse, fine = (all_gather_rows(t, mesh).flatten(0, 1)
+                            for t in (coarse, fine))
         return coarse, fine, metrics
 
     return step

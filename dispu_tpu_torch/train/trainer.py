@@ -7,6 +7,13 @@ carries what every driver shares (device-resident batches, the epoch
 loop, crash and scheduled checkpoints, logs, meters); :class:`Trainer`
 plugs in the CD state, step and log line, and
 ``train.gan_trainer.GANTrainer`` the GAN ones.
+
+Data-parallel training (``mesh``): every process runs the same loop over
+the same batch order and hands the step the global batch, of which the
+step keeps its rows (``train.steps``).  Rank 0's state is broadcast at the
+start; only rank 0 writes ``args.txt``, the logs, the scalars, the source
+manifest and the checkpoints, and a barrier follows each checkpoint, so
+that every process can restore the same file.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import torch
 from dispu_tpu_torch.config import ExperimentConfig, check_train_supported
 from dispu_tpu_torch.data.dataset import PatchDataset
 from dispu_tpu_torch.inference import resolve_device
+from dispu_tpu_torch.parallel.mesh import (broadcast_, is_writer,
+                                           launcher_world_size, make_mesh)
 from dispu_tpu_torch.train.state import create_generator_state
 from dispu_tpu_torch.train.steps import make_train_step
 from dispu_tpu_torch.utils.checkpoint import (latest_checkpoint,
@@ -35,8 +44,11 @@ class BaseTrainer:
 
     device: 'cuda' by default (raises without a card); 'cpu' runs the
     kernels' plain versions.  impl: 'auto', 'cuda' or 'torch' for the
-    kernels (``dispu_tpu_torch.kernels``).  A ``mesh`` raises: multi-device
-    training is not ported.
+    kernels (``dispu_tpu_torch.kernels``).  mesh: train data-parallel over
+    this mesh (``parallel.mesh.make_mesh``), even at world size 1; without
+    one, the trainer makes one when the launcher started more than one
+    process (``WORLD_SIZE`` > 1), as the JAX package does when it sees
+    more than one device.
     """
 
     #: metric keys averaged into the epoch's log line
@@ -45,22 +57,27 @@ class BaseTrainer:
     def __init__(self, cfg: ExperimentConfig,
                  dataset: Optional[PatchDataset] = None, device="cuda",
                  impl: str = "auto", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP.md, "
-                "queue 1: multi-GPU runs)")
-        check_train_supported(cfg)
+        data_parallel = mesh is not None or launcher_world_size() > 1
+        check_train_supported(cfg, data_parallel=data_parallel)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.impl = impl
+        if mesh is None and data_parallel:
+            mesh = make_mesh(cfg.mesh.num_devices,
+                             data_axis=cfg.mesh.data_axis,
+                             device=self.device.type)
+        self.mesh = mesh
+        self.writer = is_writer(mesh)
         self.dataset = dataset or PatchDataset(
             data_dir=cfg.data.data_dir, num_point=cfg.data.num_point,
             up_ratio=cfg.data.up_ratio, random_input=cfg.data.random_input)
         self.train_step = self._make_step()
-        self.logger = MetricsLogger(cfg.log_dir)
-        dump_args(cfg.log_dir, cfg)
-        if cfg.train.backup_sources:
-            backup_sources(cfg.log_dir)
+        self.logger = MetricsLogger(cfg.log_dir) if self.writer else \
+            _Silent()
+        if self.writer:
+            dump_args(cfg.log_dir, cfg)
+            if cfg.train.backup_sources:
+                backup_sources(cfg.log_dir)
         self._gt = self._radius = self._inputs = None
 
     # ------------------------------------------------------------- hooks
@@ -78,7 +95,8 @@ class BaseTrainer:
 
     def init_state(self, restore: bool = False):
         """A fresh state, or with ``restore`` the newest checkpoint in the
-        log dir; and the epoch to start from."""
+        log dir; and the epoch to start from.  Under a mesh every process
+        then takes rank 0's tensors."""
         state = self._make_state()
         start_epoch = 0
         if restore:
@@ -86,7 +104,19 @@ class BaseTrainer:
             if path is not None:
                 state = restore_checkpoint(path, state)
                 start_epoch = epoch
+        if self.mesh is not None:
+            broadcast_(state_tensors(state.state_dict()), self.mesh)
         return state, start_epoch
+
+    def save(self, state, epoch: int) -> None:
+        """A checkpoint of ``state`` (rank 0 writes it), then a barrier
+        under a mesh."""
+        if self.writer:
+            save_checkpoint(self.cfg.log_dir, state, epoch)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.get_group(0))
 
     def train(self, restore: bool = False, epochs: Optional[int] = None):
         """Run the epoch loop up to ``epochs`` (default
@@ -98,10 +128,11 @@ class BaseTrainer:
             return self._train_loop(state, start_epoch, epochs)
         except BaseException:
             last = self._last_state
-            try:
-                save_checkpoint(self.cfg.log_dir, last, int(last.epoch))
-                self.logger.text(
-                    f"crash checkpoint saved at epoch {int(last.epoch)}")
+            try:  # no barrier: the other processes may not have failed
+                if self.writer:
+                    save_checkpoint(self.cfg.log_dir, last, int(last.epoch))
+                    self.logger.text(
+                        f"crash checkpoint saved at epoch {int(last.epoch)}")
             except OSError as e:  # keep the original error in front
                 print(f"crash checkpoint not saved: {e}")
             raise
@@ -176,11 +207,30 @@ class BaseTrainer:
             if (epoch % cfg.train.epoch_per_save == 0
                     and meters["fine_cd"].avg < best_fine_cd):
                 best_fine_cd = meters["fine_cd"].avg
-                save_checkpoint(cfg.log_dir, state, epoch)
+                self.save(state, epoch)
                 saved_epoch = epoch
         if start_epoch < total_epochs and saved_epoch != total_epochs:
-            save_checkpoint(cfg.log_dir, state, total_epochs)
+            self.save(state, total_epochs)
         return state
+
+
+def state_tensors(tree) -> list:
+    """The tensors of a nested ``state_dict``, in its order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in state_tensors(v)]
+    return []
+
+
+class _Silent:
+    """The logger of a process other than rank 0: it writes nothing."""
+
+    def scalars(self, step, values):
+        pass
+
+    def text(self, msg):
+        pass
 
 
 class Trainer(BaseTrainer):
@@ -190,7 +240,8 @@ class Trainer(BaseTrainer):
                          "fine_hd", "offset_mean")
 
     def _make_step(self):
-        return make_train_step(self.cfg, device=self.device, impl=self.impl)
+        return make_train_step(self.cfg, device=self.device, impl=self.impl,
+                               mesh=self.mesh)
 
     def _make_state(self):
         return create_generator_state(self.cfg.generator,

@@ -627,6 +627,47 @@ def test_train_step_on_the_card_reaches_every_parameter(dev):
             assert bool(grads["auto"][n].abs().max() > 0), n
 
 
+def test_world_size_1_mesh_step_is_the_plain_step(dev, tmp_path):
+    """A one-process NCCL group and its (1, 1) mesh: two data-parallel CD
+    steps are the plain steps bit for bit (every collective an identity),
+    with the plain steps' launches."""
+    import torch.distributed as dist
+
+    from dispu_tpu_torch.config import ExperimentConfig, LossConfig
+    from dispu_tpu_torch.parallel.mesh import make_mesh
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+
+    cfg = ExperimentConfig(generator=GeneratorConfig(**dict(
+        SMALL, num_points=256)), loss=LossConfig(repulsion_radius=0.1))
+    gt = _randn(8, 4, 1024, 3).to(dev) * 0.3
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cuda")
+        runs = []
+        for m in (None, mesh):
+            st = create_generator_state(cfg.generator, device=dev)
+            step = make_train_step(cfg, mesh=m)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            kernels.reset_launch_counts()
+            for _ in range(2):
+                st, metrics = step(st, gt, torch.ones(4, device=dev), gen)
+            runs.append((st, metrics, kernels.launch_counts()))
+    finally:
+        dist.destroy_process_group()
+    (a, ma, ca), (b, mb, cb) = runs
+    assert ca == cb and ca["knn"] == 26
+    assert {k: float(v) for k, v in ma.items()} == {
+        k: float(v) for k, v in mb.items()}
+    for (n, x), (_, y) in zip(a.state_dict()["model"].items(),
+                              b.state_dict()["model"].items()):
+        assert torch.equal(x, y), n
+    for n in a.mu:
+        assert torch.equal(a.mu[n], b.mu[n]) and torch.equal(a.nu[n],
+                                                             b.nu[n]), n
+
+
 # --------------------------------------------------------- turbo serving
 
 

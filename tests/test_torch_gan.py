@@ -41,6 +41,7 @@ from dispu_tpu_torch.data.dataset import PatchDataset
 from dispu_tpu_torch.models.discriminator import (
     PairedMSGModule, PatchDiscriminator,
     paired_neighborhoods_with_pred_indices)
+from dispu_tpu_torch.parallel.dryrun import snapshot
 from dispu_tpu_torch.train.gan_steps import (create_gan_state,
                                              make_gan_train_step)
 from dispu_tpu_torch.train.gan_trainer import GANTrainer
@@ -201,31 +202,90 @@ def make_gan_pair(**train):
                 batch=tuple(map(torch.from_numpy, (gt, inputs, radius))))
 
 
-def _assert_adam_half(model, mu, nu, jparams, jmu, jnu, lr, i, sure_before,
-                      what):
-    """Moments to test_torch_train.py's bounds after step 1 (1e-4 and 2e-4
-    of each leaf's largest) and five times them after step 2, whose
-    gradient is taken at parameters that moved by ±lr where |g| was
-    round-off, and passes through the updated critic (observed 1.1e-4);
-    parameters to lr·3e-3 a step where both moments agreed to 1e-3
-    relative at every step so far (Adam's update is about sign(g)·lr,
-    noise where |g| is round-off), which must be ≥ 99% of them."""
+def _assert_adam_half(got, want, lr, i, sure_before, what):
+    """One network's snapshot (``parallel.dryrun.snapshot``) against
+    another run's: moments to test_torch_train.py's bounds after step 1
+    (1e-4 and 2e-4 of each leaf's largest) and five times them after step
+    2, whose gradient is taken at parameters that moved by ±lr where |g|
+    was round-off, and passes through the updated critic (observed
+    1.1e-4); parameters to lr·3e-3 a step where both moments agreed to
+    1e-3 relative at every step so far (Adam's update is about
+    sign(g)·lr, noise where |g| is round-off), which must be ≥ 99% of
+    them."""
     grow = 1 if i == 0 else 5
-    _assert_leaves({k: v.numpy() for k, v in mu.items()}, jmu, 1e-4 * grow,
-                   f"{what} mu")
-    _assert_leaves({k: v.numpy() for k, v in nu.items()}, jnu, 2e-4 * grow,
-                   f"{what} nu")
+    mu, nu, jmu, jnu = got["mu"], got["nu"], want["mu"], want["nu"]
+    _assert_leaves(mu, jmu, 1e-4 * grow, f"{what} mu")
+    _assert_leaves(nu, jnu, 2e-4 * grow, f"{what} nu")
     n_sure = n_all = 0
-    for n, p in model.named_parameters():
-        sure = ((np.abs(mu[n].numpy() - jmu[n]) <= 1e-3 * np.abs(jmu[n]))
-                & (np.abs(nu[n].numpy() - jnu[n]) <= 1e-3 * np.abs(jnu[n]))
+    for n, p in got["params"].items():
+        sure = ((np.abs(mu[n] - jmu[n]) <= 1e-3 * np.abs(jmu[n]))
+                & (np.abs(nu[n] - jnu[n]) <= 1e-3 * np.abs(jnu[n]))
                 & sure_before.get(n, True))
         sure_before[n] = sure
-        err = np.abs(p.detach().numpy() - jparams[n])[sure]
+        err = np.abs(p - want["params"][n])[sure]
         assert err.size == 0 or float(err.max()) <= 3e-3 * lr * (i + 1), \
             f"{what} {n}"
         n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.size
     assert n_sure >= 0.99 * n_all, what
+
+
+def port_gan_snapshot(ts, tm) -> dict:
+    """A port GAN state after a step, with the step's metrics, in the
+    form of ``parallel.dryrun.run_steps``' snapshots."""
+    return dict(metrics={k: float(v) for k, v in tm.items()}, step=ts.step,
+                count=ts.gen.count, d_count=ts.d_count,
+                gen=snapshot(ts.gen.model, ts.gen.mu, ts.gen.nu),
+                disc=snapshot(ts.disc, ts.d_mu, ts.d_nu))
+
+
+def jax_gan_snapshot(js, jm) -> dict:
+    """A JAX GAN state after a step in the same form, keyed by the port's
+    names (no gradients)."""
+    def half(params, opt):
+        return dict(params=_leaf_map(params), mu=_leaf_map(opt.mu),
+                    nu=_leaf_map(opt.nu))
+
+    return dict(metrics={k: float(v) for k, v in jm.items()},
+                step=int(js.gen.step), count=int(js.gen.opt_state.count),
+                d_count=int(js.d_opt_state.count),
+                gen=half(js.gen.params, js.gen.opt_state),
+                disc=half(js.d_params, js.d_opt_state))
+
+
+def assert_gan_steps_match(got: list, want: list, tcfg, disc0: dict):
+    """GAN step snapshots held to another run's with
+    :func:`test_gan_steps_match_jax`'s bounds; ``disc0``: the critic's
+    parameters before the first step."""
+    sure_g, sure_d = {}, {}
+    before = disc0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g["step"] == i + 1 and g["count"] == i + 1
+        assert set(g["metrics"]) == set(w["metrics"])
+        top = max(abs(v) for v in w["metrics"].values())
+        for k in w["metrics"]:
+            np.testing.assert_allclose(g["metrics"][k], w["metrics"][k],
+                                       rtol=1e-5, atol=2e-6 * top, err_msg=k)
+        _assert_adam_half(g["gen"], w["gen"], g["metrics"]["lr"], i, sure_g,
+                          "generator")
+        _assert_adam_half(g["disc"], w["disc"], tcfg.train.base_lr_d, i,
+                          sure_d, "critic")
+        assert g["d_count"] == w["d_count"]
+        params = g["disc"]["params"]
+        moved = any(not np.array_equal(before[n], p)
+                    for n, p in params.items())
+        before = params
+        clip = tcfg.train.d_clip
+        if clip > 0:
+            assert moved
+            assert all(float(np.abs(p).max()) <= clip
+                       for p in params.values())
+            n_at = sum(int((np.abs(p) >= clip * (1 - 1e-6)).sum())
+                       for p in params.values())
+            n_d = sum(p.size for p in params.values())
+            assert g["metrics"]["d_clip_frac"] == np.float32(n_at) / n_d > 0.1
+        else:
+            assert moved == (i == 0) and g["d_count"] == 1
+            assert g["metrics"]["d_clip_frac"] == 0.0
 
 
 def test_gan_steps_match_jax(gan_pair):
@@ -239,41 +299,14 @@ def test_gan_steps_match_jax(gan_pair):
     holds at step 1."""
     tcfg, ts, batch = gan_pair["tcfg"], gan_pair["ts"], gan_pair["batch"]
     step = make_gan_train_step(tcfg, device="cpu")
-    sure_g, sure_d = {}, {}
-    for i, (js, jm) in enumerate(zip(gan_pair["js"], gan_pair["jm"])):
-        d_before = {n: p.detach().clone()
-                    for n, p in ts.disc.named_parameters()}
+    disc0 = {n: p.detach().numpy().copy()
+             for n, p in ts.disc.named_parameters()}
+    got = []
+    for _ in gan_pair["js"]:
         ts, tm = step(ts, *batch, torch.Generator())
-        assert ts.step == i + 1 and ts.gen.count == i + 1
-        assert set(tm) == set(jm)
-        top = max(abs(float(v)) for v in jm.values())
-        for k in jm:
-            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
-                                       atol=2e-6 * top, err_msg=k)
-        _assert_adam_half(ts.gen.model, ts.gen.mu, ts.gen.nu,
-                          _leaf_map(js.gen.params),
-                          _leaf_map(js.gen.opt_state.mu),
-                          _leaf_map(js.gen.opt_state.nu),
-                          float(tm["lr"]), i, sure_g, "generator")
-        _assert_adam_half(ts.disc, ts.d_mu, ts.d_nu, _leaf_map(js.d_params),
-                          _leaf_map(js.d_opt_state.mu),
-                          _leaf_map(js.d_opt_state.nu),
-                          tcfg.train.base_lr_d, i, sure_d, "critic")
-        assert ts.d_count == int(js.d_opt_state.count)
-        moved = any(not torch.equal(d_before[n], p)
-                    for n, p in ts.disc.named_parameters())
-        clip = tcfg.train.d_clip
-        if clip > 0:
-            assert moved
-            assert all(float(p.detach().abs().max()) <= clip
-                       for p in ts.disc.parameters())
-            n_at = sum(int((p.abs() >= clip * (1 - 1e-6)).sum())
-                       for p in ts.disc.parameters())
-            n_d = sum(p.numel() for p in ts.disc.parameters())
-            assert float(tm["d_clip_frac"]) == np.float32(n_at) / n_d > 0.1
-        else:
-            assert moved == (i == 0) and ts.d_count == 1
-            assert float(tm["d_clip_frac"]) == 0.0
+        got.append(port_gan_snapshot(ts, tm))
+    assert_gan_steps_match(got, [jax_gan_snapshot(js, jm) for js, jm in zip(
+        gan_pair["js"], gan_pair["jm"])], tcfg, disc0)
 
 
 def test_clip_leaves_the_critic_moments_alone():
@@ -391,6 +424,17 @@ def test_gan_trainer_rejects_the_pool_with_a_mesh(tmp_path):
     cfg = _trainer_cfg(tmp_path, fake_pool_size=2)
     with pytest.raises(ValueError, match="single-device"):
         GANTrainer(cfg, device="cpu", mesh=object())
+
+
+def test_gan_trainer_rejects_the_pool_under_a_launcher(tmp_path,
+                                                       monkeypatch):
+    """Under a launcher of more than one process the trainer would make a
+    mesh: the pool is refused before any process group is touched."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    cfg = _trainer_cfg(tmp_path, fake_pool_size=2)
+    with pytest.raises(ValueError, match="single-device"):
+        GANTrainer(cfg, device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_gan_train_then_test_restores_the_generator_half(tmp_path):

@@ -122,9 +122,3 @@ def test_bucketed_merge_settings_run(inf_kw):
                          device="cpu").upsample(pc)
     assert out.shape == (128 * inf.final_ratio, 3)
     assert np.isfinite(out).all()
-
-
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), device="cpu",
-                       mesh=object())

@@ -57,7 +57,9 @@ def test_import_leaves_jax_unloaded():
             "dispu_tpu_torch.models.discriminator, "
             "dispu_tpu_torch.train.gan_steps, "
             "dispu_tpu_torch.train.gan_trainer, "
-            "dispu_tpu_torch.utils.visu; "
+            "dispu_tpu_torch.utils.visu, dispu_tpu_torch.parallel.mesh, "
+            "dispu_tpu_torch.parallel.sharded_eval, "
+            "dispu_tpu_torch.parallel.dryrun; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -36,6 +36,7 @@ from dispu_tpu_torch.convert import _leaves, _torch_key, from_jax_state
 from dispu_tpu_torch.data import augment as taug
 from dispu_tpu_torch.data.dataset import PatchDataset, synthetic_patches
 from dispu_tpu_torch.nn.layers import BatchNorm
+from dispu_tpu_torch.parallel.dryrun import snapshot
 from dispu_tpu_torch.train.state import (GeneratorState, adam_update,
                                          create_generator_state)
 from dispu_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -282,40 +283,66 @@ def check_steps_match_jax(step_pair):
     :func:`make_step_pair`."""
     tcfg, ts, batch = step_pair["tcfg"], step_pair["ts"], step_pair["batch"]
     step = make_train_step(tcfg, device="cpu")
-    model = ts.model
-    sure_before = {}
-    for i, (js, jm) in enumerate(zip(step_pair["js"], step_pair["jm"])):
+    got = []
+    for _ in step_pair["js"]:
         ts, tm = step(ts, *batch, torch.Generator())
-        assert ts.step == i + 1 and ts.count == i + 1
-        assert set(tm) == set(jm)
-        for k in jm:
-            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
-                                       err_msg=k)
-        jmu, jnu = _leaf_map(js.opt_state.mu), _leaf_map(js.opt_state.nu)
-        grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
+        got.append(port_step_snapshot(ts, tm))
+    assert_steps_match(got, [jax_step_snapshot(js, jm) for js, jm in
+                             zip(step_pair["js"], step_pair["jm"])])
+
+
+def port_step_snapshot(ts, tm) -> dict:
+    """A port CD state after a step, with the step's metrics, in the form
+    of ``parallel.dryrun.run_steps``' snapshots."""
+    return dict(metrics={k: float(v) for k, v in tm.items()}, step=ts.step,
+                count=ts.count, gen=snapshot(ts.model, ts.mu, ts.nu))
+
+
+def jax_step_snapshot(js, jm) -> dict:
+    """A JAX CD state after a step in the same form, keyed by the port's
+    names; its gradients are read from the first moments (mu = 0.1·g
+    after one step, so only the first step's hold)."""
+    mu = _leaf_map(js.opt_state.mu)
+    return dict(metrics={k: float(v) for k, v in jm.items()},
+                step=int(js.step), count=int(js.opt_state.count),
+                gen=dict(params=_leaf_map(js.params), mu=mu,
+                         nu=_leaf_map(js.opt_state.nu),
+                         grads={k: v / np.float32(0.1)
+                                for k, v in mu.items()},
+                         buffers={".".join(path): np.asarray(leaf)
+                                  for path, leaf in _leaves(
+                                      jax.device_get(js.batch_stats))}))
+
+
+def assert_steps_match(got: list, want: list):
+    """Step snapshots (``port_step_snapshot``) held to another run's with
+    :func:`test_train_step_matches_jax`'s bounds; step i's count is
+    i + 1."""
+    sure_before = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g["step"] == i + 1 and g["count"] == i + 1
+        assert set(g["metrics"]) == set(w["metrics"])
+        for k in w["metrics"]:
+            np.testing.assert_allclose(g["metrics"][k], w["metrics"][k],
+                                       rtol=1e-5, err_msg=k)
+        g, w = g["gen"], w["gen"]
         if i == 0:
-            _assert_leaves(grads, {k: v / np.float32(0.1)
-                                   for k, v in jmu.items()}, 1e-4, "grad")
-        _assert_leaves({k: v.numpy() for k, v in ts.mu.items()}, jmu, 1e-4,
-                       "mu")
-        _assert_leaves({k: v.numpy() for k, v in ts.nu.items()}, jnu, 2e-4,
-                       "nu")
-        buffers = dict(model.named_buffers())
+            _assert_leaves(g["grads"], w["grads"], 1e-4, "grad")
+        _assert_leaves(g["mu"], w["mu"], 1e-4, "mu")
+        _assert_leaves(g["nu"], w["nu"], 2e-4, "nu")
         bn_tol = 1e-6 if i == 0 else 1e-3
-        for path, leaf in _leaves(jax.device_get(js.batch_stats)):
-            np.testing.assert_allclose(buffers[".".join(path)].numpy(),
-                                       np.asarray(leaf), rtol=bn_tol,
+        for name, leaf in w["buffers"].items():
+            np.testing.assert_allclose(g["buffers"][name], leaf, rtol=bn_tol,
                                        atol=bn_tol)
-        jparams = _leaf_map(js.params)
         n_sure = n_all = 0
-        for n, p in model.named_parameters():
-            sure = ((np.abs(ts.mu[n].numpy() - jmu[n])
-                     <= 1e-3 * np.abs(jmu[n]))
-                    & (np.abs(ts.nu[n].numpy() - jnu[n])
-                       <= 1e-3 * np.abs(jnu[n]))
+        for n, p in g["params"].items():
+            sure = ((np.abs(g["mu"][n] - w["mu"][n])
+                     <= 1e-3 * np.abs(w["mu"][n]))
+                    & (np.abs(g["nu"][n] - w["nu"][n])
+                       <= 1e-3 * np.abs(w["nu"][n]))
                     & sure_before.get(n, True))
             sure_before[n] = sure
-            err = np.abs(p.detach().numpy() - jparams[n])[sure]
+            err = np.abs(p - w["params"][n])[sure]
             assert err.size == 0 or float(err.max()) <= 3e-6 * (i + 1), n
             n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.size
         assert n_sure >= 0.99 * n_all
@@ -438,10 +465,10 @@ def test_checkpoint_round_trip_bit_equal(tmp_path):
     dict(train=dict(fake_pool_size=4), generator=dict(dense_impl="split")),
     dict(train=dict(remat=True)), dict(train=dict(compute_dtype="bfloat16")),
     dict(train=dict(visualize=True)), dict(train=dict(profile=True)),
-    dict(mesh=dict(num_devices=2)), dict(generator=dict(fast_knn=True)),
+    dict(generator=dict(fast_knn=True)),
     dict(generator=dict(fused_grouping=True, fast_gather_backbone=True)),
 ], ids=["use_gan", "fake_pool", "remat", "bf16", "visualize", "profile",
-        "mesh", "turbo", "fused_with_turbo"])
+        "turbo", "fused_with_turbo"])
 def test_unported_training_settings_raise(change):
     _, cfg = _cfgs()
     fields = {}
@@ -459,8 +486,9 @@ def test_unported_training_settings_raise(change):
     dict(generator=dict(gather_impl="pallas")),
     dict(use_gan=True, generator=dict(fused_grouping=True),
          discriminator=dict(fused_grouping=True)),
+    dict(mesh=dict(num_devices=2)),
 ], ids=["use_gan", "fake_pool", "fused_grouping", "pallas_gather",
-        "gan_fused"])
+        "gan_fused", "mesh"])
 def test_ported_training_settings_pass(change):
     _, cfg = _cfgs()
     fields = {}
@@ -479,5 +507,3 @@ def test_training_entry_points_default_to_cuda(tmp_path):
         Trainer(cfg, dataset=_dataset())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Trainer(cfg, dataset=_dataset(), device="cpu", mesh=object())
