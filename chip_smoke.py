@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      request, pass 2 of the 16× request, the 16× merge of one cloud and of
      two) and the train step gives it at batch 28 (backbone, refiner and
      chamfer kNN; the attention forward, each shape beside SDPA, and its
-     backward rule; the ball query in all three output modes at
+     backward rule; the attention's bf16 entry bit-equal to its f32 entry
+     at the refiner's shapes and off the tiles; the ball query in all
+     three output modes at
      ``kernels/measure.py``'s ``BALL_CASES``: the repulsion loss, the
      critic's ball grouping and the ``uniform`` metric's disks, with no
      synchronization in a call), and time the kernel, the plain version
@@ -66,7 +68,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      entry loaded by a process that cannot import the model code and
      served bit-equal to the live ``upsample`` with its launch counts;
      export seconds, artifact bytes, and served against live ms per
-     request, in turns.  Then CD training at the
+     request, in turns.  bf16 compute (``serve_bf16``): 4× and 16× exact,
+     4× turbo and ``upsample_many`` at ``compute_dtype='bfloat16'``, with
+     the JAX gates' launches at bf16 (``attention.cu``'s bf16 entry), f32
+     outputs, bit-equal repeats, Chamfer to the plain bf16 path, an
+     exported bf16 entry bit-equal to live, and ms beside f32 in turns.
+     Then CD training at the
      same width with the training defaults (batch 28, random input,
      augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
      steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
@@ -89,7 +96,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      plain versions (every generator and critic parameter), two bit-equal
      5-step runs, the ``d_clip=0`` game and the critic's fused grouping,
      each with exact launch counts; and the CLI's test phase on the GAN
-     log dir (its generator half).  Then the evaluation: two shapes of
+     log dir (its generator half).  bf16 training (``train_bf16``): 10 CD
+     and 10 GAN steps at bf16 (the loss falls, every tensor of the state
+     f32, kernels against plain versions, bit-equal repeats, ms beside
+     f32 in turns).  Then the evaluation: two shapes of
      the evaluation set made with the port's ``meshgen``, upsampled 4×,
      scored by ``evaluate_dirs`` on the card (1000 disk seeds, timed by
      stage) and by ``python -m dispu_tpu_torch.evaluate``, held against
@@ -573,6 +583,86 @@ def check_attention(dev):
         log(f"attention {label} (b={bw} nq={nq} nk={nk} c={cw} cv={cvw}): "
             f"max|d| {wide:.3e} (bound {ATTN_MAX_ABS}), mean "
             f"{wide_mean:.3e}")
+    return agg
+
+
+def check_attention_bf16(dev):
+    """The bf16 entry (bf16 q, k, v read where they lie) against the f32
+    entry fed the same values upcast, at the refiner's shapes at bf16
+    compute: pass 1 of a 4x or 16x request (32 clouds of 1024 x 1024,
+    counted in the aggregate) and pass 2 of a 16x one (4096 x 4096), c =
+    cv = 64.  The two must be bit-equal: rounding a bf16 value to bf16 is
+    the identity, and every later rounding point is shared.  Each entry
+    timed, in turns, beside the plain version and SDPA at bf16.  Then
+    shapes off the tiles and a misaligned tensor (the entry's padding
+    copy), bit-equal too."""
+    import torch
+    import torch.nn.functional as F
+
+    from dispu_tpu_torch.kernels.attention import (attention_cuda,
+                                                   attention_torch)
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    c = 64
+    scale = 1.0 / math.sqrt(c)
+    bf16 = torch.bfloat16
+    agg = None
+    for label, b, n in (("4x", 32, 1024), ("pass 2", 32, 4096)):
+        q, k, v = (torch.randn(b, n, c, generator=gen).to(dev).to(bf16)
+                   for _ in range(3))
+        qf, kf, vf = q.float(), k.float(), v.float()
+        got = attention_cuda(q, k, v, scale)
+        same = torch.equal(got, attention_cuda(qf, kf, vf, scale))
+        want = attention_torch(q, k, v, scale, bf16_operands=True)
+        err = torch.abs(got - want)
+        max_abs, mean_abs = float(err.max()), float(err.mean())
+        require(same, f"attention bf16 entry {label}: not bit-equal to the "
+                "f32 entry on the same values")
+        require(max_abs <= ATTN_MAX_ABS and mean_abs <= ATTN_MEAN_ABS,
+                f"attention bf16 {label}: max|d| {max_abs}, mean {mean_abs}")
+        laps = {"bf16": [], "f32": []}
+        for _ in range(2):  # in turns
+            laps["bf16"].append(timed_ms(
+                lambda: attention_cuda(q, k, v, scale), reps=10))
+            laps["f32"].append(timed_ms(
+                lambda: attention_cuda(qf, kf, vf, scale), reps=10))
+        ms, f32_ms = min(laps["bf16"]), min(laps["f32"])
+        plain_ms = timed_ms(
+            lambda: attention_torch(q, k, v, scale, bf16_operands=True),
+            reps=5)
+        library_ms = timed_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+            reps=5)
+        nbytes = 2 * 3 * b * n * c + 4 * b * n * c
+        ops = 2 * b * n * n * (c + c)
+        bms, by = bound(nbytes, ops, BF16_FLOPS)
+        log(f"attention bf16 entry {label} (b={b} nq=nk={n} c=cv={c}): "
+            f"bit-equal to the f32 entry: {same}; max|d| vs plain "
+            f"{max_abs:.3e} (bound {ATTN_MAX_ABS}), mean {mean_abs:.3e}; "
+            f"bf16 entry {ms:.4f} ms ({laps['bf16']}), f32 entry "
+            f"{f32_ms:.4f} ms ({laps['f32']}), plain {plain_ms:.4f} ms, "
+            f"sdpa bf16 {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        if agg is None:
+            agg = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
+                       t_ops=ops / BF16_FLOPS, max_abs_err=max_abs,
+                       f32_entry_ms=f32_ms)
+    for label, bw, nq, nk, cw, cvw, offset in (
+            ("ragged", 3, 700, 650, 64, 40, 0),
+            ("c=cv=184", 2, 1000, 1100, 184, 184, 0),
+            ("misaligned", 2, 1024, 1024, 64, 64, 1)):
+        ts = []
+        for rows, w in ((nq, cw), (nk, cw), (nk, cvw)):
+            x = torch.randn(bw, rows, w, generator=gen).to(dev).to(bf16)
+            buf = torch.empty(x.numel() + offset, dtype=bf16, device=dev)
+            ts.append(buf[offset:].view(bw, rows, w).copy_(x))
+        got = attention_cuda(*ts, cw ** -0.5)
+        same = torch.equal(got, attention_cuda(*(t.float() for t in ts),
+                                               cw ** -0.5))
+        require(same, f"attention bf16 entry {label}: not bit-equal")
+        log(f"attention bf16 entry {label} (b={bw} nq={nq} nk={nk} c={cw} "
+            f"cv={cvw}, storage offset {offset}): bit-equal to the f32 "
+            f"entry")
     return agg
 
 
@@ -1376,19 +1466,20 @@ def check_refine_block(dev):
 # --------------------------------------------------------------- phase 4
 
 
-def refine_route(g, points: int, cf: int):
+def refine_route(g, points: int, cf: int, dtype: str = "float32"):
     """(the refiner's local-branch route at inference for ``points`` a
     patch and grouped rows of ``cf`` floats, whether 'megafused' fell back
     past its kernel) by the JAX package's gates
     (``dispu_tpu/nn/refine.py``): 'megafused' and 'fused' need no batch
-    norm and a three-layer ``refine_mlp``; 'megafused' also the local
+    norm, a three-layer ``refine_mlp`` and f32 compute (``dtype``, the
+    compute dtype); 'megafused' also the local
     branch and k ≤ 16, 'fused' points % 128 == 0; otherwise 'xla'.  On
     the card 'megafused' past ``refine_block.cu``'s shared memory
     (``block_fits``) takes 'fused' where points % 128 == 0, else 'xla',
     grouping by the exact kNN."""
     from dispu_tpu_torch.kernels.refine_block import block_fits
 
-    fusable = not g.use_bn and len(g.refine_mlp) == 3
+    fusable = not g.use_bn and len(g.refine_mlp) == 3 and dtype == "float32"
     if (g.refine_local_impl == "megafused" and fusable and g.use_local
             and g.refine_nsample <= 16):
         if block_fits(points, g.refine_nsample, cf, *g.refine_mlp):
@@ -1411,7 +1502,9 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
     its 'megafused' route replaces the kNN by ``refine_block``
     (``refine_route``; past that kernel's limit the exact kNN and
     ``refine_local`` or the composed branch); one merge FPS, bucketed or
-    in the kernel that takes its candidates."""
+    in the kernel that takes its candidates.  At bf16 compute the
+    attention is the kernel's bf16 entry (``attention_bf16``) and the
+    refiner takes the composed route."""
     from dispu_tpu_torch import kernels
     from dispu_tpu_torch.inference import plan_counts
     from dispu_tpu_torch.kernels.knn import knn_form
@@ -1439,7 +1532,7 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
         # refiner's (grouping) at 1
         counts[knn_kernel(points, 64, g.knn + 1)] += g.dense_block * chunks
         points *= g.up_ratio
-        route, past_block = refine_route(g, points, cf)
+        route, past_block = refine_route(g, points, cf, inf.compute_dtype)
         if route == "megafused":
             counts["refine_block"] += chunks
         elif past_block:  # over 2048 points: no fused grouping kernel
@@ -1448,7 +1541,8 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
             counts[knn_kernel(points, 1, g.refine_nsample)] += chunks
         if route == "fused":
             counts["refine_local"] += chunks
-        counts["attention"] += chunks
+        counts["attention" if inf.compute_dtype == "float32"
+               else "attention_bf16"] += chunks
     if inf.merge_fps == "bucketed" and out_num >= inf.merge_fps_buckets:
         counts["fps_bucketed"] += 1
     else:
@@ -2456,7 +2550,10 @@ def expected_train_counts(cfg) -> dict:
     repulsion loss.  With ``gather_impl='pallas'`` each block's and the
     refiner's gather inside ``gather_fits`` runs the gather kernel
     forward and the scatter kernel backward; the fused kernel's backward
-    scatters the features (and, in the refiner, the xyz)."""
+    scatters the features (and, in the refiner, the xyz).  At bf16
+    compute the attention is the kernel's bf16 entry, and the gather
+    kernel takes the f32 tables alone (the refiner's ``[xyz | feature]``
+    one; the dense blocks' features are bf16)."""
     import torch
 
     from dispu_tpu_torch import kernels
@@ -2474,9 +2571,11 @@ def expected_train_counts(cfg) -> dict:
               // 2]
     widths += [getattr(model.feature_extraction_coarse, f"layer{i}_prep")
                .features for i in range(2, g.dense_block + 1)]
-    gathers = 0
+    gathers, bf16 = 0, cfg.train.compute_dtype != "float32"
     if g.gather_impl == "pallas" and not g.fused_grouping:
-        gathers = sum(gather_fits(torch.empty(0, n_in, w)) for w in widths)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        gathers = sum(gather_fits(torch.empty(0, n_in, w, dtype=dt))
+                      for w in widths)
         if g.refine:
             c = model.PointShuffle.skip.dense.in_features - 6
             gathers += int(gather_fits(torch.empty(0, n_out, 3 + c)))
@@ -2484,7 +2583,8 @@ def expected_train_counts(cfg) -> dict:
                 knn=(g.dense_block * (not fused_bb)
                      + int(g.refine and not fused_ref) + argmin),
                 knn_group=g.dense_block * fused_bb + int(fused_ref),
-                attention=int(nl), query_ball=int(cfg.loss.use_repulsion),
+                **{"attention_bf16" if bf16 else "attention": int(nl)},
+                query_ball=int(cfg.loss.use_repulsion),
                 gather_rows=gathers,
                 scatter_rows=(gathers + g.dense_block * fused_bb
                               + 2 * fused_ref))
@@ -2518,12 +2618,16 @@ def _grads(model) -> dict:
                 ).detach().clone() for n, p in model.named_parameters()}
 
 
-def compare_steps(label, m_k, g_k, m_p, g_p, extra="", metric_floor=0.0):
+def compare_steps(label, m_k, g_k, m_p, g_p, extra="", metric_floor=0.0,
+                  metric_max=None, grad_max=None):
     """One step through the kernels against one through the plain
-    versions: metrics within ``TRAIN_METRIC_REL`` (of the larger of the
-    metric and ``metric_floor`` of the largest one), gradients within
-    ``TRAIN_GRAD_REL`` of each leaf's largest, and every parameter with a
-    gradient on the plain path has one through the kernels."""
+    versions: metrics within ``metric_max`` (``TRAIN_METRIC_REL``; of
+    the larger of the metric and ``metric_floor`` of the largest one),
+    gradients within ``grad_max`` (``TRAIN_GRAD_REL``) of each leaf's
+    largest, and every parameter with a gradient on the plain path has one
+    through the kernels."""
+    metric_max = TRAIN_METRIC_REL if metric_max is None else metric_max
+    grad_max = TRAIN_GRAD_REL if grad_max is None else grad_max
     floor = max(1e-12, metric_floor * max(abs(float(v)) for v in m_p.values()))
     metric_rel = max(abs(float(m_k[k]) - float(m_p[k]))
                      / max(abs(float(m_p[k])), floor) for k in m_p)
@@ -2534,14 +2638,14 @@ def compare_steps(label, m_k, g_k, m_p, g_p, extra="", metric_floor=0.0):
     dead = sorted(n for n in g_p if bool(g_p[n].abs().max() > 0)
                   and not bool(g_k[n].abs().max() > 0))
     log(f"{label}: one step, kernels vs plain versions on the card: "
-        f"metrics max rel {metric_rel:.3e} (bound {TRAIN_METRIC_REL}), "
+        f"metrics max rel {metric_rel:.3e} (bound {metric_max}), "
         f"gradients max |d| / leaf max {grad_rel:.3e} (bound "
-        f"{TRAIN_GRAD_REL}); {len(g_p)} parameters, gradient zero through "
+        f"{grad_max}); {len(g_p)} parameters, gradient zero through "
         f"the kernels only at {dead}{extra}")
     require(not dead, f"{label}: no gradient through the kernels at {dead}")
-    require(metric_rel <= TRAIN_METRIC_REL,
+    require(metric_rel <= metric_max,
             f"{label}: metrics differ {metric_rel}")
-    require(grad_rel <= TRAIN_GRAD_REL,
+    require(grad_rel <= grad_max,
             f"{label}: gradients differ {grad_rel}")
 
 
@@ -2929,6 +3033,363 @@ def gan_phase(card: str, profile: bool):
     if profile:
         profile_gan_step(cfg, gt, radius)
     return total_counts, log_dir
+
+
+# bf16 compute through the kernels vs through the plain versions on the
+# card: symmetric Chamfer over the plain output's own mean squared
+# nearest-neighbour spacing, by setting.  The two paths round the
+# attention's f32 output and the dense layers' products to bf16 at the
+# same points, but the kernels sum in other orders, so a value near a
+# bf16 rounding edge can land one ulp apart and move the later layers
+# (at 16x, pass 2's inputs too).  Each limit lies between the readings
+# of ``bf16_limit_readings`` on an H100 at 700 W (generator seeds 0-5,
+# both demo clouds): kernels vs plain at most 1.4e-2 (4x), 3.9e-2
+# (turbo 4x), 0.14 (16x); a control, the plain path with the attention's
+# probabilities left f32, at least 6.9e-2, 6.9e-2 and 0.28 from it.
+BF16_CHAMFER_REL = {"4x": 3e-2, "turbo 4x": 5e-2, "16x": 0.2}
+# one bf16 train step through the kernels vs through the plain versions:
+# metrics (relative) and gradients (max |d| over the leaf's max |g|,
+# floored at 1e-3 of the largest leaf's), as ``compare_steps`` reads them;
+# a gradient is a bf16 product, so a sum that lands on another side of a
+# rounding edge moves a leaf by one bf16 ulp of it (2^-8).  Readings on an
+# H100 at 700 W: metrics 2.0e-5 (CD) and 6.4e-5 (GAN), gradients 6.9e-3.
+BF16_TRAIN_METRIC_REL = 1e-3
+BF16_TRAIN_GRAD_REL = 5e-2
+
+
+def serve_bf16(card: str):
+    """bf16 compute (``InferenceConfig(compute_dtype='bfloat16')``) at full
+    width from the port's seeded init: two 4x and two 16x requests on each
+    demo cloud, exact and turbo (``cli.build_config`` of ``--turbo true``
+    at bf16), and two ``upsample_many`` calls of both clouds at each
+    ratio, each path with exact launch counts (the attention kernel's
+    bf16 entry, no gather or refiner kernel: the JAX package's gates at
+    bf16), f32 outputs of the right shape, finite, bit-equal repeats;
+    each output against the same path through the plain versions on the
+    card (``BF16_CHAMFER_REL``) and beside the f32 path's.  Then an
+    exported bf16 entry served in this process, bit-equal to live with
+    live's launches, and ms per request at bf16 beside f32, in turns."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.serving import ServedUpsampler, export_upsampler
+
+    t_phase = time.perf_counter()
+    bf = "bfloat16"
+    clouds = {name: load_cloud(name)
+              for name in ("Icosahedron.xyz", "fandisk.xyz")}
+    pcs = np.stack(list(clouds.values()))
+    turbo = turbo_config()
+    settings = {}
+    for ratio in (4, 16):
+        settings[f"{ratio}x"] = (None, InferenceConfig(final_ratio=ratio,
+                                                       compute_dtype=bf))
+    settings["turbo 4x"] = (turbo.generator, dataclasses.replace(
+        turbo.inference, final_ratio=4, compute_dtype=bf))
+    total, ups = {}, {}
+    for label, (gen_cfg, inf) in settings.items():
+        kw = {} if gen_cfg is None else dict(gen_cfg=gen_cfg)
+        up = PatchUpsampler(inf_cfg=inf, seed=0, **kw)
+        ref = PatchUpsampler(inf_cfg=inf, seed=0, impl="torch", **kw)
+        f32 = PatchUpsampler(inf_cfg=dataclasses.replace(
+            inf, compute_dtype="float32"), seed=0, **kw)
+        ups[label] = up
+        ratio = inf.final_ratio
+        calls = [(name, pc[None], 1) for name, pc in clouds.items()]
+        calls.append(("upsample_many", pcs, len(pcs)))
+        for name, batch, b in calls:
+            n = batch.shape[1]
+            expected = add_counts({}, expected_counts(up, n, b), 2)
+            kernels.reset_launch_counts()
+            outs = [up.upsample_many(batch) for _ in range(2)]
+            counts = kernels.launch_counts()
+            require(counts == expected,
+                    f"bf16 {label} {name}: launches {counts} != {expected}")
+            require(counts["attention_bf16"] > 0 and counts["attention"] == 0
+                    and counts["gather_rows"] == counts["refine_local"]
+                    == counts["refine_block"] == 0,
+                    f"bf16 {label} {name}: the JAX gates' routes {counts}")
+            total = add_counts(total, counts)
+            out = outs[0]
+            require(out.dtype == np.float32 and out.shape == (b, n * ratio, 3)
+                    and np.isfinite(out).all(),
+                    f"bf16 {label} {name}: {out.dtype} {out.shape}")
+            require(np.array_equal(outs[0], outs[1]),
+                    f"bf16 {label} {name}: repeated call differs")
+            plain = ref.upsample_many(batch)
+            full = f32.upsample_many(batch)
+            rel, rel_f32 = [], []
+            for v in range(b):
+                spacing = own_spacing2(plain[v])
+                rel.append(chamfer(out[v], plain[v]) / spacing)
+                rel_f32.append(chamfer(out[v], full[v]) / spacing)
+            log(f"bf16 {label} {name}: launches {counts}; kernels vs plain "
+                f"on the card: Chamfer / own spacing² "
+                f"{['%.3e' % r for r in rel]} (bound "
+                f"{BF16_CHAMFER_REL[label]}); bf16 vs f32 path "
+                f"{['%.3e' % r for r in rel_f32]}")
+            require(max(rel) <= BF16_CHAMFER_REL[label],
+                    f"bf16 {label} {name}: Chamfer rel {rel}")
+
+    # an exported bf16 entry, served here: bit-equal to live
+    work = os.path.join(REPO, "chiprun_out", "serve_bf16")
+    shutil.rmtree(work, ignore_errors=True)
+    up = ups["4x"]
+    pc = clouds["Icosahedron.xyz"]
+    n = pc.shape[0]
+    manifest = export_upsampler(up.model.state_dict(), [n], work,
+                                inf_cfg=up.inf_cfg)
+    served = ServedUpsampler(work)
+    kernels.reset_launch_counts()
+    live = up.upsample(pc)
+    live_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    got = served.upsample(pc)
+    counts = kernels.launch_counts()
+    require(manifest["inference_config"]["compute_dtype"] == bf
+            and np.array_equal(got, live) and counts == live_counts,
+            f"bf16 export: served differs from live (launches {counts}, "
+            f"live {live_counts})")
+    total = add_counts(add_counts(total, counts), live_counts)
+    log(f"bf16 export: entry ops {manifest['entries'][0]['kernels']}, "
+        f"served bit-equal to live, launches {counts} (= live)")
+
+    # ms per request, bf16 beside f32, in turns
+    kernels.reset_launch_counts()
+    for label in ("4x", "16x"):
+        inf = ups[label].inf_cfg
+        pair = {"f32": PatchUpsampler(inf_cfg=dataclasses.replace(
+            inf, compute_dtype="float32"), seed=0), "bf16": ups[label]}
+        reps = 3 if inf.final_ratio == 16 else 5
+        laps = {k: [] for k in pair}
+        for rep in range(reps + 1):  # the first round warms both
+            for kind, u in pair.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                u.upsample(pc)  # returns on the host: synchronized
+                if rep:
+                    laps[kind].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in laps.items()}
+        each = {k: ", ".join("%.2f" % t for t in v) for k, v in laps.items()}
+        log(f"bf16 {label}: ms per 2048-point request, in turns, median of "
+            f"{reps}: f32 {med['f32']:.2f} ({each['f32']}), bf16 "
+            f"{med['bf16']:.2f} ({each['bf16']}), bf16 / f32 "
+            f"{med['bf16'] / med['f32']:.3f} on {card}")
+    total = add_counts(total, kernels.launch_counts())
+    log(f"serve_bf16: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return total
+
+
+def bf16_limit_readings(card: str, seeds=tuple(range(6))):
+    """The readings ``BF16_CHAMFER_REL`` is set from (not part of the smoke
+    run): for each generator seed, each of ``serve_bf16``'s settings and
+    each demo cloud, Chamfer / own spacing² of the bf16 request through
+    the kernels against the plain bf16 path, and of a control against the
+    plain path: the plain path with one rounding point taken out (the
+    attention's probabilities kept in f32 for the second product, where
+    the kernel and its plain version round them to bf16; the dense
+    layers' biases are zero at the seeded init, so their rounding points
+    cannot serve).  A limit between the two separates the kernels' sum
+    orders from a path that rounds at another point.  Run alone:
+    ``python3 -c "import sys; sys.path.insert(0, '.'); import chip_smoke
+    as cs; from dispu_tpu_torch.inference import pin_f32; pin_f32();
+    cs.bf16_limit_readings('card')"``."""
+    import dataclasses
+
+    import torch
+
+    from dispu_tpu_torch import InferenceConfig
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.kernels import attention as attention_module
+
+    attention_torch = attention_module.attention_torch
+
+    def p_unrounded(q, k, v, scale, bf16_operands=False):
+        if not bf16_operands:
+            return attention_torch(q, k, v, scale)
+        bf = attention_module._bf16
+        s = torch.einsum("bqc,bnc->bqn", bf(q), bf(k)) * scale
+        p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+        denom = torch.sum(p, dim=-1, keepdim=True)
+        return torch.einsum("bqn,bnc->bqc", p, bf(v)) / denom
+
+    t_phase = time.perf_counter()
+    bf = "bfloat16"
+    clouds = {name: load_cloud(name)
+              for name in ("Icosahedron.xyz", "fandisk.xyz")}
+    turbo = turbo_config()
+    settings = {f"{r}x": (None, InferenceConfig(final_ratio=r,
+                                                 compute_dtype=bf))
+                for r in (4, 16)}
+    settings["turbo 4x"] = (turbo.generator, dataclasses.replace(
+        turbo.inference, final_ratio=4, compute_dtype=bf))
+    worst = {}
+    for seed in seeds:
+        for label, (gen_cfg, inf) in settings.items():
+            kw = dict(seed=seed, inf_cfg=inf)
+            if gen_cfg is not None:
+                kw["gen_cfg"] = gen_cfg
+            up = PatchUpsampler(**kw)
+            ref = PatchUpsampler(impl="torch", **kw)
+            for name, pc in clouds.items():
+                out, plain = up.upsample(pc), ref.upsample(pc)
+                attention_module.attention_torch = p_unrounded
+                try:
+                    control = ref.upsample(pc)
+                finally:
+                    attention_module.attention_torch = attention_torch
+                spacing = own_spacing2(plain)
+                rel = chamfer(out, plain) / spacing
+                rel_control = chamfer(control, plain) / spacing
+                w = worst.setdefault(label, [0.0, float("inf")])
+                w[0], w[1] = max(w[0], rel), min(w[1], rel_control)
+                log(f"bf16 limits: seed {seed} {label} {name}: kernels vs "
+                    f"plain {rel:.4e}, control vs plain {rel_control:.4e}")
+    for label, (kernels_max, control_min) in worst.items():
+        log(f"bf16 limits: {label}: kernels vs plain at most "
+            f"{kernels_max:.4e}, control vs plain at least {control_min:.4e}"
+            f" over seeds {list(seeds)}")
+    log(f"bf16_limit_readings: {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return worst
+
+
+def train_bf16(card: str):
+    """bf16 compute in training at full width, batch 28, on synthetic
+    patches, from the port's seeded init: CD steps with the TrainConfig
+    defaults and GAN steps with ``dispu.py --use_gan true``'s, each at
+    ``compute_dtype='bfloat16'``: 10 steps on one batch (the loss falls,
+    exact launch counts: the attention kernel's bf16 entry), every
+    parameter, gradient and Adam moment an f32 tensor, one step through
+    the kernels against one through the plain versions
+    (``BF16_TRAIN_METRIC_REL``, ``BF16_TRAIN_GRAD_REL``), two bit-equal
+    3-step runs, and ms per step at bf16 beside f32, in turns."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import cli, kernels
+    from dispu_tpu_torch.config import ExperimentConfig, TrainConfig
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    bf = "bfloat16"
+    cd = ExperimentConfig(train=dataclasses.replace(TrainConfig(),
+                                                    compute_dtype=bf))
+    gan = cli.build_config(cli.parse_args(
+        ["--phase", "train", "--use_gan", "true", "--compute_dtype", bf]))
+    bs = cd.train.batch_size
+    dataset = PatchDataset(h5_path=os.path.join(REPO, "absent.h5"),
+                           synthetic_patches_count=bs, seed=0)
+    gt = torch.from_numpy(dataset.gt[:bs]).cuda()
+    radius = torch.from_numpy(dataset.radius[:bs]).cuda()
+    kinds = {
+        "CD": (lambda c, impl: create_generator_state(
+            c.generator, seed=0, impl=impl, device="cuda"), make_train_step,
+            expected_train_counts,
+            lambda st: {"": (st.model, st.mu, st.nu)}, 0.0),
+        "GAN": (lambda c, impl: create_gan_state(c, seed=0, impl=impl,
+                                                 device="cuda"),
+                make_gan_train_step, expected_gan_counts,
+                lambda st: {"generator.": (st.gen.model, st.gen.mu,
+                                           st.gen.nu),
+                            "critic.": (st.disc, st.d_mu, st.d_nu)},
+                GAN_METRIC_FLOOR),
+    }
+
+    def run(kind, c, impl, steps, seed=0, times=None):
+        make_state, make_step = kinds[kind][:2]
+        st, step = make_state(c, impl), make_step(c, impl=impl)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        totals = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step(st, gt, radius, gen)
+            totals.append(float(m["total"]))  # a host fetch: synchronized
+            if times is not None:
+                times.append((time.perf_counter() - t) * 1e3)
+        return st, totals, m
+
+    total = {}
+    for kind, c in (("CD", cd), ("GAN", gan)):
+        _, _, expect, parts, floor = kinds[kind]
+        kernels.reset_launch_counts()
+        st, totals, m = run(kind, c, "auto", 10)
+        counts = kernels.launch_counts()
+        require(counts == add_counts({}, expect(c), 10)
+                and counts["attention_bf16"] == 10,
+                f"bf16 {kind}: launches over 10 steps {counts}")
+        total = add_counts(total, counts)
+        tensors = {f"{prefix}{n}": t
+                   for prefix, (mod, mu, nu) in parts(st).items()
+                   for group in (dict(mod.named_parameters()),
+                                 {f"{k}.grad": p.grad for k, p in
+                                  mod.named_parameters()},
+                                 {f"{k}.mu": v for k, v in mu.items()},
+                                 {f"{k}.nu": v for k, v in nu.items()})
+                   for n, t in group.items()}
+        not_f32 = sorted(n for n, t in tensors.items()
+                         if t is None or t.dtype != torch.float32)
+        metrics_f32 = all(m[k].dtype == torch.float32 for k in m
+                          if torch.is_tensor(m[k]))
+        log(f"bf16 {kind} training: 10 steps on one batch: total "
+            f"{totals[0]:.4f} -> {totals[-1]:.4f}; launches {counts}; "
+            f"{len(tensors)} parameters, gradients and moments, not f32 "
+            f"(or missing): {not_f32}; metrics f32: {metrics_f32}")
+        require(np.isfinite(totals).all() and totals[-1] < totals[0],
+                f"bf16 {kind}: loss did not fall: {totals}")
+        require(not not_f32 and metrics_f32,
+                f"bf16 {kind}: tensors not f32 {not_f32}")
+
+        def grads(st):
+            return {f"{prefix}{n}": g for prefix, (mod, _, _) in
+                    parts(st).items() for n, g in _grads(mod).items()}
+
+        st_k, _, m_k = run(kind, c, "cuda", 1)
+        st_p, _, m_p = run(kind, c, "torch", 1)
+        compare_steps(f"bf16 {kind} training", m_k, grads(st_k), m_p,
+                      grads(st_p), metric_floor=floor,
+                      metric_max=BF16_TRAIN_METRIC_REL,
+                      grad_max=BF16_TRAIN_GRAD_REL)
+        kernels.reset_launch_counts()
+        require_repeatable(f"bf16 {kind} training", lambda: tuple(
+            mod for mod, _, _ in parts(run(kind, c, "auto", 3,
+                                           seed=3)[0]).values()))
+        total = add_counts(total, kernels.launch_counts())
+
+    # ms per warm step, bf16 beside f32, in turns
+    kernels.reset_launch_counts()
+    for kind, c in (("CD", cd), ("GAN", gan)):
+        pair = {"f32": dataclasses.replace(c, train=dataclasses.replace(
+            c.train, compute_dtype="float32")), "bf16": c}
+        laps = {k: [] for k in pair}
+        for _ in range(2):
+            for name, cc in pair.items():
+                times = []
+                run(kind, cc, "auto", 6, times=times)
+                laps[name] += times[1:]
+        med = {k: statistics.median(v) for k, v in laps.items()}
+        log(f"bf16 {kind} training: ms per warm step at batch {bs}, two "
+            f"turns of 5 each: f32 median {med['f32']:.3f} (min "
+            f"{min(laps['f32']):.3f}), bf16 median {med['bf16']:.3f} (min "
+            f"{min(laps['bf16']):.3f}), bf16 / f32 "
+            f"{med['bf16'] / med['f32']:.3f} on {card}")
+    total = add_counts(total, kernels.launch_counts())
+    log(f"train_bf16: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return total
 
 
 def profile_gan_step(cfg, gt, radius):
@@ -3544,6 +4005,7 @@ def main() -> int:
             "fps_chunked": check_fps_chunked(dev),
             "fps_bucketed": check_fps_bucketed(dev),
             "attention": check_attention(dev),
+            "attention_bf16": check_attention_bf16(dev),
             "query_ball": check_query_ball(dev),
             "fps_lite": check_fps_lite(dev),
             "gather_rows": check_gather_rows(dev),
@@ -3569,6 +4031,7 @@ def main() -> int:
     counts = add_counts(counts, serve_refine(card))
     counts = add_counts(counts, serve_large(card))
     counts = add_counts(counts, serve_export(card))
+    counts = add_counts(counts, serve_bf16(card))
     counts = add_counts(counts, train_phase(card, args.profile))
     train_dir = os.path.join(REPO, "chiprun_out", "train_smoke")
     cli_phase(card, train_dir)
@@ -3577,6 +4040,7 @@ def main() -> int:
     gan_counts, gan_dir = gan_phase(card, args.profile)
     counts = add_counts(counts, gan_counts)
     cli_phase(card, gan_dir, ("--use_gan", "true"), "cli_gan_smoke")
+    counts = add_counts(counts, train_bf16(card))
     counts = add_counts(counts, evaluate_phase(card))
     counts = add_counts(counts, multi_device(card))
     if args.profile:
@@ -3602,7 +4066,8 @@ def main() -> int:
                                 load_cloud("Icosahedron.xyz"))
 
     # phase 5: ms, plain_ms, bound_ms and library_ms are per 2048-point
-    # request: a 4x request for knn, fps and attention, a 16x request for
+    # request: a 4x request for knn, fps and attention (attention_bf16: a
+    # bf16 4x request's pass, 32 x 1024 x 1024), a 16x request for
     # fps_chunked (its one launch there), a 4x request on a 60,000-point
     # cloud for knn_split (the patch cut); a 4x turbo request for knn_group
     # and fps_bucketed, a 16x turbo request for knn_packed (its one launch
@@ -3632,6 +4097,9 @@ def main() -> int:
                          "dispu_tpu/ops/pallas_kernels.py:631"),
         "attention": ("dispu_tpu_torch/kernels/csrc/attention.cu",
                       "dispu_tpu/ops/pallas_kernels.py:2221"),
+        "attention_bf16": ("dispu_tpu_torch/kernels/csrc/attention.cu",
+                           "dispu_tpu/ops/pallas_kernels.py:2221 (bf16 "
+                           "operands as they come, :2237-2240)"),
         "query_ball": ("dispu_tpu_torch/kernels/csrc/query_ball.cu",
                        "dispu_tpu/ops/pallas_kernels.py:1098"),
         "fps_lite": ("dispu_tpu_torch/kernels/csrc/fps.cu",

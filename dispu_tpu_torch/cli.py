@@ -111,7 +111,8 @@ def parse_args(argv=None):
                         "the point counts of the --test_data files)")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="bfloat16 is not ported and raises")
+                   help="the network's compute dtype (serving and training; "
+                        "parameters, geometry and losses stay float32)")
     p.add_argument("--compile_cache", default=None, metavar="DIR",
                    help="dispu.py's XLA cache; the port compiles no "
                         "programs, so it has no effect here")

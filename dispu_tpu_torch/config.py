@@ -209,6 +209,16 @@ REFINE_LOCAL_IMPLS = ("xla", "fused", "megafused")
 #: every gather_impl the port runs: the exact ones, the bf16 turbo gather
 #: and the fused kNN + gather kernel (exact or bf16 features)
 GATHERS = EXACT_GATHERS + ("onehot", "fused", "fused_turbo")
+#: the compute dtypes of ``InferenceConfig`` and ``TrainConfig`` (the
+#: flax modules' ``dtype``; parameters stay f32 at either)
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_compute_dtype(name: str) -> None:
+    """``ValueError`` for a compute dtype outside :data:`COMPUTE_DTYPES`."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {name!r}: one of "
+                         f"{COMPUTE_DTYPES}")
 
 
 def _unsupported(what: str, item: str):
@@ -226,7 +236,8 @@ def check_supported(gen_cfg: GeneratorConfig,
     turbo serving flags are ported: ``fast_knn``, ``fast_gather``,
     ``fast_gather_backbone``, ``fused_grouping``, ``dense_impl='split'``,
     ``gather_impl='onehot'`` and the bucketed merge with the argsort rank;
-    so is every ``refine_local_impl`` (the fused refiner kernels).
+    so is every ``refine_local_impl`` (the fused refiner kernels), and
+    either ``compute_dtype`` (``ValueError`` for another).
     """
     turbo = "turbo and opt-in paths"
     if gen_cfg.refine_local_impl not in REFINE_LOCAL_IMPLS:
@@ -238,8 +249,7 @@ def check_supported(gen_cfg: GeneratorConfig,
         _unsupported(f"gather_impl={gen_cfg.gather_impl!r}", turbo)
     if inf_cfg is None:
         return
-    if inf_cfg.compute_dtype != "float32":
-        _unsupported(f"compute_dtype={inf_cfg.compute_dtype!r}", turbo)
+    check_compute_dtype(inf_cfg.compute_dtype)
     if inf_cfg.merge_fps not in ("exact", "bucketed"):
         raise ValueError(f"unknown merge_fps {inf_cfg.merge_fps!r}")
     if inf_cfg.merge_fps_rank not in ("argsort", "radix"):
@@ -256,8 +266,9 @@ def check_train_supported(cfg: ExperimentConfig,
     ``ValueError`` for the GAN's fake pool when the run is
     ``data_parallel``.
 
-    Ported: CD and GAN training (``use_gan``, ``fake_pool_size``) in f32,
-    on one device or data-parallel over a mesh (the fake pool stays
+    Ported: CD and GAN training (``use_gan``, ``fake_pool_size``) at
+    either ``compute_dtype`` (``ValueError`` for another), on one device
+    or data-parallel over a mesh (the fake pool stays
     single-device), with any exact ``gather_impl`` ('pallas' through the
     gather and scatter-add kernels) or with ``fused_grouping`` alone (the
     ``knn_group`` kernel and its backward rule), for the generator and
@@ -277,8 +288,7 @@ def check_train_supported(cfg: ExperimentConfig,
         _unsupported(f"training with gather_impl={g.gather_impl!r}", turbo)
     if cfg.train.remat:
         _unsupported("remat", turbo)
-    if cfg.train.compute_dtype != "float32":
-        _unsupported(f"compute_dtype={cfg.train.compute_dtype!r}", turbo)
+    check_compute_dtype(cfg.train.compute_dtype)
     host = "host-side utilities"
     if cfg.train.visualize:
         _unsupported("visualize (training renders)", host)

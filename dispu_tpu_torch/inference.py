@@ -98,7 +98,8 @@ class PatchUpsampler:
         # chained passes of the generator: 4× → 1, 16× → 2
         self.num_passes = max(
             1, round(math.log(inf_cfg.final_ratio, inf_cfg.step_ratio)))
-        model = DisPUGenerator(gen_cfg, impl=impl, seed=seed)
+        model = DisPUGenerator(gen_cfg, impl=impl, seed=seed,
+                               dtype=inf_cfg.compute_dtype)
         if variables is not None:
             from_flax_variables(model, variables)
         self.model = model.to(self.device).eval()

@@ -25,7 +25,8 @@ from __future__ import annotations
 LAUNCHES = {"knn": 0, "knn_split": 0, "knn_packed": 0, "knn_group": 0,
             "fps": 0,
             "fps_lite": 0, "fps_chunked": 0, "fps_bucketed": 0,
-            "attention": 0, "query_ball": 0, "gather_rows": 0,
+            "attention": 0, "attention_bf16": 0, "query_ball": 0,
+            "gather_rows": 0,
             "scatter_rows": 0, "refine_local": 0, "refine_block": 0}
 
 IMPLS = ("auto", "cuda", "torch")
@@ -53,12 +54,16 @@ def pin_f32() -> None:
     PyTorch may run f32 matmuls and convolutions in TF32 (about three
     decimal digits); the distances behind kNN selection and the network's
     f32 compute need full f32, as the JAX package asks for with
-    ``precision=HIGHEST``.  Live and served requests both set it.
+    ``precision=HIGHEST``.  At bf16 compute, cuBLAS's bf16 products keep
+    f32 sums to the end (PyTorch lets them reduce partly in bf16 by
+    default).  Live and served requests both set it.
     """
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 compute: cuBLAS's bf16 products sum in f32 to the end, as XLA's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def use_kernel(impl: str, tensor) -> bool:

@@ -5,7 +5,10 @@ an H100 the function is bound by its bytes (the map must never reach
 device memory).  The kernel rounds q, k and v to bf16 once a call, into
 scratch that :func:`attention_cuda` allocates, and runs both products on
 the tensor cores (``mma.sync``, f32 accumulators), keeping the TPU
-kernel's rounding points; see the note at the top of the source.
+kernel's rounding points; see the note at the top of the source.  bf16
+q, k and v (the refiner at bf16 compute) go to the source's bf16 entry,
+which reads them where they lie and gives the f32 entry's bits for the
+same values (``LAUNCHES["attention_bf16"]``).
 :func:`attention` is differentiable through :class:`AttentionFunction`,
 which carries ``attention_pallas_diff``'s backward rule in torch ops; its
 forward is the custom op ``dispu_tpu_torch::attention``.
@@ -36,11 +39,21 @@ def attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, bf16_operands: bool = False) -> torch.Tensor:
     """Plain ``softmax(scale · q kᵀ) v`` in f32.
 
-    ``bf16_operands=False`` is ``attention_xla``'s f32 einsum, which the
-    CPU path uses as JAX's CPU path does.  ``True`` rounds q, k, v and p
-    to bf16 where the TPU kernel and the CUDA kernel round them (the
-    denominator sums the unrounded f32 p).
+    ``bf16_operands=False`` is ``attention_xla``'s einsum, which the
+    CPU path uses as JAX's CPU path does: in f32, or for bf16 operands
+    (bf16 compute) at bf16, each op rounded to bf16 as XLA rounds it
+    (the products with f32 sums, the scale rounded to bf16 first, the
+    softmax's max, difference, exp, sum and quotient; the result bf16).
+    ``True`` rounds q, k, v and p to bf16 where the TPU kernel and the
+    CUDA kernel round them (the denominator sums the unrounded f32 p) and
+    returns f32, for f32 or bf16 operands alike.
     """
+    if not bf16_operands and q.dtype == torch.bfloat16:
+        s = torch.einsum("bqc,bnc->bqn", q, k)
+        s = s * torch.tensor(scale, dtype=s.dtype, device=s.device)
+        e = torch.exp(s - torch.amax(s.detach(), dim=-1, keepdim=True))
+        p = e / torch.sum(e, dim=-1, keepdim=True)
+        return torch.einsum("bqn,bnc->bqc", p, v)
     if not bf16_operands:
         s = torch.einsum("bqc,bnc->bqn", q, k) * scale
         p = torch.softmax(s, dim=-1)
@@ -53,8 +66,10 @@ def attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
-    """Launch the kernel.  Same values as ``attention_torch(...,
-    bf16_operands=True)`` up to the order of the f32 sums."""
+    """Launch the kernel: the f32 entry for f32 q, k, v, the bf16 entry
+    for bf16 ones (all three of one dtype); f32 out.  Same values as
+    ``attention_torch(..., bf16_operands=True)`` up to the order of the
+    f32 sums."""
     from dispu_tpu_torch.kernels import _build
 
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -64,10 +79,13 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(k.shape) != (b, nk, c) or v.shape[0] != b:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
+    bf16 = q.dtype == torch.bfloat16
     for t in (q, k, v):
-        if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
+        if (t.dtype not in (torch.float32, torch.bfloat16)
+                or t.dtype != q.dtype or not t.is_cuda
+                or not t.is_contiguous()):
             raise ValueError("attention kernel takes contiguous float32 "
-                             "CUDA tensors")
+                             "or bfloat16 CUDA tensors of one dtype")
         if t.device != q.device:
             raise ValueError("attention kernel inputs lie on different "
                              "devices")
@@ -76,23 +94,31 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"cv <= {MAX_CV}, got c={c}, cv={cv}")
     out = torch.empty((b, nq, cv), dtype=torch.float32, device=q.device)
     lib = _build.load("attention")
-    size = lib.dispu_attention_scratch_bytes
-    size.argtypes = [_I, _I, _I, _I, _I]
-    size.restype = ctypes.c_longlong
-    # q, k and v in bf16, zero-padded to the kernel's tiles
-    scratch = torch.empty(size(b, nq, nk, c, cv), dtype=torch.uint8,
-                          device=q.device)
-    fn = lib.dispu_attention
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if bf16:  # the tensors off the kernel's tiles, copied and padded
+        size = lib.dispu_attention_bf16_scratch_bytes
+        size.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I]
+        size.restype = ctypes.c_longlong
+        nbytes = size(*ptrs, b, nq, nk, c, cv)
+        fn, name = lib.dispu_attention_bf16, "attention_bf16"
+    else:  # q, k and v in bf16, zero-padded to the kernel's tiles
+        size = lib.dispu_attention_scratch_bytes
+        size.argtypes = [_I, _I, _I, _I, _I]
+        size.restype = ctypes.c_longlong
+        nbytes = size(b, nq, nk, c, cv)
+        fn, name = lib.dispu_attention, "attention"
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+               if nbytes else None)
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
                    _P]
     fn.restype = _I
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    scratch.data_ptr(), b, nq, nk, c, cv, float(scale),
-                    stream)
-    _build.check(status, "attention kernel launch")
-    LAUNCHES["attention"] += 1
+        status = fn(*ptrs, out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), b, nq,
+                    nk, c, cv, float(scale), stream)
+    _build.check(status, f"{name} kernel launch")
+    LAUNCHES[name] += 1
     return out
 
 
@@ -106,7 +132,11 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     they run in f32, the numerics of the reference on the CPU, which
     needs ``allow_tf32 = False`` on the card (``inference.pin_f32``; the
     train step sets it).  At the training shape the recomputed map is
-    (b, nq, nk) f32: 117 MB at (28, 1024, 1024).  Returns (dq, dk, dv)."""
+    (b, nq, nk) f32: 117 MB at (28, 1024, 1024).  bf16 operands are
+    upcast, and each gradient comes back in its operand's dtype.  Returns
+    (dq, dk, dv)."""
+    dtypes = (q.dtype, k.dtype, v.dtype)
+    q, k, v, do = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bqc,bnc->bqn", q, k) * scale
     p = torch.softmax(s, dim=-1)
     dv = torch.einsum("bqn,bqc->bnc", p, do)
@@ -114,7 +144,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
     dq = scale * torch.einsum("bqn,bnc->bqc", ds, k)
     dk = scale * torch.einsum("bqn,bqc->bnc", ds, q)
-    return dq, dk, dv
+    return tuple(g.to(dt) for g, dt in zip((dq, dk, dv), dtypes))
 
 
 def attention_op_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,7 +155,9 @@ def attention_op_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_fake(q, k, v, scale):
-    return q.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+    """f32 out for f32 or bf16 operands (the op's two signatures)."""
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[2]),
+                       dtype=torch.float32)
 
 
 attention_op = custom_op("attention", attention_op_torch, attention_cuda,
@@ -155,6 +187,6 @@ class AttentionFunction(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float, impl: str = "auto") -> torch.Tensor:
     """The kernel for CUDA tensors; for CPU tensors the plain version in
-    the kernel's bf16 numerics (``bf16_operands=True``).  Differentiable in
-    q, k and v."""
+    the kernel's bf16 numerics (``bf16_operands=True``).  f32 or bf16
+    operands, f32 out.  Differentiable in q, k and v."""
     return AttentionFunction.apply(q, k, v, scale, use_kernel(impl, q))

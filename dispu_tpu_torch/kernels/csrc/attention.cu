@@ -34,10 +34,23 @@
 //    shared memory.  V's B fragments come from ldmatrix.trans.
 //  - Widths that are not a multiple of the tile are zeros in the
 //    scratch; keys past nk are masked out of the max and get p = 0.
+//
+// A second entry, dispu_attention_bf16, takes q, k and v already in bf16
+// (the refiner at bf16 compute).  Rounding a bf16 value to bf16 is the
+// identity, so it keeps every rounding point of the f32 entry and gives
+// the f32 entry's bits for the same values upcast.  A tensor whose rows
+// are a multiple of 64, whose width is a multiple of 16 and whose address
+// is 16-byte aligned is read where it lies; only the others are copied,
+// zero-padded, into the scratch (none at the refiner's shapes).  The
+// inputs then fall from 25.2 MB to 12.6 MB at the 4x shape, 21.0 MB in
+// and out in all (6.3 us at 3.35 TB/s), below the 8.6 GFLOP of products
+// (8.7 us at 989 TFLOP/s): the bound moves from the bytes to the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -55,19 +68,25 @@ __host__ __device__ constexpr int round_up(int x, int m) {
 
 // ----------------------------------------------------- bf16 conversion
 
+template <typename T>
 struct Convert {
-  const float* src;  // (b, rows, w) f32
-  bf16* dst;         // (b, rows_pad, w_pad) bf16, zeros past rows and w
+  const T* src;  // (b, rows, w) f32 or bf16
+  bf16* dst;     // (b, rows_pad, w_pad) bf16, zeros past rows and w
   int rows, rows_pad, w, w_pad;
 };
+template <typename T>
 struct Converts {
-  Convert t[3];
+  Convert<T> t[3];
   int b;
 };
 
-// blockIdx.y picks q, k or v; each thread writes 8 bf16 (16 bytes).
-__global__ void __launch_bounds__(256) to_bf16_kernel(Converts cv) {
-  const Convert t = cv.t[blockIdx.y];
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// blockIdx.y picks the tensor; each thread writes 8 bf16 (16 bytes).
+template <typename T>
+__global__ void __launch_bounds__(256) to_bf16_kernel(Converts<T> cv) {
+  const Convert<T> t = cv.t[blockIdx.y];
   const int groups = t.w_pad / 8;
   const long long total = (long long)cv.b * t.rows_pad * groups;
   for (long long gi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -76,20 +95,32 @@ __global__ void __launch_bounds__(256) to_bf16_kernel(Converts cv) {
     const long long rr = gi / groups;
     const int row = (int)(rr % t.rows_pad);
     const long long bb = rr / t.rows_pad;
+    bf16* dst = t.dst + (bb * t.rows_pad + row) * t.w_pad + col;
+    const T* src = t.src + (bb * t.rows + row) * t.w + col;
+    const bool whole = row < t.rows && col + 8 <= t.w &&
+                       t.w % (16 / sizeof(T)) == 0 &&
+                       (reinterpret_cast<uintptr_t>(t.src) & 15) == 0;
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (whole) {  // bf16 in: 16 bytes copied as they are
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        continue;
+      }
+    }
     float f[8];
-    if (row < t.rows && col + 8 <= t.w && t.w % 4 == 0 &&
-        (reinterpret_cast<uintptr_t>(t.src) & 15) == 0) {
-      const float4* s = reinterpret_cast<const float4*>(
-          t.src + (bb * t.rows + row) * t.w + col);
-      const float4 a = s[0], c = s[1];
-      f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-      f[4] = c.x; f[5] = c.y; f[6] = c.z; f[7] = c.w;
-    } else {
+    bool loaded = false;
+    if constexpr (std::is_same<T, float>::value) {
+      if (whole) {
+        const float4* s = reinterpret_cast<const float4*>(src);
+        const float4 a = s[0], c = s[1];
+        f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+        f[4] = c.x; f[5] = c.y; f[6] = c.z; f[7] = c.w;
+        loaded = true;
+      }
+    }
+    if (!loaded) {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        f[e] = row < t.rows && col + e < t.w
-                   ? t.src[(bb * t.rows + row) * t.w + col + e]
-                   : 0.f;
+        f[e] = row < t.rows && col + e < t.w ? to_f32(src[e]) : 0.f;
     }
     uint4 packed;
     uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
@@ -98,8 +129,7 @@ __global__ void __launch_bounds__(256) to_bf16_kernel(Converts cv) {
       const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
       w[e] = *reinterpret_cast<const uint32_t*>(&h);
     }
-    *reinterpret_cast<uint4*>(t.dst + (bb * t.rows_pad + row) * t.w_pad +
-                              col) = packed;
+    *reinterpret_cast<uint4*>(dst) = packed;
   }
 }
 
@@ -359,32 +389,63 @@ int launch(const bf16* q, const bf16* k, const bf16* v, float* out, int b,
   return (int)cudaGetLastError();
 }
 
-// Bytes of bf16 scratch for one call.
-long long scratch_bytes(int b, int nq, int nk, int c, int cv) {
-  const Shape s = shape_of(b, nq, nk, c, cv);
-  return (long long)sizeof(bf16) * (s.q_elems + s.k_elems + s.v_elems);
+// Whether a (b, rows, w) tensor at p must be copied into the scratch: its
+// rows or width off the tiles, or its address not 16-byte aligned.
+template <typename T>
+bool needs_copy(const T* p, int rows, int w) {
+  return std::is_same<T, float>::value || rows % kPadRow != 0 ||
+         w % kPadWidth != 0 || (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
-int run(const float* q, const float* k, const float* v, float* out,
-        void* scratch, int b, int nq, int nk, int c, int cv, float scale,
-        cudaStream_t st) {
+// Bytes of bf16 scratch for one call of the entry that takes T.
+template <typename T>
+long long scratch_bytes(const T* q, const T* k, const T* v, int b, int nq,
+                        int nk, int c, int cv) {
   const Shape s = shape_of(b, nq, nk, c, cv);
-  bf16* qh = static_cast<bf16*>(scratch);
-  bf16* kh = qh + s.q_elems;
-  bf16* vh = kh + s.k_elems;
-  Converts conv;
-  conv.t[0] = Convert{q, qh, nq, s.nq_pad, c, s.c_pad};
-  conv.t[1] = Convert{k, kh, nk, s.nk_pad, c, s.c_pad};
-  conv.t[2] = Convert{v, vh, nk, s.nk_pad, cv, s.cv_pad};
+  long long elems = 0;
+  if (needs_copy(q, nq, c)) elems += s.q_elems;
+  if (needs_copy(k, nk, c)) elems += s.k_elems;
+  if (needs_copy(v, nk, cv)) elems += s.v_elems;
+  return (long long)sizeof(bf16) * elems;
+}
+
+// f32 inputs: all three rounded into the scratch.  bf16 inputs: read
+// where they lie, unless needs_copy.
+template <typename T>
+int run(const T* q, const T* k, const T* v, float* out, void* scratch, int b,
+        int nq, int nk, int c, int cv, float scale, cudaStream_t st) {
+  const Shape s = shape_of(b, nq, nk, c, cv);
+  const T* src[3] = {q, k, v};
+  const int rows[3] = {nq, nk, nk}, rows_pad[3] = {s.nq_pad, s.nk_pad,
+                                                   s.nk_pad};
+  const int w[3] = {c, c, cv}, w_pad[3] = {s.c_pad, s.c_pad, s.cv_pad};
+  const long long elems[3] = {s.q_elems, s.k_elems, s.v_elems};
+  const bf16* ops[3];
+  bf16* next = static_cast<bf16*>(scratch);
+  Converts<T> conv;
   conv.b = b;
-  long long most = s.q_elems;
-  if (s.k_elems > most) most = s.k_elems;
-  if (s.v_elems > most) most = s.v_elems;
-  long long blocks = (most / 8 + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  to_bf16_kernel<<<dim3((unsigned)blocks, 3), 256, 0, st>>>(conv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int n = 0;
+  long long most = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (!needs_copy(src[i], rows[i], w[i])) {
+      ops[i] = reinterpret_cast<const bf16*>(src[i]);
+      continue;
+    }
+    if (next == nullptr) return (int)cudaErrorInvalidValue;
+    conv.t[n++] = Convert<T>{src[i], next, rows[i], rows_pad[i], w[i],
+                             w_pad[i]};
+    ops[i] = next;
+    next += elems[i];
+    if (elems[i] > most) most = elems[i];
+  }
+  if (n > 0) {
+    long long blocks = (most / 8 + 255) / 256;
+    if (blocks > 4096) blocks = 4096;
+    to_bf16_kernel<T><<<dim3((unsigned)blocks, n), 256, 0, st>>>(conv);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const bf16 *qh = ops[0], *kh = ops[1], *vh = ops[2];
   if (s.cv_pad <= 32)
     return launch<4>(qh, kh, vh, out, b, nq, nk, cv, s, scale, st);
   if (s.cv_pad <= 64)
@@ -398,19 +459,44 @@ int run(const float* q, const float* k, const float* v, float* out,
 
 constexpr int kMaxWidth = 256;  // c and cv
 
+static bool bad_shape(int b, int nq, int nk, int c, int cv) {
+  return b < 1 || nq < 1 || nk < 1 || c < 1 || c > kMaxWidth || cv < 1 ||
+         cv > kMaxWidth;
+}
+
 // Bytes of bf16 scratch the wrapper allocates for one call.
 extern "C" long long dispu_attention_scratch_bytes(int b, int nq, int nk,
                                                    int c, int cv) {
-  return scratch_bytes(b, nq, nk, c, cv);
+  const float* none = nullptr;
+  return scratch_bytes(none, none, none, b, nq, nk, c, cv);
 }
 
 extern "C" int dispu_attention(const float* q, const float* k, const float* v,
                                float* out, void* scratch, int b, int nq,
                                int nk, int c, int cv, float scale,
                                void* stream) {
-  if (b < 1 || nq < 1 || nk < 1 || c < 1 || c > kMaxWidth || cv < 1 ||
-      cv > kMaxWidth || scratch == nullptr)
+  if (bad_shape(b, nq, nk, c, cv) || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
   return run(q, k, v, out, scratch, b, nq, nk, c, cv, scale,
              (cudaStream_t)stream);
+}
+
+// The bf16 entry's scratch for these tensors: 0 where all three are read
+// where they lie.
+extern "C" long long dispu_attention_bf16_scratch_bytes(
+    const void* q, const void* k, const void* v, int b, int nq, int nk, int c,
+    int cv) {
+  return scratch_bytes(static_cast<const bf16*>(q),
+                       static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), b, nq, nk, c, cv);
+}
+
+extern "C" int dispu_attention_bf16(const void* q, const void* k,
+                                    const void* v, float* out, void* scratch,
+                                    int b, int nq, int nk, int c, int cv,
+                                    float scale, void* stream) {
+  if (bad_shape(b, nq, nk, c, cv)) return (int)cudaErrorInvalidValue;
+  return run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+             static_cast<const bf16*>(v), out, scratch, b, nq, nk, c, cv,
+             scale, (cudaStream_t)stream);
 }

@@ -240,8 +240,15 @@ def knn_group(k: int, points: torch.Tensor, queries: torch.Tensor,
     grouped_feat).  The kernel for CUDA tensors, the plain version for CPU
     tensors.  The distances and the gathered rows are differentiable in
     ``points``, ``queries`` and ``feats`` through
-    :class:`KnnGroupFunction`."""
+    :class:`KnnGroupFunction`.
+
+    bf16 inputs (bf16 compute) are upcast to f32 exactly, as
+    ``knn_group_pallas`` upcasts its tables, and the gathered features
+    come back in ``feats``' dtype (exactly: they are its values, or in
+    turbo their bf16 rounding)."""
     bias = None if column_bias is None else column_bias.detach()
-    return KnnGroupFunction.apply(k, points, queries, feats, bias, exact,
-                                  with_xyz, drop_first,
-                                  use_kernel(impl, points))
+    dtype = feats.dtype
+    d, idx, gxyz, gfeat = KnnGroupFunction.apply(
+        k, points.float(), queries.float(), feats.float(), bias, exact,
+        with_xyz, drop_first, use_kernel(impl, points))
+    return d, idx, gxyz, gfeat.to(dtype)

@@ -16,7 +16,7 @@ from torch import nn
 
 from dispu_tpu_torch.config import GeneratorConfig, check_supported
 from dispu_tpu_torch.nn.edgeconv import FeatureExtractorGCN
-from dispu_tpu_torch.nn.layers import init_weights
+from dispu_tpu_torch.nn.layers import init_weights, set_compute_dtype
 from dispu_tpu_torch.nn.refine import PointShuffle2
 from dispu_tpu_torch.nn.upsample import CoordinateRegressor, DuplicateUp
 
@@ -48,10 +48,16 @@ class DisPUGenerator(nn.Module):
     glorot-uniform with zero biases, drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed``, so a seed gives the same
     weights on every machine.
+
+    dtype: the compute dtype, the flax module's ``dtype`` ('float32' or
+    'bfloat16'; ``nn.layers.set_compute_dtype`` changes it later).  The
+    parameters stay f32 at either, and the geometry keeps the inputs'
+    dtype (f32): ``coarse`` and the refiner's offset come back in it, and
+    the refiner's xyz kNN and grouping take those coordinates.
     """
 
     def __init__(self, cfg: GeneratorConfig = GeneratorConfig(),
-                 impl: str = "auto", seed: int = 0):
+                 impl: str = "auto", seed: int = 0, dtype="float32"):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -85,6 +91,7 @@ class DisPUGenerator(nn.Module):
                 cfg.refine_mlp[-1],
                 offset_range=cfg.offset_range if cfg.is_off else None)
         init_weights(self, torch.Generator().manual_seed(seed))
+        set_compute_dtype(self, dtype)
         self.eval()
 
     def forward(self, inputs: torch.Tensor):
@@ -92,7 +99,9 @@ class DisPUGenerator(nn.Module):
         feat = self.feature_extraction_coarse(inputs)
         for i in range(cfg.num_up_steps):
             feat = getattr(self, f"upshuffle_{i}")(feat)
-        coarse = self.coarse_coordinate_regressor(feat)
+        # xyz flows in the inputs' dtype (f32) at any compute dtype, as in
+        # the JAX package
+        coarse = self.coarse_coordinate_regressor(feat).to(inputs.dtype)
         if not cfg.refine:
             return coarse, coarse
         fine_feat = feat
@@ -100,6 +109,6 @@ class DisPUGenerator(nn.Module):
             extra = self.feature_extraction_fine(coarse)
             fine_feat = torch.cat([extra, fine_feat], dim=-1)
         new_coarse, fine_feat = self.PointShuffle(coarse, fine_feat)
-        offset = self.fine_coordinate_regressor(fine_feat)
+        offset = self.fine_coordinate_regressor(fine_feat).to(inputs.dtype)
         fine = new_coarse + offset if cfg.is_off else offset
         return coarse, fine

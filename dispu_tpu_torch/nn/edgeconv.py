@@ -81,16 +81,17 @@ class _SplitPointConv(PointConv):
         self.part_rows = tuple(part_rows)
 
     def forward(self, parts) -> torch.Tensor:
-        weight = self.dense.weight                      # (features, in)
+        dt = self.compute_dtype                         # every op at it
+        weight = self.dense.weight.to(dt)               # (features, in)
         x, off = None, 0
         for rows, terms in zip(self.part_rows, parts):
             w = weight[:, off:off + rows].t()
             off += rows
             for a, sign in terms:
-                t = torch.matmul(a, w)
+                t = torch.matmul(a.to(dt), w)
                 t = -t if sign < 0 else t
                 x = t if x is None else x + t
-        x = x + self.dense.bias
+        x = x + self.dense.bias.to(dt)
         if self.bn is not None:
             x = self.bn(x)
         if self.activation is not None:

@@ -5,6 +5,16 @@ Module and parameter names follow the flax tree (``dense``, ``bn``,
 other by path.  A dense layer is ``torch.nn.Linear`` (weight stored
 (out, in), the transpose of flax's kernel); batch norm is written by hand
 with flax's parameter names and convention.
+
+Compute dtype (``GeneratorConfig``'s flax ``dtype``, the configs'
+``compute_dtype``): every module that computes at it carries a
+``compute_dtype`` attribute, float32 unless :func:`set_compute_dtype`
+sets it.  At bfloat16 a dense layer rounds its input, weight and bias to
+bf16, takes the bf16 product (f32 sums, one rounding) and then adds the
+bias as a second bf16 op, as flax's ``Dense`` does after
+``promote_dtype``; batch norm takes its statistics and normalizes in f32
+and returns bf16.  The parameters and the running statistics stay f32
+tensors, so gradients and Adam's moments stay f32.
 """
 
 from __future__ import annotations
@@ -17,8 +27,56 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dispu_tpu_torch.config import check_compute_dtype
+
 #: the reference's batch-norm epsilon (contrib.layers.batch_norm)
 BN_EPSILON = 1e-3
+
+def set_compute_dtype(module: nn.Module, dtype: str) -> nn.Module:
+    """Set the compute dtype (a config's ``compute_dtype``, 'float32' or
+    'bfloat16') of every module under ``module`` that has one; the
+    parameters are not touched.  Returns ``module``."""
+    check_compute_dtype(dtype)
+    dtype = getattr(torch, dtype)
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return module
+
+
+@contextlib.contextmanager
+def computing_at(module: nn.Module, dtype: str):
+    """:func:`set_compute_dtype` for the block, each module's own compute
+    dtype restored after it."""
+    before = [(m, m.compute_dtype) for m in module.modules()
+              if hasattr(m, "compute_dtype")]
+    set_compute_dtype(module, dtype)
+    try:
+        yield module
+    finally:
+        for m, dtype in before:
+            m.compute_dtype = dtype
+
+
+def scalar(value: float, like: torch.Tensor):
+    """A Python scalar as JAX's weak-typed one meets ``like``: rounded to a
+    bf16 tensor's dtype before the op (a 0-d tensor), as it is for an f32
+    tensor (the float itself)."""
+    if like.dtype == torch.float32:
+        return value
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def dense_at(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``x @ weightᵀ + bias`` at the compute ``dtype`` (weight (out, in)):
+    ``F.linear`` in f32; otherwise the operands rounded to ``dtype``, the
+    product, then the bias added as a separate op (flax rounds the product
+    and then the sum, where a fused ``addmm`` would round once)."""
+    if dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return (torch.matmul(x.to(dtype), weight.to(dtype).t())
+            + bias.to(dtype))
 
 
 def glorot_uniform_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -57,6 +115,10 @@ class BatchNorm(nn.Module):
     ``torch.nn.BatchNorm1d``'s momentum, whose running variance is also
     unbiased.
 
+    At any compute dtype the statistics and the normalization are at least
+    f32 (bf16 ``x`` upcast) and the result takes ``x``'s dtype, as
+    flax's ``force_float32_reductions``.
+
     Under a mesh (``mesh`` set, as :func:`synced_batch_stats` does for a
     train step) the batch moments are the global batch's: the local
     ``E[x]`` and ``E[x²]`` in one tensor, summed over the data axis by a
@@ -87,6 +149,8 @@ class BatchNorm(nn.Module):
             self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = x.dtype
+        x = x.to(torch.promote_types(dtype, torch.float32))
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean = torch.mean(x, dim=axes)
@@ -106,7 +170,7 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).to(dtype)
 
 
 @contextlib.contextmanager
@@ -157,7 +221,10 @@ class _PermutedRowDense(nn.Module):
 
 class PointConv(nn.Module):
     """Dense over channels ≡ the reference's 1×1 conv, optional batch norm,
-    then the activation (ReLU by default, ``None`` for linear)."""
+    then the activation (ReLU by default, ``None`` for linear), at
+    ``compute_dtype``."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_features: int, features: int,
                  activation: Optional[Callable] = torch.relu,
@@ -177,7 +244,10 @@ class PointConv(nn.Module):
         self.features = features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.dense(x)
+        dense = self.dense
+        weight = (dense.effective_weight()
+                  if isinstance(dense, _PermutedRowDense) else dense.weight)
+        x = dense_at(x, weight, dense.bias, self.compute_dtype)
         if self.bn is not None:
             x = self.bn(x)
         if self.activation is not None:

@@ -8,14 +8,16 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dispu_tpu_torch.nn.layers import PointConv
+from dispu_tpu_torch.nn.layers import PointConv, scalar
 from dispu_tpu_torch.ops.geometry import gen_grid
 
 
 class DuplicateUp(nn.Module):
     """r-fold feature duplication with a 2-D grid code, then conv 256 →
     conv 128 (ReLU).  Output point ``r·N + n`` carries the feature of
-    input point ``n`` and grid code ``r`` (r-major order)."""
+    input point ``n`` and grid code ``r`` (r-major order).  The grid
+    takes the feature's dtype, so at bf16 compute it is rounded to bf16,
+    as the JAX package rounds it to the compute dtype."""
 
     def __init__(self, in_features: int, up_ratio: int = 4,
                  hidden: int = 256, out_features: int = 128):
@@ -37,7 +39,10 @@ class DuplicateUp(nn.Module):
 
 class CoordinateRegressor(nn.Module):
     """Per-point MLP 256 → 64 → 3 regressing xyz; with ``offset_range`` the
-    output is squashed to ``sigmoid(x)·2·range − range``."""
+    output is squashed to ``sigmoid(x)·2·range − range``, in the compute
+    dtype: at bf16 the scalars round to it first, as JAX's weak-typed
+    ones, and the sigmoid is XLA's ``1 / (1 + exp(−x))`` with each op
+    rounded."""
 
     def __init__(self, in_features: int, offset_range: Optional[float] = None,
                  hidden0: int = 256, hidden1: int = 64):
@@ -51,5 +56,10 @@ class CoordinateRegressor(nn.Module):
         x = self.fc_layer2(self.fc_layer1(self.fc_layer0(feature)))
         if self.offset_range is not None:
             r = self.offset_range
-            x = torch.sigmoid(x) * (2.0 * r) - r
+            if x.dtype == torch.float32:
+                s = torch.sigmoid(x)
+            else:
+                one = scalar(1.0, x)
+                s = one / (one + torch.exp(-x))
+            x = s * scalar(2.0 * r, x) - scalar(r, x)
         return x

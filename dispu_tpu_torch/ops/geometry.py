@@ -15,7 +15,17 @@ def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     package's, so selections tie the same way.  The product runs in full
     f32: callers on the card pin ``allow_tf32 = False`` (see
     ``inference.pin_f32``).
+
+    bf16 inputs (the feature kNN at bf16 compute) take the XLA form of
+    the JAX package's jitted CPU path: each norm summed in f32 over the
+    upcast values and rounded to bf16, the product of the upcast values
+    in f32, and the rest in f32 (the result is f32).
     """
+    if x.dtype == torch.bfloat16:
+        x2, y2 = (torch.sum(t.float() * t.float(), dim=-1,
+                            keepdim=True).to(t.dtype).float() for t in (x, y))
+        xy = torch.matmul(x.float(), y.float().transpose(-1, -2))
+        return torch.clamp_min(x2 - 2.0 * xy + y2.transpose(-1, -2), 0.0)
     x2 = torch.sum(x * x, dim=-1, keepdim=True)            # (..., n, 1)
     y2 = torch.sum(y * y, dim=-1, keepdim=True)            # (..., m, 1)
     xy = torch.matmul(x, y.transpose(-1, -2))              # (..., n, m)

@@ -11,6 +11,12 @@ its backward, the deterministic scatter-add kernel
 ball-query kernel, and the fused kNN + gather (``gather_impl`` 'fused' /
 'fused_turbo') the ``knn_group`` kernel, on the card where the JAX
 package's gates admit their Pallas kernels.
+
+At bf16 compute the JAX package's gates route as they do there: the
+gather kernel takes f32 tables only (the backbone's bf16 features take
+the plain gather; the refiner's combined ``[xyz | feature]`` table is
+f32), and the fused kernel upcasts its tables
+(:func:`~dispu_tpu_torch.kernels.knn_group.knn_group`).
 """
 
 from __future__ import annotations
@@ -95,7 +101,9 @@ def group_point(points: torch.Tensor, idx: torch.Tensor,
             out = gather_rows(points, idx.reshape(b, m * k), impl="cuda")
             return out.reshape(b, m, k, points.shape[-1])
     out = _knn_group.rows_at(points, idx)
-    return _knn_group.bf16_round(out) if gather_impl == "onehot" else out
+    if gather_impl == "onehot":  # in the table's dtype, as the one-hot's
+        return _knn_group.bf16_round(out).to(points.dtype)
+    return out
 
 
 def _fused_fits(feature, src_xyz) -> bool:

@@ -55,7 +55,7 @@ from dispu_tpu_torch.inference import pin_f32, resolve_device
 from dispu_tpu_torch.models.discriminator import (
     PatchDiscriminator, paired_neighborhoods,
     paired_neighborhoods_with_pred_indices, regather_pred, split_real_fake)
-from dispu_tpu_torch.nn.layers import synced_batch_stats
+from dispu_tpu_torch.nn.layers import computing_at, synced_batch_stats
 from dispu_tpu_torch.parallel.mesh import (all_reduce_mean_, local_rows,
                                            shard_batch)
 from dispu_tpu_torch.train.state import (GeneratorState, adam_step,
@@ -200,7 +200,8 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
             decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
         lr_d = cfg.train.base_lr_d  # constant, as the JAX package's
         model = gen.model.train()
-        with deterministic(dev), synced_batch_stats(model, mesh):
+        with deterministic(dev), synced_batch_stats(model, mesh), \
+                computing_at(model, cfg.train.compute_dtype):
             model.zero_grad(set_to_none=True)
             coarse, fine = model(inputs)  # the one generator forward
             fine0 = fine.detach()

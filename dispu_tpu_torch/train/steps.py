@@ -43,7 +43,7 @@ from dispu_tpu_torch import losses as L
 from dispu_tpu_torch.config import ExperimentConfig, check_train_supported
 from dispu_tpu_torch.data.augment import augment_batch, sample_training_inputs
 from dispu_tpu_torch.inference import pin_f32, resolve_device
-from dispu_tpu_torch.nn.layers import synced_batch_stats
+from dispu_tpu_torch.nn.layers import computing_at, synced_batch_stats
 from dispu_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce_max_,
                                            all_reduce_mean_, local_rows,
                                            shard_batch)
@@ -148,7 +148,8 @@ def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
             decay_step_epochs=cfg.train.decay_step_epochs,
             decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
         model = state.model.train()
-        with deterministic(dev), synced_batch_stats(model, mesh):
+        with deterministic(dev), synced_batch_stats(model, mesh), \
+                computing_at(model, cfg.train.compute_dtype):
             model.zero_grad(set_to_none=True)
             coarse, fine = model(inputs)
             total, metrics = L.pu_losses(coarse, fine, gt_aug, radius,
@@ -184,7 +185,8 @@ def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
 def make_eval_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
                    mesh=None):
     """``step(model, inputs, gt, radius) → (coarse, fine, metrics)``: the
-    generator in inference mode and the evaluation metrics.  With a
+    generator in inference mode, at ``cfg.train.compute_dtype`` (as the
+    JAX package builds its eval model), and the evaluation metrics.  With a
     ``mesh`` each process runs its rows of the global batch it is handed;
     ``coarse`` and ``fine`` come back whole (gathered) and the metrics
     global, in every process."""
@@ -195,7 +197,8 @@ def make_eval_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
     def step(model, inputs, gt, radius):
         if mesh is not None:
             inputs, gt, radius = shard_batch(mesh, inputs, gt, radius)
-        coarse, fine = model.eval()(inputs)
+        with computing_at(model, cfg.train.compute_dtype):
+            coarse, fine = model.eval()(inputs)
         off = torch.sqrt(torch.sum((fine - coarse) ** 2, dim=-1) + 1e-20)
         metrics = {
             "coarse_cd": cfg.loss.coarse_cd_w

@@ -39,7 +39,7 @@ SMALL = dict(num_points=64, knn=8, refine_nsample=8)
 #: the lite FPS (no caller), the gather pair (gather_impl='pallas') and
 #: the fused refiner's (refine_local_impl 'fused' / 'megafused')
 NO_TURBO = {"knn_split": 0, "knn_packed": 0, "knn_group": 0,
-            "fps_bucketed": 0,
+            "fps_bucketed": 0, "attention_bf16": 0,
             "fps_lite": 0, "gather_rows": 0, "scatter_rows": 0,
             "refine_local": 0, "refine_block": 0}
 
@@ -406,6 +406,53 @@ def test_upsampler_goes_through_the_kernels(dev):
     # attention moves points by ~1e-3 of the patch scale at most
     d = np.sum((out[:, None] - ref[None]) ** 2, axis=-1)
     assert d.min(1).mean() + d.min(0).mean() <= 1e-4
+
+
+@pytest.mark.parametrize("b,nq,nk,c,cv,offset", [
+    (4, 1024, 1024, 64, 64, 0),    # the refiner's tiles: read in place
+    (3, 700, 650, 64, 40, 0),      # off the tiles: the padding copy
+    (2, 512, 512, 64, 64, 1),      # misaligned: the padding copy
+])
+def test_attention_bf16_entry_bit_equal_to_f32_entry(dev, b, nq, nk, c, cv,
+                                                     offset):
+    """bf16 q, k, v through the bf16 entry give the f32 entry's bits for
+    the same values, since rounding a bf16 value to bf16 is the
+    identity; each entry counts its own launches."""
+    ts = []
+    for i, (rows, w) in enumerate(((nq, c), (nk, c), (nk, cv))):
+        x = _randn(i, b, rows, w).to(dev).to(torch.bfloat16)
+        buf = torch.empty(x.numel() + offset, dtype=torch.bfloat16,
+                          device=dev)
+        ts.append(buf[offset:].view(b, rows, w).copy_(x))
+    kernels.reset_launch_counts()
+    got = attention_cuda(*ts, c ** -0.5)
+    want = attention_cuda(*(t.float() for t in ts), c ** -0.5)
+    counts = kernels.launch_counts()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert counts["attention_bf16"] == 1 and counts["attention"] == 1
+
+
+def test_bf16_upsampler_goes_through_the_kernels(dev):
+    """bf16 compute: the JAX package's gates at bf16 (the attention's bf16
+    entry once a chunk, the kNN kernels on upcast features, no gather or
+    refiner kernel); f32 out, within the bf16 path's own precision of the
+    f32 path."""
+    pc = _randn(0, 600, 3).numpy()
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        inf = InferenceConfig(patch_num_point=128, patch_batch=8,
+                              compute_dtype=dtype)
+        up = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf)
+        kernels.reset_launch_counts()
+        outs[dtype] = up.upsample(pc)
+        counts = kernels.launch_counts()
+    assert counts == {"knn": 11, "fps": 2, "fps_chunked": 0, "attention": 0,
+                      "query_ball": 0, **NO_TURBO, "attention_bf16": 2}
+    out = outs["bfloat16"]
+    assert out.dtype == np.float32 and out.shape == (2400, 3)
+    assert np.isfinite(out).all()
+    d = np.sum((out[:, None] - outs["float32"][None]) ** 2, axis=-1)
+    assert d.min(1).mean() + d.min(0).mean() <= 1e-2
 
 
 def test_upsampler_fine_extractor_attention_reaches_the_kernel(dev):
@@ -941,7 +988,8 @@ def test_turbo_upsampler_goes_through_the_kernels(dev, final_ratio, patch, n,
     out = up.upsample(pc)
     assert kernels.launch_counts() == dict(
         counts, knn_split=0, fps_chunked=0, query_ball=0, fps_lite=0,
-        gather_rows=0, scatter_rows=0, refine_local=0, refine_block=0)
+        gather_rows=0, scatter_rows=0, refine_local=0, refine_block=0,
+        attention_bf16=0)
     assert out.shape == (n * final_ratio, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=cfg, inf_cfg=inf, impl="torch").upsample(pc)
     # against the plain versions on the card: the bucketed merge moves

@@ -101,13 +101,34 @@ def test_plan_counts_match(n, inf_kw):
 
 
 @pytest.mark.parametrize("inf_kw", [
-    dict(compute_dtype="bfloat16"),
     dict(merge_fps="bucketed", merge_fps_rank="radix"),
 ])
 def test_unported_inference_settings_raise(inf_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL),
                        inf_cfg=InferenceConfig(**inf_kw), device="cpu")
+
+
+@pytest.mark.parametrize("inf_kw", [
+    dict(compute_dtype="bfloat16"),
+    dict(compute_dtype="bfloat16", final_ratio=16, merge_fps="bucketed"),
+])
+def test_bf16_inference_settings_run(inf_kw):
+    """bf16 compute builds and runs on the CPU, f32 out (against JAX:
+    tests/test_torch_bf16.py)."""
+    inf = InferenceConfig(**dict(INF, **inf_kw))
+    pc = np.random.RandomState(2).randn(128, 3).astype(np.float32)
+    out = PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL), inf_cfg=inf,
+                         device="cpu").upsample(pc)
+    assert out.shape == (128 * inf.final_ratio, 3)
+    assert out.dtype == np.float32 and np.isfinite(out).all()
+
+
+def test_unknown_compute_dtype_raises():
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL),
+                       inf_cfg=InferenceConfig(compute_dtype="float16"),
+                       device="cpu")
 
 
 @pytest.mark.parametrize("inf_kw", [

@@ -367,7 +367,8 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     assert kernels.launch_counts() == {
         "knn": 0, "knn_split": 0, "knn_packed": 0, "knn_group": 0, "fps": 0,
         "fps_lite": 0, "fps_chunked": 0, "fps_bucketed": 0, "attention": 0,
-        "query_ball": 0, "gather_rows": 0, "scatter_rows": 0,
+        "attention_bf16": 0, "query_ball": 0, "gather_rows": 0,
+        "scatter_rows": 0,
         "refine_local": 0, "refine_block": 0}
 
 

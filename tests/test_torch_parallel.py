@@ -191,6 +191,12 @@ def world(tmp_path_factory, background):
             jcd = (jcfg, js)
             cases["eval_step"] = dict(cfg=tcfg, state=ts.state_dict(),
                                       batch=cases[name]["batch"])
+    # one CD step at bf16 compute, from the default step's state
+    jbf, tbf = (dataclasses.replace(c, train=dataclasses.replace(
+        c.train, compute_dtype="bfloat16"))
+        for c in (jcd[0], cases["cd"]["cfg"]))
+    cases["cd_bf16"] = dict(cfg=tbf, state=cases["cd"]["state"], steps=1,
+                            batch=cases["cd"]["batch"])
     # the training input's draws and augmentation (the port's own init)
     _, tcfg = _cfgs()
     gt = rng.randn(4, 128, 3).astype(np.float32) * 0.3
@@ -259,6 +265,8 @@ def world(tmp_path_factory, background):
             jmake_step, *jcd, batch, jmesh, 2)]
         ref["gan"] = [jax_gan_snapshot(s, m) for s, m in _jax_steps(
             jmake_gan, jgcfg, jg, batch, jmesh, 2)]
+        ref["cd_bf16"] = [jax_step_snapshot(s, m) for s, m in _jax_steps(
+            jmake_step, jbf, jcd[1], batch, jmesh, 1)]
         gt_, inputs_, radius_ = jshard_batch(jmesh, *batch)
         coarse, fine, metrics = jmake_eval(jcd[0], mesh=jmesh)(
             _replicated(jmesh, jcd[1].variables()), inputs_, gt_, radius_)
@@ -339,6 +347,35 @@ def test_sharded_cd_hd(world, pair, against):
 
 
 # ------------------------------------------------------------- train steps
+
+
+def test_cd_bf16_mesh_step(world):
+    """One CD step at bf16 compute on the mesh (W = 2), against the port's
+    one-process bf16 step and the JAX package's mesh step at bf16.  At
+    bf16 a weight's gradient is a bf16 product: one process rounds the
+    sum over the whole batch once, the mesh rounds each half and
+    averages the two in f32, so each gradient leaf is held to 1e-2 of
+    its largest (seen 4.3e-3, one bf16 ulp), and the metrics, f32 sums of
+    f32 losses, to 1e-5 (seen bit-equal).  Against JAX,
+    ``test_torch_bf16``'s bounds for one step: metrics to 5e-2 relative
+    (seen 1.1e-2), the whole gradient to 5e-2 in L2 norm (seen 2.8e-2).
+    Every gradient and moment came back f32."""
+    from test_torch_bf16 import _l2_rel
+    from test_torch_train import _leaf_rels
+
+    got = _mesh(world, "cd_bf16")["steps"][0]
+    plain = _plain(world, "cd_bf16")["steps"][0]
+    want = world["ref"]["cd_bf16"][0]
+    for k, v in plain["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-5,
+                                   err_msg=k)
+        np.testing.assert_allclose(got["metrics"][k], want["metrics"][k],
+                                   rtol=5e-2, err_msg=k)
+    assert max(_leaf_rels(got["gen"]["grads"],
+                          plain["gen"]["grads"]).values()) <= 1e-2
+    assert _l2_rel(got["gen"]["grads"], want["gen"]["grads"]) <= 5e-2
+    assert all(v.dtype == np.float32 for part in ("grads", "mu", "nu")
+               for v in got["gen"][part].values())
 
 
 def test_cd_mesh_step_matches_jax(world):

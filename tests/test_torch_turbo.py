@@ -570,19 +570,65 @@ def test_cli_test_phase_writes_what_the_upsampler_returns(tmp_path,
                 == (tmp_path / f"{name}_want.xyz").read_bytes())
 
 
-# --use_gan true and --phase export are ported: with bf16 compute, which
-# is not, these phases still raise
-@pytest.mark.parametrize("argv,match", [
-    (["--phase", "train", "--use_gan", "true", "--compute_dtype",
-      "bfloat16"], "bfloat16"),
-    (["--phase", "test", "--use_gan", "true", "--compute_dtype",
-      "bfloat16"], "bfloat16"),
-    (["--phase", "export", "--export_sizes", "128", "--compute_dtype",
-      "bfloat16"], "bfloat16"),
+@pytest.fixture(scope="module")
+def bf16_gan_log(tmp_path_factory):
+    """A log dir with one epoch of ``--use_gan true --compute_dtype
+    bfloat16`` training on 8 synthetic patches, through the CLI."""
+    log = str(tmp_path_factory.mktemp("bf16_gan") / "log")
+    cli.main(["--phase", "train", "--use_gan", "true", "--compute_dtype",
+              "bfloat16", "--device", "cpu", "--log_dir", log,
+              "--patch_num_point", "32", "--synthetic", "8",
+              "--batch_size", "4", "--epochs", "1", "--d_clip", "0"])
+    return log
+
+
+# bf16 compute reaches every phase: the GAN training, the test phase on
+# its checkpoint and the serving export
+@pytest.mark.parametrize("argv", [
+    ["--phase", "train", "--use_gan", "true", "--compute_dtype",
+     "bfloat16"],
+    ["--phase", "test", "--use_gan", "true", "--compute_dtype",
+     "bfloat16"],
+    ["--phase", "export", "--export_sizes", "128", "--compute_dtype",
+     "bfloat16"],
 ], ids=["argv0-GAN", "argv1-GAN", "argv2-serving"])
-def test_cli_unported_phases_raise(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(argv + ["--device", "cpu", "--log_dir", str(tmp_path)])
+def test_cli_bf16_phases_run(bf16_gan_log, tmp_path, argv):
+    import os
+
+    from dispu_tpu_torch.evaluation.meshio import read_xyz, write_xyz
+    from dispu_tpu_torch.serving import ServedUpsampler
+    from dispu_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    epoch, path = latest_checkpoint(bf16_gan_log)
+    assert epoch == 1
+    args = ["--device", "cpu", "--log_dir", bf16_gan_log,
+            "--patch_num_point", "32"]
+    cfg = cli.build_config(cli.parse_args(argv + args))
+    assert cfg.train.compute_dtype == cfg.inference.compute_dtype \
+        == "bfloat16"
+    if argv[1] == "train":  # the fixture's run, logged at bf16
+        with open(os.path.join(bf16_gan_log, "args.txt")) as f:
+            assert "bfloat16" in f.read()
+        return
+    (tmp_path / "in").mkdir()
+    write_xyz(str(tmp_path / "in" / "a.xyz"), np.random.RandomState(
+        4).randn(128, 3).astype(np.float32))
+    pc = read_xyz(str(tmp_path / "in" / "a.xyz"))  # as the CLI reads it
+    up = PatchUpsampler(gen_cfg=cfg.generator, inf_cfg=cfg.inference,
+                        device="cpu")
+    up.model.load_state_dict(torch.load(
+        path, weights_only=True)["gen"]["model"])
+    want = up.upsample(pc)
+    if argv[1] == "export":
+        cli.main(argv + args + ["--out_folder", str(tmp_path / "exp")])
+        got = ServedUpsampler(str(tmp_path / "exp")).upsample(pc)
+        np.testing.assert_array_equal(got, want)
+        return
+    cli.main(argv + args + ["--test_data", str(tmp_path / "in" / "*.xyz"),
+                            "--out_folder", str(tmp_path / "out")])
+    write_xyz(str(tmp_path / "want.xyz"), want)
+    assert ((tmp_path / "out" / "a_X4.xyz").read_bytes()
+            == (tmp_path / "want.xyz").read_bytes())
 
 
 def test_cli_restoring_a_gan_checkpoint_raises(tmp_path):
