@@ -52,7 +52,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      serving configuration (``dispu_tpu_torch.cli.build_config`` of
      ``--phase test --turbo true``): 4× and 16× requests on both clouds
      and ``upsample_many`` of both at 4× and 16×, each beside the exact
-     path's Chamfer and time.  The same for ``refine_local_impl``
+     path's Chamfer and time, and with ``merge_fps_rank='radix'``
+     (``serve_radix``: each output bit-equal to the 4-bit argsort merge
+     of its candidates, the rank's ms beside argsort's).  The same for
+     ``refine_local_impl``
      'fused' and 'megafused' (two 4× and two 16× requests on each cloud,
      one ``upsample_many`` at each ratio), against the composed path
      ('megafused' at 4× by its generator rows before the merge, and its
@@ -99,7 +102,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      log dir (its generator half).  bf16 training (``train_bf16``): 10 CD
      and 10 GAN steps at bf16 (the loss falls, every tensor of the state
      f32, kernels against plain versions, bit-equal repeats, ms beside
-     f32 in turns).  Then the evaluation: two shapes of
+     f32 in turns).  Training with the turbo flags (``train_turbo``): the
+     turbo kernels at a batch-28 step's shapes (``knn_group`` in turbo
+     mode, the packed selection), a CD step with every turbo flag, one
+     without ``fused_grouping`` and a GAN step with every flag, each with
+     exact launch counts, against the plain versions, bit-equal repeats
+     and ms beside the exact step in turns; ``remat``
+     (``train_remat``): CD (also with ``use_bn``) and GAN steps with
+     ``gather_impl='pallas'`` bit-equal to the steps without ``remat``,
+     peak memory with and without at batch 28 and 112.  Then the
+     evaluation: two shapes of
      the evaluation set made with the port's ``meshgen``, upsampled 4×,
      scored by ``evaluate_dirs`` on the card (1000 disk seeds, timed by
      stage) and by ``python -m dispu_tpu_torch.evaluate``, held against
@@ -794,14 +806,16 @@ def _near_tie_swaps(label, ik, ip, pts, qs, bias, rtol):
     return int((ik != ip).sum())
 
 
-def check_knn_group(dev):
+def check_knn_group(dev, cases=None, per="per_request"):
     """The fused kNN + gather at the turbo path's shapes: the backbone's
     edge gather (drop_first, duplicate bias, features only) of passes 1
     and 2, the refiner's pass-1 grouping (xyz and 128 features) in turbo
     and exact mode.  Its (dists, idx) bit-equal to the kNN kernel's on the
     same inputs; against the plain version, swaps only between near-ties;
     its gathered rows bit-equal to the plain gather (bf16-rounded in turbo
-    mode) at its own indices.  The aggregate is a 4× turbo request's."""
+    mode) at its own indices.  ``cases``: ``KNN_GROUP_CASES`` by default;
+    the aggregate weighs each case by its field ``per`` (by default a 4×
+    turbo request's)."""
     import torch
 
     from dispu_tpu_torch.kernels.knn import knn_cuda
@@ -812,14 +826,14 @@ def check_knn_group(dev):
                                                  knn_group_inputs)
     from dispu_tpu_torch.ops.knn import mask_duplicate_rows
 
+    cases = KNN_GROUP_CASES if cases is None else cases
     gen = torch.Generator(device="cpu").manual_seed(5)
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
-    for case, (pts, ft) in zip(KNN_GROUP_CASES,
-                               knn_group_inputs(gen, KNN_GROUP_CASES)):
+    for case, (pts, ft) in zip(cases, knn_group_inputs(gen, cases)):
         label, k, exact, with_xyz, drop, per_req = (
             case.label, case.k, case.exact, case.with_xyz, case.drop_first,
-            case.per_request)
+            getattr(case, per))
         pts = pts.to(dev)
         ft = pts if ft is None else ft.to(dev)
         bias = (mask_duplicate_rows(pts).float() * 1e30) if drop else None
@@ -881,6 +895,41 @@ def check_knn_group(dev):
     return agg
 
 
+def packed_contract(label, k, x, bias=None):
+    """The packed selection of each point of ``x`` among ``x`` (with the
+    column ``bias``): the kernel's distances are the exact kernel's
+    truncated, bit for bit, its indices move only at truncation ties, and
+    against the plain version it swaps only where the plain distances
+    agree to one truncation step.  Returns (dists, idx, truncation swaps,
+    plain swaps, max |d| against the plain distances outside the biased
+    columns)."""
+    import torch
+
+    from dispu_tpu_torch.kernels.knn import (knn_cuda, knn_packed_cuda,
+                                             knn_packed_torch,
+                                             packed_lane_bits)
+
+    lbx = packed_lane_bits(x.shape[1])
+    step = 2.0 ** -(23 - lbx)
+    d, i = knn_packed_cuda(k, x, x, bias)
+    ed, ei = knn_cuda(k + 1, x, x, bias)
+    pd, pi = knn_packed_torch(k, x, x, bias)
+    torch.cuda.synchronize()
+    te = (ed.contiguous().view(torch.int32)
+          & ~((1 << lbx) - 1)).view(torch.float32)
+    require(torch.equal(d, te[..., :k]),
+            f"{label}: distances are not the exact ones truncated")
+    tie = te[..., :k] == te[..., 1:]
+    tie[..., 1:] |= te[..., 1:k] == te[..., :k - 1]
+    require(bool(torch.all((i == ei[..., :k]) | tie)),
+            f"{label}: an index moved away from a truncation tie")
+    swaps = _near_tie_swaps(label, i, pi, x, x, bias,
+                            2 * step + KNN_SWAP_RTOL)
+    real = d < 1e29  # a biased column's distance is 1e30
+    return (d, i, int((i != ei[..., :k]).sum()), swaps,
+            float(torch.abs(d - pd)[real].max()))
+
+
 def check_knn_packed(dev):
     """The packed kNN selection at pass 2's refiner shape of a 16× turbo
     request, (32, 4096, 3), k = 16: its distances are the kNN kernel's own
@@ -891,8 +940,7 @@ def check_knn_packed(dev):
     turbo request's one launch."""
     import torch
 
-    from dispu_tpu_torch.kernels.knn import (knn_cuda, knn_packed,
-                                             knn_packed_cuda,
+    from dispu_tpu_torch.kernels.knn import (knn_packed, knn_packed_cuda,
                                              knn_packed_torch,
                                              packed_lane_bits)
     from dispu_tpu_torch.kernels.knn_group import rows_at
@@ -901,44 +949,14 @@ def check_knn_packed(dev):
     pts = torch.randn(32, 4096, 3, generator=gen).to(dev)
     k = 16
     lb = packed_lane_bits(pts.shape[1])
-
-    def contract(kk, x):
-        """The kernel's distances are the exact kernel's truncated, bit for
-        bit, its indices move only at truncation ties, and against the
-        plain version it swaps only near-ties; returns (dists, idx,
-        truncation swaps, plain swaps, max |d| against the plain)."""
-        lbx = packed_lane_bits(x.shape[1])
-        step = 2.0 ** -(23 - lbx)
-
-        def trunc(y):
-            return (y.contiguous().view(torch.int32)
-                    & ~((1 << lbx) - 1)).view(torch.float32)
-
-        d, i = knn_packed_cuda(kk, x, x)
-        ed, ei = knn_cuda(kk + 1, x, x)
-        pd, pi = knn_packed_torch(kk, x, x)
-        torch.cuda.synchronize()
-        te = trunc(ed)
-        require(torch.equal(d, te[..., :kk]),
-                f"knn_packed k={kk}: distances are not the exact ones "
-                "truncated")
-        tie = te[..., :kk] == te[..., 1:]
-        tie[..., 1:] |= te[..., 1:kk] == te[..., :kk - 1]
-        require(bool(torch.all((i == ei[..., :kk]) | tie)),
-                f"knn_packed k={kk}: an index moved away from a truncation "
-                "tie")
-        swaps = _near_tie_swaps(f"knn_packed k={kk}", i, pi, x, x, None,
-                                2 * step + KNN_SWAP_RTOL)
-        return (d, i, int((i != ei[..., :kk]).sum()), swaps,
-                float(torch.abs(d - pd).max()))
-
     # the tiled form at its edges (k 1 and 32) and the row form past it
     for kk, x in ((1, pts), (32, pts), (33, pts[:2, :1024].contiguous())):
-        _, _, t_sw, p_sw, err = contract(kk, x)
+        _, _, t_sw, p_sw, err = packed_contract(f"knn_packed k={kk}", kk, x)
         log(f"knn_packed k={kk} (b={x.shape[0]} n=m={x.shape[1]}): "
             f"distances = the kNN kernel's truncated; {t_sw} swaps at "
             f"truncation ties; vs plain: swaps {p_sw}, max|d|err {err:.3e}")
-    d, i, trunc_swaps, swaps, max_abs = contract(k, pts)
+    d, i, trunc_swaps, swaps, max_abs = packed_contract(
+        f"knn_packed k={k}", k, pts)
     # the fixed-selection gradient through the kernel (knn_packed's
     # KnnFunction) against autograd of the plain distances at the kernel's
     # own indices: max |d| over each gradient's max |g|
@@ -1862,7 +1880,77 @@ def serve_turbo(card: str):
             f"path's {', '.join('%.2f' % t for t in exact_ms)}; "
             f"upsample_many (B={b}) {', '.join('%.2f' % t for t in many_times)}"
             f" (the first warms up); on {card}")
+        total = add_counts(total, serve_radix(card, cfg, inf, clouds, outs))
     return total
+
+
+def serve_radix(card: str, cfg, inf, clouds, argsort_outs):
+    """The turbo request with ``merge_fps_rank='radix'`` (the merge ranks
+    4-bit Morton codes by the counting rank, ``ops.sampling.morton_rank``)
+    on each demo cloud, twice: the turbo request's launches, bit-equal
+    repeats, and each output bit-equal to the argsort rank's merge at the
+    same 4 bits of its own candidates (the rank is stable, so at equal
+    bits the buckets are the same); beside the 10-bit argsort request
+    (``argsort_outs``), whose buckets split cells finer, its Chamfer over
+    the output's own spacing.  At 16× the rank's ms beside the stable
+    argsort's at the merge's size.  Returns the requests' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.ops.sampling import (farthest_point_sample_bucketed,
+                                              morton_codes, morton_rank)
+
+    ratio = inf.final_ratio
+    rinf = dataclasses.replace(inf, merge_fps_rank="radix")
+    up = PatchUpsampler(gen_cfg=cfg.generator, inf_cfg=rinf, seed=0)
+    kernels.reset_launch_counts()
+    outs, expected = {}, {}
+    for name, pc in clouds.items():
+        outs[name] = [up.upsample(pc) for _ in range(2)]
+        expected = add_counts(expected, expected_counts(up, pc.shape[0]), 2)
+    counts = kernels.launch_counts()
+    require(counts == expected, f"radix {ratio}x: launch counts {counts} "
+            f"(expected {expected})")
+    for name, pc in clouds.items():
+        out, again = outs[name]
+        _, cand, out_num, centroid, furthest = merge_candidates(up, pc[None])
+        with torch.inference_mode():
+            idx = farthest_point_sample_bucketed(
+                out_num, cand, n_buckets=rinf.merge_fps_buckets, bits=4)
+            want = torch.gather(cand, 1, idx.long()[..., None].expand(
+                -1, -1, 3)) * furthest + centroid
+        same = np.array_equal(out, want.cpu().numpy()[0])
+        rel = chamfer(out, argsort_outs[name]) / own_spacing2(out)
+        log(f"radix {ratio}x {name}: repeat bit-equal "
+            f"{np.array_equal(out, again)}; bit-equal to the argsort "
+            f"rank's merge at 4 bits of its candidates {same}; against the "
+            f"10-bit argsort request Chamfer over own spacing {rel:.3e}")
+        require(np.array_equal(out, again) and same and out.shape
+                == (pc.shape[0] * ratio, 3) and np.isfinite(out).all(),
+                f"radix {ratio}x {name}: output")
+    if ratio == 16:
+        codes = morton_codes(cand, bits=4)
+        n = codes.shape[-1]
+
+        def radix():
+            pos = morton_rank(codes, 1 << 12).long()
+            return torch.empty_like(pos).scatter_(
+                1, pos, torch.arange(n, device=pos.device).expand_as(pos))
+
+        def argsort():
+            return torch.argsort(codes, dim=-1, stable=True)
+
+        require(torch.equal(radix(), argsort()),
+                "radix rank: not the stable argsort's order")
+        log(f"radix rank at the 16x merge's size (n={n}, 4096 codes): "
+            f"morton_rank + the permutation scatter "
+            f"{timed_ms(radix, reps=20):.4f} ms, stable argsort "
+            f"{timed_ms(argsort, reps=20):.4f} ms, in one process on {card}")
+    return counts
 
 
 def serve_refine(card: str):
@@ -2539,30 +2627,28 @@ def evaluate_phase(card: str) -> dict:
 # ------------------------------------------------------ phase 4: training
 
 
-def expected_train_counts(cfg) -> dict:
-    """Kernel launches of one CD train step, from the configuration and
-    the JAX package's gates: a feature-space kNN in each dense block and
-    the refiner's xyz kNN, each the fused ``knn_group`` with
-    ``fused_grouping`` inside its gate (backbone 64 ≤ n ≤ 2048, refiner
-    n ≤ 2048); the chamfer argmin of both directions of the four
-    Chamfer/Hausdorff terms (kNN at k = 1: 64 ≤ points ≤ 4096); the NL
-    cell's attention (maps of at least 512²); one ball query for the
-    repulsion loss.  With ``gather_impl='pallas'`` each block's and the
-    refiner's gather inside ``gather_fits`` runs the gather kernel
-    forward and the scatter kernel backward; the fused kernel's backward
-    scatters the features (and, in the refiner, the xyz).  At bf16
-    compute the attention is the kernel's bf16 entry, and the gather
-    kernel takes the f32 tables alone (the refiner's ``[xyz | feature]``
-    one; the dense blocks' features are bf16)."""
+def expected_forward_counts(cfg) -> dict:
+    """Kernel launches of one training forward of the generator, from the
+    configuration and the JAX package's gates: a feature-space kNN in each
+    dense block and the refiner's xyz kNN, each the fused ``knn_group``
+    with ``fused_grouping`` inside its gate (backbone 64 ≤ n ≤ 2048,
+    refiner n ≤ 2048), else with ``fast_knn`` the packed selection inside
+    its gate (64 ≤ n ≤ 4096, c ≤ 128, k ≤ 128), else the exact one; the NL
+    cell's attention (maps of at least 512²); with ``gather_impl='pallas'``
+    (and no turbo gather) each block's and the refiner's gather inside
+    ``gather_fits``.  At bf16 compute the attention is the kernel's bf16
+    entry, and the gather kernel takes the f32 tables alone (the refiner's
+    ``[xyz | feature]`` one; the dense blocks' features are bf16).
+    Returns (counts, the backbone's and the refiner's gathers that the
+    backward sums with the scatter kernel)."""
     import torch
 
     from dispu_tpu_torch import kernels
     from dispu_tpu_torch.models.generator import DisPUGenerator
-    from dispu_tpu_torch.ops.grouping import gather_fits
+    from dispu_tpu_torch.ops.grouping import _rows_fit, gather_fits
 
     g, n_out = cfg.generator, cfg.generator.num_out_points
     n_in = g.num_points
-    argmin = 8 if 64 <= n_out <= 4096 else 0
     nl = g.refine and g.use_nonlocal and n_out * n_out >= 512 * 512
     fused_bb = g.fused_grouping and 64 <= n_in <= 2048 and g.knn + 1 <= 128
     fused_ref = g.fused_grouping and g.refine and n_out <= 2048
@@ -2571,23 +2657,52 @@ def expected_train_counts(cfg) -> dict:
               // 2]
     widths += [getattr(model.feature_extraction_coarse, f"layer{i}_prep")
                .features for i in range(2, g.dense_block + 1)]
-    gathers, bf16 = 0, cfg.train.compute_dtype != "float32"
+    c_ref = (model.PointShuffle.skip.dense.in_features - 6 if g.refine
+             else 0)
+    packed_bb = [g.fast_knn and not fused_bb and 64 <= n_in <= 4096
+                 and w <= 128 and g.knn + 1 <= 128 for w in widths]
+    packed_ref = (g.fast_knn and g.refine and not fused_ref
+                  and 64 <= n_out <= 4096 and g.refine_nsample <= 128)
+    gathers = scatters = 0
+    bf16 = cfg.train.compute_dtype != "float32"
+    if g.fast_gather_backbone and not fused_bb:  # the bf16 one-hot's sums
+        scatters += sum(_rows_fit(n_in, w) for w in widths)
+    if g.fast_gather and g.refine and not fused_ref:
+        scatters += int(_rows_fit(n_out, c_ref))
     if g.gather_impl == "pallas" and not g.fused_grouping:
         dt = torch.bfloat16 if bf16 else torch.float32
-        gathers = sum(gather_fits(torch.empty(0, n_in, w, dtype=dt))
-                      for w in widths)
-        if g.refine:
-            c = model.PointShuffle.skip.dense.in_features - 6
-            gathers += int(gather_fits(torch.empty(0, n_out, 3 + c)))
-    return dict(dict.fromkeys(kernels.LAUNCHES, 0),
-                knn=(g.dense_block * (not fused_bb)
-                     + int(g.refine and not fused_ref) + argmin),
-                knn_group=g.dense_block * fused_bb + int(fused_ref),
-                **{"attention_bf16" if bf16 else "attention": int(nl)},
-                query_ball=int(cfg.loss.use_repulsion),
-                gather_rows=gathers,
-                scatter_rows=(gathers + g.dense_block * fused_bb
-                              + 2 * fused_ref))
+        if not g.fast_gather_backbone:
+            gathers += sum(gather_fits(torch.empty(0, n_in, w, dtype=dt))
+                           for w in widths)
+        if g.refine and not g.fast_gather:
+            gathers += int(gather_fits(torch.empty(0, n_out, 3 + c_ref)))
+    counts = dict(dict.fromkeys(kernels.LAUNCHES, 0),
+                  knn=(len(widths) * (not fused_bb) - sum(packed_bb)
+                       + int(g.refine and not fused_ref and not packed_ref)),
+                  knn_packed=sum(packed_bb) + int(packed_ref),
+                  knn_group=g.dense_block * fused_bb + int(fused_ref),
+                  **{"attention_bf16" if bf16 else "attention": int(nl)},
+                  gather_rows=gathers)
+    # the backward: each gather's scatter, the fused kernel's (features,
+    # and in the refiner the xyz), the bf16 one-hot gathers' sums
+    return counts, (gathers + scatters + g.dense_block * fused_bb
+                    + 2 * fused_ref)
+
+
+def expected_train_counts(cfg) -> dict:
+    """Kernel launches of one CD train step, from the configuration and
+    the JAX package's gates: the generator's forward
+    (``expected_forward_counts``; again with ``remat``, whose backward
+    recomputes it), its backward's scatters, the chamfer argmin of both
+    directions of the four Chamfer/Hausdorff terms (kNN at k = 1: 64 ≤
+    points ≤ 4096) and one ball query for the repulsion loss."""
+    fwd, scatters = expected_forward_counts(cfg)
+    n_out = cfg.generator.num_out_points
+    counts = add_counts({}, fwd, 2 if cfg.train.remat else 1)
+    counts["knn"] += 8 if 64 <= n_out <= 4096 else 0
+    counts["query_ball"] += int(cfg.loss.use_repulsion)
+    counts["scatter_rows"] += scatters
+    return counts
 
 
 def expected_gan_counts(cfg) -> dict:
@@ -3033,6 +3148,359 @@ def gan_phase(card: str, profile: bool):
     if profile:
         profile_gan_step(cfg, gt, radius)
     return total_counts, log_dir
+
+
+# a turbo train step (every turbo flag; the same without fused_grouping)
+# through the kernels vs through the plain versions on the card, as
+# ``compare_steps`` reads them.  Set before the first run of the phase:
+# the packed selection's keys are truncated distances, so where the
+# kernel's FMA distances and the plain version's cuBLAS ones fall on two
+# sides of a truncation step (2^-15 relative at n 256, 2^-13 at 1024)
+# the two keep other neighbours, far more often than the exact
+# selection's near-ties; a bf16 gather rounds a value one ulp (2^-8)
+# apart where the f32 inputs differ in the last bit.  Predicted readings:
+# metrics ≤ 1e-4, gradients ≤ 1e-2.
+TURBO_TRAIN_METRIC_REL = 1e-3
+TURBO_TRAIN_GRAD_REL = 5e-2
+TURBO_FLAGS = dict(fast_knn=True, fast_gather=True, fast_gather_backbone=True,
+                   fused_grouping=True, dense_impl="split")
+
+
+def turbo_train_cases():
+    """The train step's turbo kernel shapes at batch 28: ``knn_group`` in
+    turbo mode with every turbo flag (the backbone's edge gathers at c 24
+    and 48, the refiner's grouping with xyz and 128 features) and the
+    packed selection without ``fused_grouping`` (the backbone's at k 17
+    with the duplicate bias, the refiner's at k 16), each with its
+    launches a step."""
+    from dispu_tpu_torch.kernels.measure import KnnCase, KnnGroupCase
+
+    group = [KnnGroupCase("turbo bb c24", 28, 256, 24, 0, 16, False, False,
+                          True, 0, 1),
+             KnnGroupCase("turbo bb c48", 28, 256, 48, 0, 16, False, False,
+                          True, 0, 3),
+             KnnGroupCase("turbo refiner", 28, 1024, 3, 128, 16, False, True,
+                          False, 0, 1)]
+    packed = [KnnCase("packed bb c24", 28, 256, 256, 24, 17, True, "self",
+                      0, 1),
+              KnnCase("packed bb c48", 28, 256, 256, 48, 17, True, "self",
+                      0, 3),
+              KnnCase("packed refiner", 28, 1024, 1024, 3, 16, False, "self",
+                      0, 1)]
+    return group, packed
+
+
+def check_knn_packed_train(dev, cases):
+    """The packed selection at the train step's shapes (``cases``, each
+    point its own query, duplicates biased by 1e30 where ``dup``): its
+    distances the kNN kernel's exact ones truncated, its indices moving
+    only at truncation ties, against the plain version swaps only where
+    the plain distances agree to one truncation step; kernel, plain and
+    ``cdist``+``topk`` ms and the bound of each shape.  Returns the
+    aggregate of a step (each case by ``per_step``)."""
+    import torch
+
+    from dispu_tpu_torch.kernels.knn import (knn_packed_cuda,
+                                             knn_packed_torch,
+                                             packed_lane_bits)
+    from dispu_tpu_torch.kernels.measure import knn_inputs
+    from dispu_tpu_torch.ops.knn import mask_duplicate_rows
+
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
+    for case, (pts, _) in zip(cases, knn_inputs(gen, cases)):
+        x = pts.to(dev)
+        k, lb = case.k, packed_lane_bits(case.n)
+        bias = (mask_duplicate_rows(x).float() * 1e30) if case.dup else None
+        _, _, _, swaps, max_abs = packed_contract(
+            f"knn_packed {case.label}", k, x, bias)
+        ms = timed_ms(lambda: knn_packed_cuda(k, x, x, bias), reps=20)
+        plain_ms = timed_ms(lambda: knn_packed_torch(k, x, x, bias), reps=5)
+
+        def library():
+            dd = torch.cdist(x, x) ** 2
+            if bias is not None:
+                dd = dd + bias[:, None, :]
+            return torch.topk(dd, k, dim=-1, largest=False)
+
+        library_ms = timed_ms(library, reps=5)
+        b, n, c = x.shape
+        nbytes = 4 * (2 * b * n * c + (b * n if bias is not None else 0)) \
+            + 8 * b * n * k
+        ops = b * n * n * (2 * c + 4)
+        bms, by = bound(nbytes, ops, F32_FLOPS)
+        log(f"knn_packed {case.label:14s} (b={b} n=m={n} c={c} k={k}, {lb} "
+            f"lane bits{', dup bias' if bias is not None else ''}): "
+            f"distances = the kNN kernel's truncated; vs plain: swaps "
+            f"{swaps}, max|d|err {max_abs:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, cdist+topk {library_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}); {case.per_step} a turbo step")
+        w = case.per_step
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", library_ms), ("bound_ms", bms),
+                       ("t_bytes", nbytes / HBM_BYTES_PER_S),
+                       ("t_ops", ops / F32_FLOPS)):
+            agg[key] += w * v
+        agg["max_abs_err"] = max(agg["max_abs_err"], max_abs)
+    return agg
+
+
+def train_turbo(card: str):
+    """Training with the turbo flags at full GeneratorConfig() width,
+    batch 28, on synthetic patches, from the port's seeded init: a CD step
+    with every turbo flag (``knn_group`` in turbo mode and its backward
+    rule), the same without ``fused_grouping`` (the packed selection, the
+    bf16 one-hot gathers and their sums on the scatter kernel), and a GAN
+    step (``dispu.py --use_gan true``'s defaults) with every turbo flag:
+    each with exact launch counts, against the plain versions
+    (``TURBO_TRAIN_METRIC_REL``, ``TURBO_TRAIN_GRAD_REL``), two bit-equal
+    3-step runs, and ms per warm step beside the exact step's, in turns.
+    The turbo kernels at the step's shapes first (kernel, plain, library
+    ms and bound a shape, and a step's sum)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from dispu_tpu_torch import cli, kernels
+    from dispu_tpu_torch.config import ExperimentConfig
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    group_cases, packed_cases = turbo_train_cases()
+    g_agg = check_knn_group(dev, group_cases, per="per_step")
+    p_agg = check_knn_packed_train(dev, packed_cases)
+    for name, a in (("knn_group turbo", g_agg), ("knn_packed", p_agg)):
+        log(f"{name}, a turbo train step's launches: kernel {a['ms']:.4f} "
+            f"ms, plain {a['plain_ms']:.4f} ms, library "
+            f"{a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
+            f"({'bytes' if a['t_bytes'] >= a['t_ops'] else 'operations'})")
+
+    def with_flags(c, **flags):
+        return dataclasses.replace(c, generator=dataclasses.replace(
+            c.generator, **flags))
+
+    cd = ExperimentConfig()
+    gan = cli.build_config(cli.parse_args(["--phase", "train", "--use_gan",
+                                           "true"]))
+    packed_flags = dict(TURBO_FLAGS, fused_grouping=False)
+    cases = [("CD", "every turbo flag", with_flags(cd, **TURBO_FLAGS)),
+             ("CD", "turbo without fused_grouping",
+              with_flags(cd, **packed_flags)),
+             ("GAN", "every turbo flag", with_flags(gan, **TURBO_FLAGS))]
+    bs = cd.train.batch_size
+    dataset = PatchDataset(h5_path=os.path.join(REPO, "absent.h5"),
+                           synthetic_patches_count=bs, seed=0)
+    gt = torch.from_numpy(dataset.gt[:bs]).cuda()
+    radius = torch.from_numpy(dataset.radius[:bs]).cuda()
+    kinds = {
+        "CD": (lambda c, impl: create_generator_state(
+            c.generator, seed=0, impl=impl, device="cuda"), make_train_step,
+            expected_train_counts, lambda st: {"": st.model}, 0.0),
+        "GAN": (lambda c, impl: create_gan_state(c, seed=0, impl=impl,
+                                                 device="cuda"),
+                make_gan_train_step, expected_gan_counts,
+                lambda st: {"generator.": st.gen.model,
+                            "critic.": st.disc}, GAN_METRIC_FLOOR),
+    }
+
+    def run(kind, c, impl, steps, seed=0, times=None):
+        st, step = kinds[kind][0](c, impl), kinds[kind][1](c, impl=impl)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step(st, gt, radius, gen)
+            float(m["total"])  # a host fetch: synchronized
+            if times is not None:
+                times.append((time.perf_counter() - t) * 1e3)
+        return st, m
+
+    def grads(kind, st):
+        return {f"{prefix}{n}": g for prefix, mod in kinds[kind][3](st)
+                .items() for n, g in _grads(mod).items()}
+
+    total = {}
+    for kind, name, c in cases:
+        expect, floor = kinds[kind][2], kinds[kind][4]
+        kernels.reset_launch_counts()
+        st_k, m_k = run(kind, c, "auto", 1)
+        counts = kernels.launch_counts()
+        want = expect(c)
+        log(f"turbo {kind} training, {name}: launches of one step {counts} "
+            f"(expected {want})")
+        require(counts == want and counts["knn_group"]
+                + counts["knn_packed"] > 0,
+                f"turbo {kind} {name}: launch counts {counts}")
+        total = add_counts(total, counts)
+        st_p, m_p = run(kind, c, "torch", 1)
+        compare_steps(f"turbo {kind} training, {name}", m_k, grads(kind, st_k),
+                      m_p, grads(kind, st_p), metric_floor=floor,
+                      metric_max=TURBO_TRAIN_METRIC_REL,
+                      grad_max=TURBO_TRAIN_GRAD_REL)
+        kernels.reset_launch_counts()
+        require_repeatable(f"turbo {kind} training, {name}", lambda: tuple(
+            kinds[kind][3](run(kind, c, "auto", 3, seed=3)[0]).values()))
+        total = add_counts(total, kernels.launch_counts())
+
+    # ms per warm step beside the exact step's, in turns
+    kernels.reset_launch_counts()
+    for kind, pair in (("CD", {"exact": cd, "turbo": cases[0][2],
+                               "turbo, no fused": cases[1][2]}),
+                       ("GAN", {"exact": gan, "turbo": cases[2][2]})):
+        laps = {k: [] for k in pair}
+        for _ in range(2):
+            for label, c in pair.items():
+                times = []
+                run(kind, c, "auto", 6, times=times)
+                laps[label] += times[1:]
+        med = {k: statistics.median(v) for k, v in laps.items()}
+        log(f"turbo {kind} training: ms per warm step at batch {bs}, two "
+            f"turns of 5 each: " + "; ".join(
+                f"{k} median {med[k]:.3f} (min {min(laps[k]):.3f}), / exact "
+                f"{med[k] / med['exact']:.3f}" for k in pair)
+            + f" on {card}")
+    total = add_counts(total, kernels.launch_counts())
+    log(f"train_turbo: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return total
+
+
+def train_remat(card: str):
+    """``remat`` in training at full width: a CD step with
+    ``gather_impl='pallas'`` (so that the gather pair runs under the
+    recompute), the same with ``use_bn=True`` and a GAN step with
+    ``dispu.py --use_gan true``'s defaults and ``gather_impl='pallas'``,
+    each with ``remat`` against the same step without it from one state:
+    exact launch counts (the generator's forward kernels twice), metrics,
+    gradients and batch norm's running statistics bit-equal (or the gap
+    printed and the phase failed).  Then peak device memory
+    (``max_memory_allocated``) of one warm CD step with and without
+    ``remat`` at batch 28 and 112, with its ms."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from dispu_tpu_torch import cli, kernels
+    from dispu_tpu_torch.config import ExperimentConfig
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.gan_steps import (create_gan_state,
+                                                 make_gan_train_step)
+    from dispu_tpu_torch.train.state import create_generator_state
+    from dispu_tpu_torch.train.steps import generator_forward, make_train_step
+
+    t_phase = time.perf_counter()
+
+    def remat(c, on=True, **gen):
+        return dataclasses.replace(
+            c, generator=dataclasses.replace(c.generator, **gen),
+            train=dataclasses.replace(c.train, remat=on))
+
+    cd = remat(ExperimentConfig(), False, gather_impl="pallas")
+    gan = remat(cli.build_config(cli.parse_args(
+        ["--phase", "train", "--use_gan", "true"])), False,
+        gather_impl="pallas")
+    bn = remat(cd, False, use_bn=True)
+    dataset = PatchDataset(h5_path=os.path.join(REPO, "absent.h5"),
+                           synthetic_patches_count=112, seed=0)
+
+    def batch(bs):
+        return (torch.from_numpy(dataset.gt[:bs]).cuda(),
+                torch.from_numpy(dataset.radius[:bs]).cuda())
+
+    def run(c, steps=1, bs=28, times=None):
+        gt, radius = batch(bs)
+        if c.use_gan:
+            st = create_gan_state(c, seed=0, device="cuda")
+            step = make_gan_train_step(c)
+        else:
+            st = create_generator_state(c.generator, seed=0, device="cuda")
+            step = make_train_step(c)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step(st, gt, radius, gen)
+            float(m["total"])
+            if times is not None:
+                times.append((time.perf_counter() - t) * 1e3)
+        return st, m
+
+    def tensors(st):
+        mods = (st.gen.model, st.disc) if hasattr(st, "disc") else (st.model,)
+        out = {}
+        for i, mod in enumerate(mods):
+            out.update({f"{i}.{n}": t for n, t in mod.state_dict().items()})
+            out.update({f"{i}.{n}.grad": g for n, g in _grads(mod).items()})
+        return out
+
+    total = {}
+    for label, c in (("CD", cd), ("CD use_bn", bn), ("GAN", gan)):
+        kernels.reset_launch_counts()
+        st_r, m_r = run(remat(c))
+        counts = kernels.launch_counts()
+        want = (expected_gan_counts if c.use_gan
+                else expected_train_counts)(remat(c))
+        require(counts == want, f"remat {label}: launch counts {counts} "
+                f"(expected {want})")
+        total = add_counts(total, counts)
+        kernels.reset_launch_counts()
+        st_p, m_p = run(c)
+        total = add_counts(total, kernels.launch_counts())
+        a, b = tensors(st_r), tensors(st_p)
+        gaps = {n: float((a[n].double() - b[n].double()).abs().max())
+                for n in a if not torch.equal(a[n], b[n])}
+        metric_gaps = {k: float(m_r[k]) - float(m_p[k]) for k in m_p
+                       if float(m_r[k]) != float(m_p[k])}
+        log(f"remat {label} (gather_impl=pallas): launches of one step "
+            f"{counts}; against the step without remat: tensors that differ "
+            f"{len(gaps)} of {len(a)} (parameters, gradients, batch-norm "
+            f"statistics) {sorted(gaps.items(), key=lambda kv: -kv[1])[:3]}"
+            f", metrics that differ {metric_gaps}")
+        require(not gaps and not metric_gaps,
+                f"remat {label}: differs from the step without remat")
+    del st_r, st_p, a, b
+
+    for bs in (28, 112):
+        peak, ms = {}, {}
+        for on in (False, True):
+            c = remat(cd, on, gather_impl="onehot_hp")
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            run(c, steps=6, bs=bs, times=times)
+            peak[on] = torch.cuda.max_memory_allocated() / 2 ** 30
+            ms[on] = statistics.median(times[1:])
+        log(f"remat: CD step at batch {bs} (defaults): peak memory "
+            f"{peak[False]:.3f} GiB without, {peak[True]:.3f} GiB with "
+            f"remat ({peak[True] / peak[False]:.3f}); ms per warm step "
+            f"{ms[False]:.3f} without, {ms[True]:.3f} with on {card}")
+    # where the peak lies: what the generator's forward holds for the
+    # backward, and the peak of its backward, at batch 112
+    gt, _ = batch(112)
+    model = create_generator_state(cd.generator, seed=0,
+                                   device="cuda").model.train()
+    inputs = gt[:, :cd.generator.num_points].contiguous()
+    for on in (False, True):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        coarse, fine = generator_forward(model, inputs, on)
+        held = torch.cuda.memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        (coarse.sum() + fine.sum()).backward()
+        model.zero_grad(set_to_none=True)
+        log(f"remat {on}: the generator's forward at batch 112 holds "
+            f"{held / 2 ** 30:.3f} GiB for its backward, whose peak is "
+            f"{(torch.cuda.max_memory_allocated() - before) / 2 ** 30:.3f} "
+            f"GiB above the forward's start")
+        del coarse, fine
+    log(f"train_remat: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return total
 
 
 # bf16 compute through the kernels vs through the plain versions on the
@@ -4041,6 +4509,8 @@ def main() -> int:
     counts = add_counts(counts, gan_counts)
     cli_phase(card, gan_dir, ("--use_gan", "true"), "cli_gan_smoke")
     counts = add_counts(counts, train_bf16(card))
+    counts = add_counts(counts, train_turbo(card))
+    counts = add_counts(counts, train_remat(card))
     counts = add_counts(counts, evaluate_phase(card))
     counts = add_counts(counts, multi_device(card))
     if args.profile:

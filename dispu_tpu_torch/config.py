@@ -3,8 +3,8 @@
 A copy of the JAX package's ``config.py`` dataclasses (same fields, same
 defaults), kept here so that the port imports nothing of that package.
 Field comments that describe TPU measurements stay with the JAX copy;
-settings that this port does not run yet raise ``NotImplementedError``
-through :func:`check_supported` and :func:`check_train_supported`.
+the training settings that this port does not run yet raise
+``NotImplementedError`` through :func:`check_train_supported`.
 """
 
 from __future__ import annotations
@@ -229,24 +229,23 @@ def _unsupported(what: str, item: str):
 
 def check_supported(gen_cfg: GeneratorConfig,
                     inf_cfg: InferenceConfig | None = None) -> None:
-    """Raise ``NotImplementedError`` for settings outside the ported slice
-    (``ValueError`` for values the JAX package does not know either).
+    """Raise ``ValueError`` for values the JAX package does not know
+    either.
 
-    Each message names the ROADMAP.md queue item that will bring it.  The
-    turbo serving flags are ported: ``fast_knn``, ``fast_gather``,
+    The turbo serving flags are ported: ``fast_knn``, ``fast_gather``,
     ``fast_gather_backbone``, ``fused_grouping``, ``dense_impl='split'``,
-    ``gather_impl='onehot'`` and the bucketed merge with the argsort rank;
-    so is every ``refine_local_impl`` (the fused refiner kernels), and
-    either ``compute_dtype`` (``ValueError`` for another).
+    ``gather_impl='onehot'`` and the bucketed merge with either rank
+    ('argsort', or 'radix' over 4-bit Morton codes); so is every
+    ``refine_local_impl`` (the fused refiner kernels), and either
+    ``compute_dtype``.
     """
-    turbo = "turbo and opt-in paths"
     if gen_cfg.refine_local_impl not in REFINE_LOCAL_IMPLS:
         raise ValueError("unknown refine_local_impl "
                          f"{gen_cfg.refine_local_impl!r}")
     if gen_cfg.dense_impl not in ("concat", "split"):
         raise ValueError(f"unknown dense_impl {gen_cfg.dense_impl!r}")
     if gen_cfg.gather_impl not in GATHERS:
-        _unsupported(f"gather_impl={gen_cfg.gather_impl!r}", turbo)
+        raise ValueError(f"unknown gather_impl {gen_cfg.gather_impl!r}")
     if inf_cfg is None:
         return
     check_compute_dtype(inf_cfg.compute_dtype)
@@ -254,9 +253,6 @@ def check_supported(gen_cfg: GeneratorConfig,
         raise ValueError(f"unknown merge_fps {inf_cfg.merge_fps!r}")
     if inf_cfg.merge_fps_rank not in ("argsort", "radix"):
         raise ValueError(f"unknown merge_fps_rank {inf_cfg.merge_fps_rank!r}")
-    if inf_cfg.merge_fps == "bucketed" and inf_cfg.merge_fps_rank == "radix":
-        _unsupported("merge_fps_rank='radix' (morton_rank)",
-                     "ops/sampling.py, the rest (item 12)")
 
 
 def check_train_supported(cfg: ExperimentConfig,
@@ -268,28 +264,16 @@ def check_train_supported(cfg: ExperimentConfig,
 
     Ported: CD and GAN training (``use_gan``, ``fake_pool_size``) at
     either ``compute_dtype`` (``ValueError`` for another), on one device
-    or data-parallel over a mesh (the fake pool stays
-    single-device), with any exact ``gather_impl`` ('pallas' through the
-    gather and scatter-add kernels) or with ``fused_grouping`` alone (the
-    ``knn_group`` kernel and its backward rule), for the generator and
-    the critic.  The other turbo flags serve only.  Any
-    ``refine_local_impl`` trains: training takes the composed refiner, as
-    in the JAX package."""
+    or data-parallel over a mesh (the fake pool stays single-device),
+    with every setting the JAX package trains with: any ``gather_impl``
+    ('pallas' through the gather and scatter-add kernels), the turbo
+    flags (``fast_knn``, ``fast_gather``, ``fast_gather_backbone``,
+    ``fused_grouping`` with them, ``dense_impl='split'``) and ``remat``,
+    for the generator and the critic.  Any ``refine_local_impl`` trains:
+    training takes the composed refiner, as in the JAX package."""
     check_supported(cfg.generator)
-    g, turbo = cfg.generator, "turbo and opt-in paths"
-    if g.fast_knn:
-        _unsupported("training with fast_knn (packed-key kNN)", turbo)
-    if g.fast_gather or g.fast_gather_backbone:
-        _unsupported("training with fast_gather / fast_gather_backbone",
-                     turbo)
-    if g.dense_impl != "concat":
-        _unsupported(f"training with dense_impl={g.dense_impl!r}", turbo)
-    if g.gather_impl not in EXACT_GATHERS:
-        _unsupported(f"training with gather_impl={g.gather_impl!r}", turbo)
-    if cfg.train.remat:
-        _unsupported("remat", turbo)
     check_compute_dtype(cfg.train.compute_dtype)
-    host = "host-side utilities"
+    host = "host-side utilities (item 22)"
     if cfg.train.visualize:
         _unsupported("visualize (training renders)", host)
     if cfg.train.profile:

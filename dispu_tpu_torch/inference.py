@@ -156,12 +156,16 @@ class PatchUpsampler:
         JAX package's ``impl='batch'``): (B, N, 3) → (B, out_num, 3).
         With ``merge_fps='bucketed'`` and ``out_num ≥ merge_fps_buckets``
         the bucketed FPS instead, every bucket of the B clouds in one
-        ``fps_bucketed`` call (the JAX package loops over the clouds)."""
+        ``fps_bucketed`` call (the JAX package loops over the clouds),
+        ranked by argsort over 10-bit Morton codes or, with
+        ``merge_fps_rank='radix'``, by the counting rank over 4-bit ones."""
         inf = self.inf_cfg
         if inf.merge_fps == "bucketed" and out_num >= inf.merge_fps_buckets:
+            rank = inf.merge_fps_rank  # 'radix' ranks 4-bit codes, as JAX
             idx = farthest_point_sample_bucketed(
                 out_num, points, n_buckets=inf.merge_fps_buckets,
-                impl=self.impl, rank_impl=inf.merge_fps_rank)
+                impl=self.impl, rank_impl=rank,
+                bits=4 if rank == "radix" else 10)
         else:
             impl = "batch" if self.impl == "auto" else self.impl
             idx = farthest_point_sample(out_num, points, impl=impl)

@@ -125,11 +125,19 @@ class BatchNorm(nn.Module):
     differentiable all-reduce and divided by the axis size, then flax's
     formula.  (``torch.nn.SyncBatchNorm`` combines Welford moments
     instead.)  ``.eval()`` never touches a process group.
+
+    With ``freeze_stats`` set (:func:`frozen_running_stats`), a training
+    forward normalizes with the batch's moments as ever but leaves the
+    running statistics alone: the recompute of a checkpointed forward
+    (``remat``), whose first run already moved them once, as flax's
+    functional ``batch_stats`` move once under ``jax.checkpoint``.
     """
 
     #: the device mesh whose global batch the training moments span, or
     #: None for this process's batch
     mesh = None
+    #: whether a training forward leaves the running statistics alone
+    freeze_stats = False
 
     def __init__(self, features: int, momentum: float = 0.95,
                  epsilon: float = BN_EPSILON):
@@ -164,9 +172,10 @@ class BatchNorm(nn.Module):
                 mean, mean_sq = both[:mean.shape[0]], both[mean.shape[0]:]
             var = torch.maximum(mean_sq - mean * mean, x.new_zeros(()))
             m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
+            if not self.freeze_stats:
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                    self.var.copy_(m * self.var + (1.0 - m) * var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale
@@ -189,6 +198,20 @@ def synced_batch_stats(module: nn.Module, mesh):
     finally:
         for m in norms:
             m.mesh = None
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Every :class:`BatchNorm` under ``module`` leaves its running
+    statistics alone in a training forward inside the block."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.freeze_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.freeze_stats = False
 
 
 class _PermutedRowDense(nn.Module):

@@ -7,7 +7,9 @@ detour has no reason to exist.  'pallas' runs the gather kernel and, as
 its backward, the deterministic scatter-add kernel
 (``kernels/gather_rows.py``) on the card inside the JAX package's gate for
 ``gather_rows_pallas``, and the plain gather elsewhere.  The turbo gather
-'onehot' is the plain gather rounded to bf16.  The ball query runs the
+'onehot' is the plain gather rounded to bf16, with its bf16 contraction's
+transpose as its gradient (the scatter-add kernel's f32 sums on the
+card).  The ball query runs the
 ball-query kernel, and the fused kNN + gather (``gather_impl`` 'fused' /
 'fused_turbo') the ``knn_group`` kernel, on the card where the JAX
 package's gates admit their Pallas kernels.
@@ -26,7 +28,9 @@ import torch
 from dispu_tpu_torch.config import EXACT_GATHERS
 from dispu_tpu_torch.kernels import IMPLS, use_kernel
 from dispu_tpu_torch.kernels import knn_group as _knn_group
-from dispu_tpu_torch.kernels.gather_rows import gather_rows
+from dispu_tpu_torch.kernels.gather_rows import (gather_rows,
+                                                 scatter_rows_cuda,
+                                                 scatter_rows_torch)
 from dispu_tpu_torch.kernels import query_ball as _ball
 from dispu_tpu_torch.ops.knn import knn_indices
 
@@ -61,13 +65,52 @@ def query_ball_point(radius, nsample: int, xyz: torch.Tensor,
                             return_dists, select_smallest, impl=impl)
 
 
+def _rows_fit(n: int, c: int) -> bool:
+    """``gather_fits``' shape half: n ≤ 4096, c ≤ 256, n·c ≤ 4096·128."""
+    return n <= 4096 and c <= 256 and n * c <= 4096 * 128
+
+
 def gather_fits(points: torch.Tensor) -> bool:
     """The JAX package's gate for ``gather_rows_pallas`` in
     ``group_point(impl='pallas')`` (f32, n ≤ 4096, c ≤ 256, n·c ≤
     4096·128), without its backend test."""
-    n, c = points.shape[-2:]
-    return (points.dtype == torch.float32 and n <= 4096 and c <= 256
-            and n * c <= 4096 * 128)
+    return points.dtype == torch.float32 and _rows_fit(*points.shape[-2:])
+
+
+class Bf16GatherFunction(torch.autograd.Function):
+    """The turbo gather ``group_point(impl='onehot')``: the JAX package's
+    bf16 one-hot contraction ``einsum('bqn,bnc->bqc', onehot, bf16(points))``
+    and its transpose, without the one-hot.
+
+    Forward: the rows at the indices rounded to bf16 (to nearest even),
+    in the table's dtype.  Backward, the contraction's transpose as XLA
+    computes it: the cotangent rounded to bf16, summed into the table's
+    rows in f32 (one bf16 product's f32 sums), the sum rounded to bf16.
+    The sum is the scatter-add kernel (``kernels/gather_rows.py``) for a
+    CUDA table whose (n, c) fits ``gather_fits``' shape gate when
+    ``use_cuda``, else ``index_add_`` (deterministic on the card under
+    the train step's deterministic algorithms).  The indices carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, points, idx, use_cuda):
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.dtype, ctx.use_cuda = points.shape[1], points.dtype, use_cuda
+        return _knn_group.bf16_round(
+            _knn_group.rows_at(points, idx)).to(points.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        b, m, k = idx.shape
+        c = g.shape[-1]
+        g = _knn_group.bf16_round(g.float()).reshape(b, m * k, c).contiguous()
+        flat = idx.reshape(b, m * k)
+        if ctx.use_cuda and g.is_cuda and _rows_fit(ctx.n, c):
+            s = scatter_rows_cuda(g, flat.to(torch.int32).contiguous(), ctx.n)
+        else:
+            s = scatter_rows_torch(g, flat, ctx.n)
+        return _knn_group.bf16_round(s).to(ctx.dtype), None, None
 
 
 def group_point(points: torch.Tensor, idx: torch.Tensor,
@@ -78,17 +121,21 @@ def group_point(points: torch.Tensor, idx: torch.Tensor,
     ``gather_impl`` 'pallas': the gather kernel, differentiable through
     the scatter-add kernel, for CUDA tensors inside :func:`gather_fits`
     (``impl`` 'cuda' raises outside it; 'torch' takes the plain gather).
-    ``'onehot'`` is the turbo gather: the JAX package's bf16 one-hot
-    contraction, whose values are the gathered rows rounded to bf16 (to
-    nearest even).  Every other exact ``gather_impl`` is the plain gather.
+    ``'onehot'`` is the turbo gather (:class:`Bf16GatherFunction`): the
+    JAX package's bf16 one-hot contraction, whose values are the gathered
+    rows rounded to bf16 (to nearest even), and whose gradient is that
+    contraction's transpose.  Every other exact ``gather_impl`` is the
+    plain gather.
     """
     if gather_impl not in EXACT_GATHERS + ("onehot",):
-        raise NotImplementedError(
-            f"group_point gather_impl={gather_impl!r} is not ported yet "
-            "(ROADMAP.md, queue 1: turbo and opt-in paths)"
-        )
+        raise ValueError(f"group_point takes gather_impl in "
+                         f"{EXACT_GATHERS + ('onehot',)}, got "
+                         f"{gather_impl!r}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if gather_impl == "onehot":
+        return Bf16GatherFunction.apply(points, idx,
+                                        use_kernel(impl, points))
     if gather_impl == "pallas":
         fits = gather_fits(points)
         if impl == "cuda" and not fits:
@@ -100,10 +147,7 @@ def group_point(points: torch.Tensor, idx: torch.Tensor,
             b, m, k = idx.shape
             out = gather_rows(points, idx.reshape(b, m * k), impl="cuda")
             return out.reshape(b, m, k, points.shape[-1])
-    out = _knn_group.rows_at(points, idx)
-    if gather_impl == "onehot":  # in the table's dtype, as the one-hot's
-        return _knn_group.bf16_round(out).to(points.dtype)
-    return out
+    return _knn_group.rows_at(points, idx)
 
 
 def _fused_fits(feature, src_xyz) -> bool:
@@ -154,7 +198,7 @@ def grouping(feature: torch.Tensor, k: int, src_xyz: torch.Tensor,
         return grouped_xyz, grouped_feature, idx
     # turbo: the features round, the xyz must stay exact
     grouped_xyz = group_point(src_xyz, idx)
-    grouped_feature = group_point(feature, idx, gather_impl)
+    grouped_feature = group_point(feature, idx, gather_impl, impl=impl)
     if use_xyz:
         grouped_feature = torch.cat([grouped_xyz, grouped_feature], dim=-1)
     return grouped_xyz, grouped_feature, idx

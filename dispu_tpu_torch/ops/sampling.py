@@ -1,5 +1,6 @@
-"""Farthest-point sampling (exact, and bucketed by Morton order), row
-gathers and the training input's nonuniform draw (counterpart of
+"""Farthest-point sampling (exact, and bucketed by Morton order, ranked
+by a stable argsort or by the sort-free counting rank), row gathers, the
+training input's nonuniform draw and the inverse-CDF draw (counterpart of
 ``ops/sampling.py``)."""
 
 from __future__ import annotations
@@ -68,21 +69,77 @@ def morton_codes(xyz: torch.Tensor, bits: int = 10) -> torch.Tensor:
     return code.to(torch.int32)
 
 
+#: the counting rank's chunk: its within-chunk compare is (n, chunk)
+#: booleans, its per-chunk histograms (n / chunk, n_bins) int32s
+RANK_CHUNK = 256
+
+
+def morton_rank(codes: torch.Tensor, n_bins: int,
+                chunk: int = RANK_CHUNK) -> torch.Tensor:
+    """Stable counting rank of small-alphabet int keys, without a sort (the
+    JAX package's ``morton_rank``): (..., n) keys in [0, n_bins) → (...,
+    n) int32 ``pos``, element i's place in the stable ascending sort of
+    its row (the inverse of a stable argsort; equal keys keep their index
+    order).
+
+    Each row is cut into chunks of ``chunk`` keys (the last one padded
+    with keys that rank after every real one).  A key's place is the
+    count of smaller keys in its row (the exclusive sum of the row's
+    histogram), plus the count of equal keys in earlier chunks (an
+    exclusive sum over the chunks' histograms), plus the count of equal
+    keys before it in its own chunk (a strictly lower-triangular compare).
+    Every count is exact in int32, so any ``chunk`` gives the same bits;
+    the JAX package carries the chunks' histogram through a ``lax.scan``,
+    here all chunks are counted at once."""
+    *lead, n = codes.shape
+    codes = codes.reshape(-1, n).to(torch.int64)
+    rows, dev = codes.shape[0], codes.device
+    n_ch = max(1, -(-n // chunk))
+    pad = n_ch * chunk - n
+    if pad:  # after every real key: real places do not move
+        codes = torch.cat([codes, codes.new_full((rows, pad), n_bins - 1)],
+                          dim=1)
+    ch = codes.reshape(rows, n_ch, chunk)
+    hist = torch.zeros((rows * n_ch * n_bins,), dtype=torch.int32,
+                       device=dev)
+    base = (torch.arange(rows * n_ch, device=dev) * n_bins).reshape(
+        rows, n_ch, 1)
+    hist.scatter_add_(0, (ch + base).reshape(-1),
+                      torch.ones((rows * n_ch * chunk,), dtype=torch.int32,
+                                 device=dev))
+    hist = hist.reshape(rows, n_ch, n_bins)
+    before = torch.cumsum(hist, dim=1) - hist          # earlier chunks
+    total = torch.sum(hist, dim=1)                     # (rows, n_bins)
+    start = torch.cumsum(total, dim=1) - total         # smaller keys
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=dev), diagonal=-1)
+    within = torch.sum((ch[..., :, None] == ch[..., None, :]) & tri,
+                       dim=-1, dtype=torch.int32)
+    pos = (torch.gather(start, 1, codes)
+           + torch.gather(before, 2, ch).reshape(rows, -1)
+           + within.reshape(rows, -1))
+    return pos[:, :n].to(torch.int32).reshape(*lead, n)
+
+
 def farthest_point_sample_bucketed(npoint: int, xyz: torch.Tensor,
                                    n_buckets: int = 64, impl: str = "auto",
                                    rank_impl: str = "argsort",
-                                   mesh=None) -> torch.Tensor:
+                                   mesh=None, bits: int = 10) -> torch.Tensor:
     """Approximate FPS of B clouds by spatial buckets: (B, n, 3) → (B,
     npoint) int32 indices (the JAX package's function of one cloud, for
     each cloud of the batch).
 
-    Each cloud is ranked by Morton code (a stable argsort, as
-    ``jnp.argsort``), padded with its last-ranked point to ``n_buckets``
-    equal buckets of n_b = max(ceil(n / K), m_b) points, m_b = ceil(npoint
-    / K); every bucket of every cloud runs exact FPS for m_b points in one
-    ``fps_bucketed`` call (the kernel on a CUDA tensor); the picks come
-    back round-robin by bucket, cut to ``npoint``.  ``rank_impl='radix'``
-    (``morton_rank`` over 4-bit codes) is not ported.
+    Each cloud is ranked by its ``bits``-bit Morton codes, padded with its
+    last-ranked point to ``n_buckets`` equal buckets of n_b = max(ceil(n /
+    K), m_b) points, m_b = ceil(npoint / K); every bucket of every cloud
+    runs exact FPS for m_b points in one ``fps_bucketed`` call (the kernel
+    on a CUDA tensor); the picks come back round-robin by bucket, cut to
+    ``npoint``.  ``rank_impl`` 'argsort': a stable argsort of the codes,
+    as ``jnp.argsort``; 'radix': :func:`morton_rank` over the 2^(3·bits)
+    codes and one permutation scatter, which needs ``bits`` ≤ 4.  Both
+    ranks are stable, so at equal ``bits`` they give the same buckets bit
+    for bit (the serving merge takes 'radix' at 4 bits, as the JAX
+    package's does).
 
     ``mesh``: each process selects in its ``n_buckets`` / W buckets of
     every cloud and the picks are all-gathered; the buckets are
@@ -92,18 +149,24 @@ def farthest_point_sample_bucketed(npoint: int, xyz: torch.Tensor,
         raise ValueError(
             f"n_buckets={n_buckets} must be divisible by the data axis "
             f"({data_size(mesh)} devices)")
-    if rank_impl == "radix":
-        raise NotImplementedError(
-            "rank_impl='radix' (morton_rank) is not ported yet (ROADMAP.md, "
-            "queue 1: ops/sampling.py, the rest (item 12))")
-    if rank_impl != "argsort":
+    if rank_impl not in ("argsort", "radix"):
         raise ValueError(f"unknown rank_impl {rank_impl!r}")
+    if rank_impl == "radix" and bits > 4:
+        raise ValueError(
+            f"rank_impl='radix' needs bits <= 4 (2^(3*bits) histogram "
+            f"bins), got bits={bits}")
     b, n, _ = xyz.shape
     k = n_buckets
     m_b = -(-npoint // k)
     n_b = max(-(-n // k), m_b)
     xyz = xyz.to(torch.float32)
-    order = torch.argsort(morton_codes(xyz), dim=-1, stable=True)
+    codes = morton_codes(xyz, bits=bits)
+    if rank_impl == "radix":
+        pos = morton_rank(codes, n_bins=1 << (3 * bits)).long()
+        order = torch.empty_like(pos).scatter_(
+            1, pos, torch.arange(n, device=xyz.device).expand(b, n))
+    else:
+        order = torch.argsort(codes, dim=-1, stable=True)
     pad = k * n_b - n
     if pad:
         order = torch.cat([order, order[:, -1:].expand(b, pad)], dim=1)
@@ -170,3 +233,40 @@ def nonuniform_sample_indices(b: int, num: int, sample_num: int,
     loc_u = torch.rand((b,), generator=generator, device=device)
     return nonuniform_indices_from(
         loc_u, gumbel((b, num), generator, device), sample_num)
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum along the last axis in the order XLA's CPU backend
+    adds, so that the f32 bits are ``jnp.cumsum``'s there: rows of 16
+    (the last one padded with zeros) summed left to right, the rows'
+    totals summed so recursively, and each row's exclusive prefix of
+    totals added last.  Each add is one f32 add, on any device."""
+    n = x.shape[-1]
+    if n <= 16:
+        acc, out = x[..., 0], [x[..., 0]]
+        for j in range(1, n):
+            acc = acc + x[..., j]
+            out.append(acc)
+        return torch.stack(out, dim=-1)
+    r = -(-n // 16)
+    rows = torch.nn.functional.pad(x, (0, 16 * r - n)).reshape(
+        *x.shape[:-1], r, 16)
+    within = xla_cumsum(rows)
+    tot = xla_cumsum(within[..., -1])
+    prefix = torch.cat([torch.zeros_like(tot[..., :1]), tot[..., :-1]],
+                       dim=-1)
+    return (within + prefix[..., None]).reshape(*x.shape[:-1], 16 * r)[..., :n]
+
+
+def prob_sample(inp: torch.Tensor, inp_r: torch.Tensor) -> torch.Tensor:
+    """Categorical draw by inverse-CDF lookup (the JAX package's
+    ``prob_sample``; the model does not use it): (b, n) non-negative
+    weights and (b, m) uniform draws in [0, 1) → (b, m) int32 indices
+    distributed ∝ ``inp``.  The CDF is :func:`xla_cumsum`, the targets
+    ``inp_r · total``, each index the first CDF entry above its target,
+    clipped to n − 1: the JAX package's indices on the same draws."""
+    cdf = xla_cumsum(inp.to(torch.float32))
+    targets = inp_r.to(torch.float32) * cdf[..., -1:]
+    idx = torch.searchsorted(cdf.contiguous(), targets.contiguous(),
+                             right=True)
+    return torch.clamp(idx, 0, inp.shape[-1] - 1).to(torch.int32)

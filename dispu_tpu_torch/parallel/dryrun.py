@@ -418,8 +418,9 @@ def run_trainer(mesh, spec: dict, log_dir: str) -> dict:
 
 
 RUNNERS = {"cd": run_steps, "cd_bn": run_steps, "cd_drawn": run_steps,
-           "cd_bf16": run_steps,
-           "gan": run_steps, "eval_step": run_eval_step,
+           "cd_bf16": run_steps, "cd_remat": run_steps,
+           "gan": run_steps, "gan_remat": run_steps,
+           "eval_step": run_eval_step,
            "cd_refused": run_refusal, "bn": run_bn,
            "eval": run_eval, "serve": run_serve, "merge": run_merge}
 

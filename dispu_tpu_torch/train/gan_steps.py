@@ -60,8 +60,8 @@ from dispu_tpu_torch.parallel.mesh import (all_reduce_mean_, local_rows,
                                            shard_batch)
 from dispu_tpu_torch.train.state import (GeneratorState, adam_step,
                                          adam_update, create_generator_state)
-from dispu_tpu_torch.train.steps import (deterministic, global_metrics,
-                                         reduce_grads_)
+from dispu_tpu_torch.train.steps import (deterministic, generator_forward,
+                                         global_metrics, reduce_grads_)
 
 
 @dataclasses.dataclass
@@ -203,7 +203,9 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
         with deterministic(dev), synced_batch_stats(model, mesh), \
                 computing_at(model, cfg.train.compute_dtype):
             model.zero_grad(set_to_none=True)
-            coarse, fine = model(inputs)  # the one generator forward
+            # the one generator forward (recomputed in the generator's
+            # backward with remat, still inside these blocks)
+            coarse, fine = generator_forward(model, inputs, cfg.train.remat)
             fine0 = fine.detach()
             with torch.no_grad():
                 d_groups, pred_idx = paired_neighborhoods_with_pred_indices(

@@ -4,9 +4,10 @@ One train step: the input draw (``random_input``) and augmentation on the
 step's device, the epoch schedules, the generator forward in training mode
 (batch-norm batch statistics, running statistics updated), ``pu_losses``,
 the backward through the kernels' autograd rules, and the Adam update,
-in place.  It returns the JAX package's metrics dict, as 0-d tensors on
-the device (and ``lr``, ``weight_fine`` as floats), so a caller fetches
-them only when it prints.
+in place (with ``remat`` the forward is recomputed in the backward,
+:func:`generator_forward`).  It returns the JAX package's metrics dict,
+as 0-d tensors on the device (and ``lr``, ``weight_fine`` as floats), so
+a caller fetches them only when it prints.
 
 With a ``mesh`` (``parallel.mesh.make_mesh``) the step is data-parallel
 and computes the single-device step's function of the global batch, as the
@@ -43,7 +44,8 @@ from dispu_tpu_torch import losses as L
 from dispu_tpu_torch.config import ExperimentConfig, check_train_supported
 from dispu_tpu_torch.data.augment import augment_batch, sample_training_inputs
 from dispu_tpu_torch.inference import pin_f32, resolve_device
-from dispu_tpu_torch.nn.layers import computing_at, synced_batch_stats
+from dispu_tpu_torch.nn.layers import (computing_at, frozen_running_stats,
+                                       synced_batch_stats)
 from dispu_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce_max_,
                                            all_reduce_mean_, local_rows,
                                            shard_batch)
@@ -76,6 +78,29 @@ def deterministic(device: torch.device):
     finally:
         torch.use_deterministic_algorithms(before[0], warn_only=before[1])
         det.fill_uninitialized_memory = before[2]
+
+
+def generator_forward(model: torch.nn.Module, inputs: torch.Tensor,
+                      remat: bool):
+    """``model(inputs)``; with ``remat`` (``TrainConfig.remat``, the JAX
+    package's ``jax.checkpoint`` around the generator forward) under
+    ``torch.utils.checkpoint`` (non-reentrant): the forward keeps no
+    activation for the backward, which recomputes it.  The recompute runs
+    inside ``backward()``, so the step's compute dtype, mesh and
+    deterministic algorithms must still be in force there (the steps call
+    ``backward()`` inside those blocks), and it leaves batch norm's
+    running statistics alone (``nn.layers.frozen_running_stats``): the
+    first run moved them once.  The kernels'
+    forwards are deterministic, so the recompute saves the first run's
+    tensors bit for bit and the step's result does not change; each
+    kernel of the forward launches twice."""
+    if not remat:
+        return model(inputs)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(model, inputs, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          frozen_running_stats(model)))
 
 
 def reduce_grads_(module: torch.nn.Module, mesh) -> None:
@@ -151,7 +176,7 @@ def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
         with deterministic(dev), synced_batch_stats(model, mesh), \
                 computing_at(model, cfg.train.compute_dtype):
             model.zero_grad(set_to_none=True)
-            coarse, fine = model(inputs)
+            coarse, fine = generator_forward(model, inputs, cfg.train.remat)
             total, metrics = L.pu_losses(coarse, fine, gt_aug, radius,
                                          weight_fine, cfg.loss, impl=impl)
             total.backward()

@@ -49,6 +49,10 @@ SETTINGS = {
     "16x": (GEN, InferenceConfig(**{**INF, "final_ratio": 16}),
             ["fps", "knn"]),
     "turbo": (*_turbo(), ["fps", "fps_bucketed", "knn", "knn_group"]),
+    # the merge ranked by the counting rank over 4-bit codes
+    "turbo_radix": (_turbo()[0], dataclasses.replace(
+        _turbo()[1], merge_fps_rank="radix"),
+        ["fps", "fps_bucketed", "knn", "knn_group"]),
     "fused": (dataclasses.replace(GEN, refine_local_impl="fused"),
               InferenceConfig(**INF), ["fps", "knn", "refine_local"]),
     "megafused": (dataclasses.replace(GEN, refine_local_impl="megafused"),

@@ -101,15 +101,6 @@ def test_plan_counts_match(n, inf_kw):
 
 
 @pytest.mark.parametrize("inf_kw", [
-    dict(merge_fps="bucketed", merge_fps_rank="radix"),
-])
-def test_unported_inference_settings_raise(inf_kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PatchUpsampler(gen_cfg=GeneratorConfig(**SMALL),
-                       inf_cfg=InferenceConfig(**inf_kw), device="cpu")
-
-
-@pytest.mark.parametrize("inf_kw", [
     dict(compute_dtype="bfloat16"),
     dict(compute_dtype="bfloat16", final_ratio=16, merge_fps="bucketed"),
 ])

@@ -529,16 +529,8 @@ def test_checkpoint_round_trip_bit_equal(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    # GAN training and the fake pool are ported; with a turbo flag they
-    # still raise
-    dict(use_gan=True, generator=dict(fast_gather=True)),
-    dict(train=dict(fake_pool_size=4), generator=dict(dense_impl="split")),
-    dict(train=dict(remat=True)),
     dict(train=dict(visualize=True)), dict(train=dict(profile=True)),
-    dict(generator=dict(fast_knn=True)),
-    dict(generator=dict(fused_grouping=True, fast_gather_backbone=True)),
-], ids=["use_gan", "fake_pool", "remat", "visualize", "profile",
-        "turbo", "fused_with_turbo"])
+], ids=["visualize", "profile"])
 def test_unported_training_settings_raise(change):
     _, cfg = _cfgs()
     fields = {}
@@ -546,7 +538,7 @@ def test_unported_training_settings_raise(change):
         if isinstance(value, dict):
             value = dataclasses.replace(getattr(cfg, name), **value)
         fields[name] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="item 22"):
         check_train_supported(dataclasses.replace(cfg, **fields))
 
 
@@ -557,8 +549,21 @@ def test_unported_training_settings_raise(change):
     dict(use_gan=True, generator=dict(fused_grouping=True),
          discriminator=dict(fused_grouping=True)),
     dict(mesh=dict(num_devices=2)), dict(train=dict(compute_dtype="bfloat16")),
+    # the turbo flags and remat train too, alone and together, at either
+    # compute dtype
+    dict(use_gan=True, generator=dict(fast_gather=True)),
+    dict(train=dict(fake_pool_size=4), generator=dict(dense_impl="split")),
+    dict(train=dict(remat=True)),
+    dict(generator=dict(fast_knn=True)),
+    dict(generator=dict(fused_grouping=True, fast_gather_backbone=True)),
+    dict(use_gan=True, train=dict(remat=True, compute_dtype="bfloat16"),
+         generator=dict(fast_knn=True, fast_gather=True,
+                        fast_gather_backbone=True, fused_grouping=True,
+                        dense_impl="split")),
 ], ids=["use_gan", "fake_pool", "fused_grouping", "pallas_gather",
-        "gan_fused", "mesh", "bf16"])
+        "gan_fused", "mesh", "bf16", "use_gan_fast_gather",
+        "fake_pool_split", "remat", "turbo", "fused_with_turbo",
+        "all_bf16"])
 def test_ported_training_settings_pass(change):
     _, cfg = _cfgs()
     fields = {}

@@ -290,10 +290,115 @@ def test_farthest_point_sample_bucketed_matches_jax(n, npoint, K):
         np.testing.assert_array_equal(got[v], want)
 
 
-def test_bucketed_radix_rank_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+# the counting rank's chunk here (256) and the JAX package's (2048):
+# lengths below, at and above a multiple of each
+RANK_NS = [1, 5, 255, 256, 257, 2047, 2048, 2049, 5000]
+
+
+@pytest.mark.parametrize("n_bins", [1, 7, 4096])
+@pytest.mark.parametrize("n", RANK_NS)
+def test_morton_rank_matches_jax(n, n_bins):
+    """``morton_rank`` of three rows in one call against the JAX package's
+    on each row and the inverse of numpy's stable argsort: bit-equal; one
+    row all-equal keys, one the largest key only."""
+    rng = np.random.RandomState(n * 7 + n_bins)
+    codes = rng.randint(0, n_bins, (3, n)).astype(np.int32)
+    codes[1] = codes[1, 0]
+    codes[2] = n_bins - 1
+    got = tsampling.morton_rank(torch.from_numpy(codes), n_bins).numpy()
+    assert got.dtype == np.int32 and got.shape == (3, n)
+    for v in range(3):
+        want = np.asarray(jsampling.morton_rank(jnp.asarray(codes[v]),
+                                                n_bins))
+        inverse = np.empty(n, np.int64)
+        inverse[np.argsort(codes[v], kind="stable")] = np.arange(n)
+        np.testing.assert_array_equal(got[v], want)
+        np.testing.assert_array_equal(got[v], inverse)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 256, 4096])
+def test_morton_rank_does_not_depend_on_its_chunk(chunk):
+    codes = np.random.RandomState(0).randint(0, 64, (2, 1000))
+    want = tsampling.morton_rank(torch.from_numpy(codes), 64)
+    got = tsampling.morton_rank(torch.from_numpy(codes), 64, chunk=chunk)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,npoint,K", [
+    (1000, 300, 16),   # n_b = 63, padded by the last-ranked point
+    (512, 512, 64),    # every point: n_b = m_b = 8
+    (2048, 500, 64),   # ceil(500 / 64) = 8 a bucket, cut to 500
+])
+def test_bucketed_radix_rank_matches_jax(n, npoint, K):
+    """The bucketed merge with ``rank_impl='radix'`` at 4 bits (the
+    serving merge's) against the JAX package's on each cloud, and against
+    the argsort rank at the same 4 bits: bit-equal.  Duplicated points
+    (equal codes) included."""
+    x = _cloud(n + K, (2, n, 3), 9)
+    got = tsampling.farthest_point_sample_bucketed(
+        npoint, torch.from_numpy(x), n_buckets=K, rank_impl="radix",
+        bits=4).numpy()
+    same_bits = tsampling.farthest_point_sample_bucketed(
+        npoint, torch.from_numpy(x), n_buckets=K, bits=4).numpy()
+    assert got.shape == (2, npoint) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, same_bits)
+    for v in range(2):
+        want = np.asarray(jsampling.farthest_point_sample_bucketed(
+            npoint, jnp.asarray(x[v]), n_buckets=K, rank_impl="radix",
+            bits=4))
+        np.testing.assert_array_equal(got[v], want)
+    with pytest.raises(ValueError, match="bits <= 4"):
         tsampling.farthest_point_sample_bucketed(
-            64, torch.zeros((1, 256, 3)), rank_impl="radix")
+            npoint, torch.from_numpy(x), n_buckets=K, rank_impl="radix")
+
+
+@pytest.mark.parametrize("final_ratio", [4, 16])
+def test_radix_merge_on_jax_candidates_is_bit_equal(variables, final_ratio):
+    """``merge_fps_rank='radix'``: given the JAX package's own candidates,
+    the port's merge (4-bit codes, the counting rank) takes JAX's radix
+    merge's points exactly, for one cloud and for two in one call."""
+    inf = dict(final_ratio=final_ratio, merge_fps="bucketed",
+               merge_fps_rank="radix", **INF)
+    jup = JPatchUpsampler(variables, gen_cfg=JGeneratorConfig(**SMALL, **TURBO),
+                          inf_cfg=JInferenceConfig(**inf))
+    tup = PatchUpsampler(variables, gen_cfg=GeneratorConfig(**SMALL, **TURBO),
+                         inf_cfg=InferenceConfig(**inf), device="cpu")
+    merged = []
+    for pc in _clouds(2, 128):
+        seed_num, out_num = plan_counts(pc.shape[0], tup.inf_cfg)
+        jpc_n, _, _ = jnormalize(jnp.asarray(pc))
+        patches, centroid, furthest = jup._prepare(jpc_n, seed_num=seed_num)
+        cand = jup._chunked_generator(patches, 4) * furthest + centroid
+        merged.append(np.array(cand.reshape(-1, 3)))
+    want = [np.asarray(jup._merge(jnp.asarray(m), out_num=out_num))
+            for m in merged]
+    both = tup.merge(torch.from_numpy(np.stack(merged)), out_num).numpy()
+    for v in range(2):
+        np.testing.assert_array_equal(both[v], want[v])
+    one = tup.merge(torch.from_numpy(merged[1])[None], out_num)[0].numpy()
+    np.testing.assert_array_equal(one, want[1])
+
+
+@pytest.mark.parametrize("n", [3, 16, 17, 100, 257, 4096, 70000])
+def test_prob_sample_matches_jax(n):
+    """``prob_sample`` on the same uniform draws: indices bit-equal to the
+    JAX package's (its CDF is XLA's CPU cumsum, which ``xla_cumsum`` sums
+    in the same order: bit-equal too), zero weights never drawn."""
+    rng = np.random.RandomState(n)
+    w = rng.rand(3, n).astype(np.float32)
+    w[0, ::3] = 0.0
+    w[1] *= np.float32(1e-3)
+    r = rng.rand(3, 64).astype(np.float32)
+    r[2, :2] = (0.0, np.nextafter(np.float32(1), np.float32(0)))
+    got = tsampling.prob_sample(torch.from_numpy(w), torch.from_numpy(r))
+    want = jsampling.prob_sample(jnp.asarray(w), jnp.asarray(r))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        tsampling.xla_cumsum(torch.from_numpy(w)).numpy(),
+        np.asarray(jnp.cumsum(jnp.asarray(w), axis=-1)))
+    if n % 3 == 0:
+        assert np.all(w[0][got[0].numpy()] > 0)
 
 
 # ------------------------------------------------- modules and generator
