@@ -76,7 +76,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the JAX gates' launches at bf16 (``attention.cu``'s bf16 entry), f32
      outputs, bit-equal repeats, Chamfer to the plain bf16 path, an
      exported bf16 entry bit-equal to live, and ms beside f32 in turns.
-     Then CD training at the
+     The SPMD export (``serve_export_mesh``): the 4× and 16× entries
+     exported on a one-process NCCL (1, 1) mesh, each with
+     ``nr_devices`` 1, the functional all-gather and the mesh-less
+     entry's ops in its graph, served bit-equal to the live mesh path and
+     to ``serve_export``'s mesh-less entry with live's launches, timed
+     against live in turns.  Then CD training at the
      same width with the training defaults (batch 28, random input,
      augmentation) on synthetic_patches: ``Trainer.train(epochs=2)`` of 3
      steps an epoch (logs, a checkpoint that restores bit-equal), 20 steps
@@ -116,7 +121,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      scored by ``evaluate_dirs`` on the card (1000 disk seeds, timed by
      stage) and by ``python -m dispu_tpu_torch.evaluate``, held against
      the port's plain CPU run, and ``cd_hd`` of the four demo outputs
-     (the kNN kernel at k = 1, one launch each);
+     (the kNN kernel at k = 1, one launch each).  The host-side
+     utilities (``train_utilities``): one CD epoch at batch 28 with
+     ``visualize``, ``profile`` and the copy backup, its trace naming the
+     kNN, attention and ball-query kernels, its PNG, its state and scalars
+     bit-equal to the plain epoch's, and the profiler's cost in turns.
+     The point-set ops (``ops_21``): patch extraction, ``dilat_group`` and
+     ``three_nn`` through the kernels against the plain versions (near-tie
+     swaps only), the EMD against the CPU, and the native host library
+     built with g++ and held against ``knn.cu``;
   5. print one JSON line listing every kernel with its numbers;
   6. print {"ok": true, "device": {...}} as the last line.
 
@@ -4423,6 +4436,428 @@ def multi_device(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------ phase 4: PR-18 slice's phases
+
+# the approximate EMD on the card against the same call on the CPU: the
+# two round the squared distances d apart (other sum orders), and the
+# coldest level, -4^7, turns one f32 round-off of d (3.2e-8 at d ≤ 0.27,
+# the clouds' span) into 16384 × 3.2e-8 = 5.3e-4 of a kernel entry
+# exp(level·d), which the rounds carry into the match and the cost alike;
+# each is held at 1e-3 (of the match's largest entry; of the cost).  The
+# first reading on an H100 at 700 W: match 1.5e-4, cost 1.9e-4 (a cost
+# limit of 1e-4, set below this bound before any reading, failed it).
+# Both sides run the same torch code, so the check sees the card drift
+# from the CPU, not a wrong EMD (the CPU tests hold that against JAX); a
+# control run on the card with the squared distances rounded to bf16 must
+# fail the limits, or they could not tell that from f32.  On an H100 at
+# 700 W the control's match was 1.6e-2 (fails), its cost 2.2e-4 (the f32
+# reading's 1.9e-4): the match's limit tells the two apart, the cost's
+# bounds drift only.  (TF32 products are no control: they gave the f32
+# reading to the digit, as this EMD's products, (n, 3) x (3, m) and
+# matrix-vector, run no TF32.)
+EMD_MATCH_REL = 1e-3
+EMD_COST_REL = 1e-3
+
+
+def serve_export_mesh(card: str) -> dict:
+    """The SPMD serving export at world size 1 on the card: a one-process
+    NCCL group (``file://`` init) and ``make_mesh(device="cuda")``, the
+    port's seeded init exported at 4× and 16× for demo/gt/Icosahedron.xyz
+    on the (1, 1) mesh into ``chiprun_out/serve_export_mesh/``.  Each
+    entry records ``nr_devices`` 1 and the default group, its graph holds
+    the functional all-gather and the ``dispu_tpu_torch::`` ops of
+    ``serve_export``'s mesh-less entry of the same setting; served, it
+    returns the live mesh path's bits and the mesh-less entry's, with the
+    live call's launches; then served and live in turns, ms each.  Runs
+    after ``serve_export``, whose artifacts it reads."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dispu_tpu_torch import InferenceConfig, kernels
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.parallel.mesh import make_mesh
+    from dispu_tpu_torch.serving import ServedUpsampler, export_upsampler
+
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "chiprun_out", "serve_export_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    pc = load_cloud("Icosahedron.xyz")
+    n = pc.shape[0]
+    require(not dist.is_initialized(), "a process group exists already")
+    tmp = tempfile.mkdtemp(prefix="spmd_group_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/group",
+                            rank=0, world_size=1)
+    total = {}
+    try:
+        mesh = make_mesh(device="cuda")
+        for label, ratio in (("4x", 4), ("16x", 16)):
+            inf = InferenceConfig(final_ratio=ratio)
+            up = PatchUpsampler(seed=0, inf_cfg=inf, mesh=mesh)
+            path = os.path.join(work, label)
+            t0 = time.perf_counter()
+            manifest = export_upsampler(up.model.state_dict(), [n], path,
+                                        inf_cfg=inf, mesh=mesh)
+            seconds = time.perf_counter() - t0
+            entry = manifest["entries"][0]
+            plain_path = os.path.join(REPO, "chiprun_out", "serve_export",
+                                      label)
+            with open(os.path.join(plain_path, "manifest.json")) as f:
+                plain_entry = json.load(f)["entries"][0]
+            require((entry["nr_devices"], entry["group"]) == (1, "0"),
+                    f"serve_export_mesh {label}: entry {entry}")
+            require("_c10d_functional::all_gather_into_tensor"
+                    in entry["collectives"],
+                    f"serve_export_mesh {label}: no all-gather in "
+                    f"{entry['collectives']}")
+            require(entry["kernels"] == plain_entry["kernels"],
+                    f"serve_export_mesh {label}: ops {entry['kernels']} != "
+                    f"the mesh-less entry's {plain_entry['kernels']}")
+            want = expected_counts(up, n)
+            kernels.reset_launch_counts()
+            live = up.upsample(pc)
+            counts = kernels.launch_counts()
+            require(counts == want, f"serve_export_mesh {label}: live "
+                    f"launches {counts} != {want}")
+            served = ServedUpsampler(path)
+            t0 = time.perf_counter()
+            served.warmup()
+            warm_s = time.perf_counter() - t0
+            kernels.reset_launch_counts()
+            out = served.upsample(pc)
+            got = kernels.launch_counts()
+            require(got == counts, f"serve_export_mesh {label}: served "
+                    f"launches {got} != live's {counts}")
+            require(np.array_equal(out, live),
+                    f"serve_export_mesh {label}: served != live mesh path")
+            require(np.array_equal(out, ServedUpsampler(plain_path)
+                                   .upsample(pc)),
+                    f"serve_export_mesh {label}: served != the mesh-less "
+                    "entry")
+            total = add_counts(total, counts)
+            total = add_counts(total, got)
+            reps = 3 if ratio == 16 else 5
+            laps = {"live": [], "served": []}
+            for rep in range(reps + 1):  # the first round warms both
+                for kind, fn in (("live", up.upsample),
+                                 ("served", served.upsample)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(pc)  # returns on the host: synchronized
+                    if rep:
+                        laps[kind].append((time.perf_counter() - t0) * 1e3)
+            med = {k: statistics.median(v) for k, v in laps.items()}
+            nbytes = os.path.getsize(os.path.join(path, entry["file"]))
+            log(f"serve_export_mesh {label}: exported on the (1, 1) NCCL "
+                f"mesh in {seconds:.2f} s, {nbytes} bytes, nr_devices 1, "
+                f"{entry['collectives']}, ops {entry['kernels']} (= the "
+                f"mesh-less entry's); warmup {warm_s:.2f} s; served "
+                f"bit-equal to the live mesh path and to the mesh-less "
+                f"entry, launches {nonzero(got)} (= live); ms per "
+                f"{n}-point request in turns, median of {reps}: live "
+                f"{med['live']:.2f} ({', '.join('%.2f' % t for t in laps['live'])}"
+                f"), served {med['served']:.2f} ("
+                f"{', '.join('%.2f' % t for t in laps['served'])}), served "
+                f"/ live {med['served'] / med['live']:.3f} on {card}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(not dist.is_initialized(), "the process group outlived the phase")
+    log(f"serve_export_mesh: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _kernel_names(trace_path: str) -> set:
+    """The device kernels' names in a Chrome trace of ``torch.profiler``."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def train_utilities(card: str) -> dict:
+    """The trainer's host-side utilities at full width, batch 28, on
+    synthetic patches: ``backup_sources(mode="copy")``, then one CD epoch
+    of 2 steps with ``visualize`` (every 2 steps) and ``profile`` into
+    ``chiprun_out/train_utilities/``, with the launches of 2 steps and one
+    render's evaluation step.  The trace must name the kNN, attention and
+    ball-query kernels by their ``__global__`` names, the PNG and the code
+    copy must exist, and the trained state and each step's scalars must
+    be bit-equal to the same epoch without either setting.  Then the
+    epoch's wall seconds with the profiler alone and without, in turns."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import torch
+
+    from dispu_tpu_torch import kernels
+    from dispu_tpu_torch.config import ExperimentConfig, TrainConfig
+    from dispu_tpu_torch.data.dataset import PatchDataset
+    from dispu_tpu_torch.train.trainer import Trainer, state_tensors
+    from dispu_tpu_torch.utils.logging import backup_sources
+
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "chiprun_out", "train_utilities")
+    shutil.rmtree(work, ignore_errors=True)
+    base = ExperimentConfig()
+    bs = base.train.batch_size
+
+    def cfg_for(name, **train):
+        return dataclasses.replace(base, log_dir=os.path.join(work, name),
+                                   train=dataclasses.replace(
+                                       TrainConfig(), epoch_per_save=1,
+                                       steps_per_print=1, **train))
+
+    def epoch(cfg):
+        # a fresh patch set each time: its batch order is drawn from it
+        dataset = PatchDataset(h5_path=os.path.join(work, "absent.h5"),
+                               synthetic_patches_count=2 * bs, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = Trainer(cfg, dataset=dataset).train(epochs=1)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    on = cfg_for("on", visualize=True, steps_per_visu=2, profile=True)
+    backup_sources(on.log_dir, mode="copy")
+    copy = os.path.join(on.log_dir, "code", "dispu_tpu_torch")
+    require(os.path.isfile(os.path.join(copy, "kernels", "csrc", "knn.cu"))
+            and os.path.isfile(os.path.join(copy, "native.py")),
+            f"backup_sources(mode='copy') wrote no copy at {copy}")
+    kernels.reset_launch_counts()
+    state_on, on_s = epoch(on)
+    counts = kernels.launch_counts()
+    render = expected_forward_counts(base)[0]
+    render["knn"] += 6  # the evaluation step's Chamfer and Hausdorff
+    want = add_counts(add_counts({}, expected_train_counts(base), 2), render)
+    require(counts == want, f"train_utilities launches {counts} != {want}")
+    names = _kernel_names(os.path.join(on.log_dir, "profile", "trace.json"))
+    for kind, part in (("kNN", "knn"), ("attention", "attention_kernel"),
+                       ("ball query", "ball_kernel")):
+        hits = sorted(n for n in names if part in n)
+        require(hits, f"the trace names no {kind} kernel ({part}) among "
+                f"{sorted(names)[:40]}")
+        log(f"train_utilities trace: {kind} kernels {hits}")
+    png = os.path.join(on.log_dir, "plots", "epoch_0_step_2.png")
+    require(os.path.isfile(png), f"no render at {png}")
+
+    off = cfg_for("off")
+    kernels.reset_launch_counts()
+    state_off, off_s = epoch(off)
+    require(all(torch.equal(a, b) for a, b in zip(
+        state_tensors(state_on.state_dict()),
+        state_tensors(state_off.state_dict()))),
+        "the epoch with visualize and profile trained another state")
+
+    def scalars(cfg):
+        with open(os.path.join(cfg.log_dir, "scalars.jsonl")) as f:
+            return [{k: v for k, v in json.loads(ln).items()
+                     if k not in ("time", "steps_per_sec")} for ln in f]
+
+    require(scalars(on) == scalars(off) and len(scalars(on)) == 2,
+            f"the steps' scalars differ: {scalars(on)} {scalars(off)}")
+    # the profiler's cost on an epoch: profile alone against neither
+    laps = {"profile": [], "plain": []}
+    for rep in range(2):
+        for kind in (("profile", "plain") if rep == 0
+                     else ("plain", "profile")):
+            cfg = cfg_for(f"{kind}{rep}", profile=kind == "profile")
+            laps[kind].append(epoch(cfg)[1])
+            shutil.rmtree(cfg.log_dir)  # timing only: keep chiprun_out small
+    med = {k: statistics.median(v) for k, v in laps.items()}
+    log(f"train_utilities: one epoch of 2 steps of batch {bs} with "
+        f"visualize and profile {on_s:.2f} s, without {off_s:.2f} s "
+        f"(state and scalars bit-equal); launches {nonzero(counts)}; "
+        f"render {os.path.getsize(png)} bytes, trace "
+        f"{os.path.getsize(os.path.join(on.log_dir, 'profile', 'trace.json'))}"
+        f" bytes; epoch s in turns, profile alone "
+        f"{', '.join('%.2f' % t for t in laps['profile'])}, plain "
+        f"{', '.join('%.2f' % t for t in laps['plain'])} (profile / plain "
+        f"{med['profile'] / med['plain']:.3f}) on {card}")
+    log(f"train_utilities: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _rank_near_ties(label, got, want, centre, rtol):
+    """Rows of (b, s, k, 3) neighbourhoods ``got`` and ``want`` of (b, s,
+    3) centres, rank by rank: their squared distances to the centre (the
+    expansion, as the kNN computes them) must agree to ``rtol`` of its
+    scale, so that any row that differs is a near-tie swap.  Returns the
+    number of differing rows."""
+    import torch
+
+    from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
+
+    def dist(rows):
+        return pairwise_sq_dist(centre[..., None, :], rows)[..., 0, :]
+
+    scale = 2.0 * float(torch.amax(torch.sum(want * want, -1)))
+    dg, dw = dist(got), dist(want)
+    err = float((torch.abs(dg - dw) / (torch.abs(dw) + scale)).max())
+    require(err <= rtol, f"{label}: a row differs beyond a near-tie ({err})")
+    return int((got != want).any(-1).sum())
+
+
+def ops_21(card: str) -> dict:
+    """The point-set ops of the JAX package's ``ops/`` (patches, dilated
+    grouping, three-NN, the approximate EMD) on the card, each through the
+    kernels against the same call through the plain versions (impl
+    'torch'), with its launches; selections equal except near-ties under
+    phase 3's contract (``KNN_SWAP_RTOL``), FPS seeds bit-equal.  Then the
+    EMD on the card against the CPU, and the native host library built
+    from ``dispu_tpu_torch/csrc/`` with g++ and called once, its kNN
+    against the kNN kernel's."""
+    import numpy as np
+    import torch
+
+    from dispu_tpu_torch import kernels, native
+    from dispu_tpu_torch.ops import emd
+    from dispu_tpu_torch.ops.geometry import (normalize_point_cloud,
+                                              pairwise_sq_dist)
+    from dispu_tpu_torch.ops.grouping import dilat_group
+    from dispu_tpu_torch.ops.interpolate import three_nn
+    from dispu_tpu_torch.ops.knn import knn
+    from dispu_tpu_torch.ops.patches import (extract_patches_test,
+                                             extract_patches_train)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    clouds = np.stack([load_cloud("Icosahedron.xyz"),
+                       load_cloud("fandisk.xyz")])
+    pcs, _, _ = normalize_point_cloud(torch.from_numpy(clouds).to(dev))
+    # a denser ground truth around each cloud: 4 jittered copies
+    gt = (pcs.repeat(1, 4, 1) + 0.01 * torch.randn(
+        2, 4 * pcs.shape[1], 3, generator=gen).to(dev)).contiguous()
+    counts, lines = {}, []
+
+    def through(fn, want_counts, label):
+        kernels.reset_launch_counts()
+        out = fn("auto")
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        want = dict(dict.fromkeys(kernels.LAUNCHES, 0), **want_counts)
+        require(got == want, f"ops_21 {label}: launches {got} != {want}")
+        counts.update(add_counts(counts, got))
+        return out, fn("torch")
+
+    # patches for training: 24 FPS seeds a cloud, 256-point patches, and
+    # 1024-point ground-truth patches around the same seeds
+    (kp, _, kg), (pp, _, pg) = through(
+        lambda impl: extract_patches_train(pcs, 256, patch_num=24,
+                                           gt_xyz=gt, gt_k=1024, impl=impl),
+        dict(fps=1, knn=2), "extract_patches_train")
+    # patch-major: rows j·b + v hold cloud v's patch j
+    require(torch.equal(kp[:, 0], pp[:, 0]),
+            "extract_patches_train: the seeds (each patch's row 0) differ")
+    seeds = pp[:, 0]  # each patch's nearest point is its seed
+    swaps = [_rank_near_ties("extract_patches_train", k, p, seeds,
+                             KNN_SWAP_RTOL) for k, p in ((kp, pp), (kg, pg))]
+    lines.append(f"extract_patches_train (2 x 2048 -> 24 x 256, gt 2 x 8192 "
+                 f"-> 24 x 1024): seeds bit-equal, near-tie rows {swaps}")
+    # patches for testing: the outlier filter, FPS, kNN of one cloud
+    (kt, ks), (pt, ps) = through(
+        lambda impl: extract_patches_test(clouds[0], 256, impl=impl),
+        dict(fps=1, knn=2), "extract_patches_test")
+    require(kt.shape == pt.shape and np.array_equal(ks, ps),
+            "extract_patches_test: the filtered cloud or the seeds differ")
+    swaps = _rank_near_ties("extract_patches_test", torch.from_numpy(kt),
+                            torch.from_numpy(pt), torch.from_numpy(ps),
+                            KNN_SWAP_RTOL)
+    lines.append(f"extract_patches_test (2048 -> {kt.shape[0]} x 256): "
+                 f"seeds bit-equal, near-tie rows {swaps}")
+    # the dilated grouping at a backbone's shape, and three-NN at a
+    # PointNet++ feature propagation's
+    xyz = torch.randn(28, 1024, 3, generator=gen).to(dev)
+    feats = torch.randn(28, 1024, 64, generator=gen).to(dev)
+    (kx, kf, ki), (px, pf, pi) = through(
+        lambda impl: dilat_group(xyz, feats, 16, dilation=2, use_xyz=True,
+                                 impl=impl), dict(knn=1), "dilat_group")
+    swaps = _rank_near_ties("dilat_group", kx + xyz[:, :, None],
+                            px + xyz[:, :, None], xyz, KNN_SWAP_RTOL)
+    same = ki == pi
+    require(torch.equal(kf[same], pf[same]), "dilat_group: gathered rows at "
+            "equal indices differ")
+    lines.append(f"dilat_group (28 x 1024, k 16, dilation 2, 64 channels): "
+                 f"near-tie swaps {int((~same).sum())} of {ki.numel()}")
+    queries = torch.randn(28, 1024, 3, generator=gen).to(dev)
+    source = torch.randn(28, 256, 3, generator=gen).to(dev)
+    (kd, kn), (pd, pn) = through(lambda impl: three_nn(queries, source,
+                                                       impl=impl),
+                                 dict(knn=1), "three_nn")
+    swaps = _near_tie_swaps("three_nn", kn, pn, source, queries, None,
+                            KNN_SWAP_RTOL)
+    scale = 2.0 * float(torch.amax(torch.sum(source * source, -1)))
+    dist_err = float((torch.abs(kd - pd) / (torch.abs(pd) + scale)).max())
+    require(dist_err <= KNN_DIST_RTOL, f"three_nn distances {dist_err}")
+    lines.append(f"three_nn (28 x 1024 queries, 256 points): near-tie "
+                 f"swaps {swaps}, distances {dist_err:.2e} of the scale")
+    # the approximate EMD at a training batch's clouds, card against CPU
+    pred = torch.rand(4, 1024, 3, generator=gen) * 0.3
+    ref = torch.rand(4, 1024, 3, generator=gen) * 0.3
+    t0 = time.perf_counter()
+    match = emd.approx_match(pred.to(dev), ref.to(dev))
+    cost = emd.earth_mover_cost(pred.to(dev), ref.to(dev))
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_match = emd.approx_match(pred, ref)
+    cpu_cost = emd.earth_mover_cost(pred, ref)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    m_err = float((match.cpu() - cpu_match).abs().max()
+                  / cpu_match.abs().max())
+    c_err = abs(float(cost) - float(cpu_cost)) / abs(float(cpu_cost))
+    require(m_err <= EMD_MATCH_REL and c_err <= EMD_COST_REL,
+            f"EMD card vs CPU: match {m_err}, cost {c_err}")
+    lines.append(f"EMD (4 x 1024 vs 1024): card vs CPU match {m_err:.2e} of "
+                 f"its largest (limit {EMD_MATCH_REL:.0e}), cost rel "
+                 f"{c_err:.2e} (limit {EMD_COST_REL:.0e}); card {card_ms:.1f}"
+                 f" ms with the first call, CPU {cpu_ms:.1f} ms")
+    # the control: the same on the card, the squared distances in bf16
+    emd.pairwise_sq_dist = lambda x, y: pairwise_sq_dist(
+        x, y).bfloat16().float()
+    try:
+        ctl_match = emd.approx_match(pred.to(dev), ref.to(dev)).cpu()
+        ctl_cost = float(emd.earth_mover_cost(pred.to(dev), ref.to(dev)))
+    finally:
+        emd.pairwise_sq_dist = pairwise_sq_dist
+    tm_err = float((ctl_match - cpu_match).abs().max()
+                   / cpu_match.abs().max())
+    tc_err = abs(ctl_cost - float(cpu_cost)) / abs(float(cpu_cost))
+    require(tm_err > EMD_MATCH_REL or tc_err > EMD_COST_REL,
+            f"the EMD limits pass bf16 distances: match {tm_err}, cost "
+            f"{tc_err} (f32: match {m_err}, cost {c_err})")
+    lines.append(f"EMD control, the squared distances in bf16: match "
+                 f"{tm_err:.2e}, cost rel {tc_err:.2e} (fails the limits, "
+                 "as it must)")
+    # the native host library: built here with g++, its exact KD-tree kNN
+    # against the kNN kernel's selection
+    t0 = time.perf_counter()
+    try:
+        native.build()
+    except RuntimeError as e:
+        require(False, f"the native library does not build: {e}")
+    build_s = time.perf_counter() - t0
+    pts = pcs[:1].contiguous()
+    nidx = torch.from_numpy(native.knn_batch(pts.cpu().numpy(),
+                                             pts.cpu().numpy(), 16)).to(dev)
+    kernels.reset_launch_counts()
+    _, kidx = knn(16, pts, pts)
+    counts = add_counts(counts, kernels.launch_counts())
+    swaps = _near_tie_swaps("native knn_batch", nidx, kidx, pts, pts, None,
+                            KNN_SWAP_RTOL)
+    lines.append(f"native: built in {build_s:.1f} s, knn_batch (2048, k 16) "
+                 f"against knn.cu: near-tie swaps {swaps}")
+    for line in lines:
+        log(f"ops_21 {line}")
+    log(f"ops_21: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4499,6 +4934,7 @@ def main() -> int:
     counts = add_counts(counts, serve_refine(card))
     counts = add_counts(counts, serve_large(card))
     counts = add_counts(counts, serve_export(card))
+    counts = add_counts(counts, serve_export_mesh(card))
     counts = add_counts(counts, serve_bf16(card))
     counts = add_counts(counts, train_phase(card, args.profile))
     train_dir = os.path.join(REPO, "chiprun_out", "train_smoke")
@@ -4513,6 +4949,8 @@ def main() -> int:
     counts = add_counts(counts, train_remat(card))
     counts = add_counts(counts, evaluate_phase(card))
     counts = add_counts(counts, multi_device(card))
+    counts = add_counts(counts, train_utilities(card))
+    counts = add_counts(counts, ops_21(card))
     if args.profile:
         import dataclasses
 

@@ -3,8 +3,8 @@
 A copy of the JAX package's ``config.py`` dataclasses (same fields, same
 defaults), kept here so that the port imports nothing of that package.
 Field comments that describe TPU measurements stay with the JAX copy;
-the training settings that this port does not run yet raise
-``NotImplementedError`` through :func:`check_train_supported`.
+values that neither package knows raise ``ValueError`` through
+:func:`check_supported` and :func:`check_train_supported`.
 """
 
 from __future__ import annotations
@@ -221,12 +221,6 @@ def check_compute_dtype(name: str) -> None:
                          f"{COMPUTE_DTYPES}")
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1: {item})"
-    )
-
-
 def check_supported(gen_cfg: GeneratorConfig,
                     inf_cfg: InferenceConfig | None = None) -> None:
     """Raise ``ValueError`` for values the JAX package does not know
@@ -257,10 +251,8 @@ def check_supported(gen_cfg: GeneratorConfig,
 
 def check_train_supported(cfg: ExperimentConfig,
                           data_parallel: bool = False) -> None:
-    """Raise ``NotImplementedError`` for training settings outside the
-    ported slice, naming the ROADMAP.md queue item that will bring each;
-    ``ValueError`` for the GAN's fake pool when the run is
-    ``data_parallel``.
+    """Raise ``ValueError`` for values the JAX package does not know
+    either, and for the GAN's fake pool when the run is ``data_parallel``.
 
     Ported: CD and GAN training (``use_gan``, ``fake_pool_size``) at
     either ``compute_dtype`` (``ValueError`` for another), on one device
@@ -269,15 +261,12 @@ def check_train_supported(cfg: ExperimentConfig,
     ('pallas' through the gather and scatter-add kernels), the turbo
     flags (``fast_knn``, ``fast_gather``, ``fast_gather_backbone``,
     ``fused_grouping`` with them, ``dense_impl='split'``) and ``remat``,
-    for the generator and the critic.  Any ``refine_local_impl`` trains:
-    training takes the composed refiner, as in the JAX package."""
+    for the generator and the critic, with ``visualize`` (the renders) and
+    ``profile`` (the first epoch's trace).  Any ``refine_local_impl``
+    trains: training takes the composed refiner, as in the JAX
+    package."""
     check_supported(cfg.generator)
     check_compute_dtype(cfg.train.compute_dtype)
-    host = "host-side utilities (item 22)"
-    if cfg.train.visualize:
-        _unsupported("visualize (training renders)", host)
-    if cfg.train.profile:
-        _unsupported("profile (the trainer's trace of its first epoch)", host)
     if data_parallel and cfg.use_gan and cfg.train.fake_pool_size > 0:
         raise ValueError(
             "the fake pool is a host round trip, single-device only; "

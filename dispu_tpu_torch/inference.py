@@ -20,9 +20,10 @@ process prepares the patches (the same in each), runs the generator on its
 rows of each chunk, and the predictions are all-gathered, so that every
 process merges all of them.  This one eager path stands for both of the
 JAX package's mesh paths, its staged one and its single-program one
-(``mesh_fused``): ``upsample`` and ``upsample_many`` both take it.  The
-merge is not sharded (the JAX package does not pass its mesh to the
-merge either).
+(``mesh_fused``): ``upsample`` and ``upsample_many`` both take it, and
+``serving.export_upsampler(mesh=...)`` traces it, with the rank as the
+program's input.  The merge is not sharded (the JAX package does not pass
+its mesh to the merge either).
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ from dispu_tpu_torch.ops.geometry import normalize_point_cloud
 from dispu_tpu_torch.ops.knn import knn
 from dispu_tpu_torch.ops.sampling import (farthest_point_sample,
                                           farthest_point_sample_bucketed)
-from dispu_tpu_torch.parallel.mesh import (all_gather_rows, data_size,
-                                           local_rows)
+from dispu_tpu_torch.parallel.mesh import (all_gather_rows, data_rank,
+                                           data_size)
 
 
 def resolve_device(device) -> torch.device:
@@ -130,16 +131,25 @@ class PatchUpsampler:
             patches = torch.cat([patches, filler], dim=0)
         return list(torch.split(patches, bs, dim=0))
 
-    def generate(self, patches: torch.Tensor) -> torch.Tensor:
+    def generate(self, patches: torch.Tensor,
+                 rank: torch.Tensor | None = None) -> torch.Tensor:
         """(s, p, 3) normalized patches → (s, p·r^num_passes, 3) fine
         points: each chunk goes through the generator ``num_passes`` times,
         each pass taking the previous pass's fine points.  Under a mesh
         each process runs its rows of every chunk, and one all-gather
-        brings every process all of them."""
+        brings every process all of them.  ``rank``: this process's data
+        rank as a 0-d int64 tensor (an exported program's input, where a
+        Python int would be a constant of the trace), the mesh's by
+        default; its rows are taken by ``index_select``."""
         chunks = self.chunks(patches)
         if self.mesh is not None:
-            mine = local_rows(self.mesh, self.patch_batch)
-            chunks = [c[mine] for c in chunks]
+            if rank is None:
+                rank = torch.tensor(data_rank(self.mesh),
+                                    device=patches.device)
+            # __init__ rounds patch_batch up to a multiple of the axis
+            per = self.patch_batch // data_size(self.mesh)
+            rows = torch.arange(per, device=patches.device) + rank * per
+            chunks = [c.index_select(0, rows) for c in chunks]
         preds = []
         for pred in chunks:
             for _ in range(self.num_passes):
@@ -171,17 +181,18 @@ class PatchUpsampler:
             idx = farthest_point_sample(out_num, points, impl=impl)
         return _take(points, idx)
 
-    def pipeline(self, pcs: torch.Tensor) -> torch.Tensor:
+    def pipeline(self, pcs: torch.Tensor,
+                 rank: torch.Tensor | None = None) -> torch.Tensor:
         """(B, n, 3) same-size f32 clouds on the device → (B,
-        n·final_ratio, 3): normalize, :meth:`prepare`, :meth:`generate`,
-        un-normalize the patches, :meth:`merge`, un-normalize the clouds.
-        The one function that live requests run and that an export
-        traces."""
+        n·final_ratio, 3): normalize, :meth:`prepare`, :meth:`generate`
+        (``rank`` as it takes it), un-normalize the patches, :meth:`merge`,
+        un-normalize the clouds.  The one function that live requests run
+        and that an export traces."""
         b, n, _ = pcs.shape
         seed_num, out_num = plan_counts(n, self.inf_cfg)
         pcs_n, centroid, furthest = normalize_point_cloud(pcs)
         patches, p_centroid, p_furthest, _ = self.prepare(pcs_n, seed_num)
-        pred = self.generate(patches) * p_furthest + p_centroid
+        pred = self.generate(patches, rank) * p_furthest + p_centroid
         out = self.merge(pred.reshape(b, -1, 3), out_num)
         return out * furthest + centroid
 

@@ -1,6 +1,7 @@
 """Losses of CD and GAN training (counterpart of ``losses.py``): Chamfer,
-Hausdorff, repulsion, the uniformity statistic, the LSGAN critic and
-generator losses, the composite ``pu_losses`` and the epoch schedules.
+Hausdorff, the approximate EMD, repulsion, the uniformity statistic, the
+LSGAN critic and generator losses, the composite ``pu_losses`` and the
+epoch schedules.
 
 Every loss takes ``impl`` for the kernels it reaches (the chamfer argmin's
 kNN kernel and the ball-query kernel; see ``dispu_tpu_torch.kernels``).
@@ -18,9 +19,14 @@ from typing import Sequence, Tuple
 import torch
 
 from dispu_tpu_torch.ops.chamfer import nn_distance
+from dispu_tpu_torch.ops.emd import earth_mover_cost
 from dispu_tpu_torch.ops.grouping import group_point, query_ball_point
 from dispu_tpu_torch.ops.knn import knn_indices
 from dispu_tpu_torch.ops.sampling import farthest_point_sample, gather_point
+
+
+#: the approximate EMD (``ops/emd.py``), under the JAX package's name
+earth_mover = earth_mover_cost
 
 
 def _smallest(x: torch.Tensor, k: int) -> torch.Tensor:

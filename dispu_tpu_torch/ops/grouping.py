@@ -202,3 +202,30 @@ def grouping(feature: torch.Tensor, k: int, src_xyz: torch.Tensor,
     if use_xyz:
         grouped_feature = torch.cat([grouped_xyz, grouped_feature], dim=-1)
     return grouped_xyz, grouped_feature, idx
+
+
+def selection_sort(dist: torch.Tensor, k: int):
+    """The k smallest entries of each row of ``dist`` and their indices,
+    ascending, ties to the lower index (the reference's ``selection_sort``
+    op, ``-top_k(-dist, k)`` in the JAX package) → ((..., k), (..., k)
+    int32)."""
+    values, idx = torch.sort(dist, dim=-1, stable=True)
+    return values[..., :k], idx[..., :k].to(torch.int32)
+
+
+def dilat_group(xyz: torch.Tensor, points: torch.Tensor | None, k: int,
+                dilation: int = 1, use_xyz: bool = False,
+                impl: str = "auto"):
+    """Dilated kNN grouping: of the k·dilation + 1 nearest points of each
+    point (the kNN kernel on the card), every ``dilation``-th after the
+    self column.  Returns (grouped_xyz (b, n, k, 3) centred on each point,
+    grouped points (b, n, k, c), or with ``use_xyz`` (b, n, k, 3 + c), or
+    the centred xyz without ``points``, idx (b, n, k) int32)."""
+    idx = knn_indices(k * dilation + 1, xyz, xyz, impl=impl)[:, :, 1::dilation]
+    grouped_xyz = group_point(xyz, idx) - xyz[:, :, None, :]
+    if points is None:
+        return grouped_xyz, grouped_xyz, idx
+    grouped_points = group_point(points, idx)
+    if use_xyz:
+        grouped_points = torch.cat([grouped_xyz, grouped_points], dim=-1)
+    return grouped_xyz, grouped_points, idx

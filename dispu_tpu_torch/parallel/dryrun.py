@@ -9,9 +9,10 @@ mesh and again in one process without it: a CD step (with the training
 input's draws and augmentation, and with batch norm in every layer), a
 GAN step, the evaluation step, batch norm's global moments, sharded
 evaluation, the mesh ``PatchUpsampler``'s ``upsample`` and
-``upsample_many`` at 4× and 16×, the sharded bucketed merge and a
-``Trainer`` epoch with its checkpoint, whose processes start from
-different seeds.  Rank 0 prints one ``ok`` line for each with the
+``upsample_many`` at 4× and 16×, the SPMD serving export (exported,
+loaded and served by the same processes, bit-equal to the live mesh
+path), the sharded bucketed merge and a ``Trainer`` epoch with its
+checkpoint, whose processes start from different seeds.  Rank 0 prints one ``ok`` line for each with the
 deviation from the one-process run; a
 check that fails, or a process that fails or outlives the time limit,
 fails the run.  Sizes that the process count does not divide are chosen
@@ -135,6 +136,9 @@ def default_cases(n: int) -> dict:
                       clouds=rng.randn(2, 128, 3).astype(np.float32),
                       inf_cfgs={f"{r}x": InferenceConfig(final_ratio=r, **inf)
                                 for r in (4, 16)}),
+        "serve_export": dict(gen_cfg=small, model=None,
+                             cloud=rng.randn(128, 3).astype(np.float32),
+                             inf_cfg=InferenceConfig(**inf)),
         "merge": dict(points=rng.randn(2, 4099, 3).astype(np.float32),
                       npoint=1000, n_buckets=2 * n, bad_buckets=2 * n + 1),
         "trainer": dict(cfg=tiny_experiment(train=dict(
@@ -324,6 +328,54 @@ def run_serve(mesh, spec: dict) -> dict:
     return out
 
 
+def run_serve_export(mesh, spec: dict) -> dict:
+    """The upsampler exported (``serving.export_upsampler``, the SPMD form
+    with the mesh) into ``<path>/mesh`` or ``<path>/plain``, loaded by
+    these processes and served the cloud; with the live ``upsample``'s
+    output and the manifest, and under a mesh the error that each process
+    raised (None for none) when a second export into the same path fails
+    in rank 0 alone (weights that do not fit the generator)."""
+    from dispu_tpu_torch.inference import PatchUpsampler
+    from dispu_tpu_torch.serving import ServedUpsampler, export_upsampler
+
+    up = PatchUpsampler(gen_cfg=spec["gen_cfg"], inf_cfg=spec["inf_cfg"],
+                        device="cpu", mesh=mesh)
+    if spec["model"] is not None:
+        up.model.load_state_dict(spec["model"])
+    cloud = spec["cloud"]
+    path = os.path.join(spec["path"], "plain" if mesh is None else "mesh")
+    manifest = export_upsampler(up.model.state_dict(), [cloud.shape[0]],
+                                path, gen_cfg=spec["gen_cfg"],
+                                inf_cfg=spec["inf_cfg"], mesh=mesh,
+                                device="cpu")
+    out = dict(live=up.upsample(cloud), manifest=manifest,
+               served=ServedUpsampler(path).upsample(cloud))
+    if mesh is not None:
+        try:
+            export_upsampler({}, [cloud.shape[0]], path,
+                             gen_cfg=spec["gen_cfg"], inf_cfg=spec["inf_cfg"],
+                             mesh=mesh, device="cpu")
+            out["failed_export"] = None
+        except RuntimeError as e:
+            out["failed_export"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def run_serve_load(mesh, spec: dict) -> dict:
+    """An artifact that an earlier launch exported, loaded and served the
+    cloud in this one (the mesh unused: the artifact names its group);
+    with the model modules this process imported (none should be)."""
+    from dispu_tpu_torch.serving import ServedUpsampler
+
+    served = ServedUpsampler(spec["path"])
+    out = served.upsample(spec["cloud"])
+    model_code = ("dispu_tpu_torch.models", "dispu_tpu_torch.nn",
+                  "dispu_tpu_torch.inference", "dispu_tpu_torch.convert")
+    return dict(served=out, manifest=served.manifest,
+                imported=sorted(m for m in sys.modules
+                                if m.startswith(model_code)))
+
+
 def run_merge(mesh, spec: dict) -> dict:
     """The bucketed merge's indices, and its refusal of a bucket count
     that the data axis does not divide."""
@@ -422,7 +474,11 @@ RUNNERS = {"cd": run_steps, "cd_bn": run_steps, "cd_drawn": run_steps,
            "gan": run_steps, "gan_remat": run_steps,
            "eval_step": run_eval_step,
            "cd_refused": run_refusal, "bn": run_bn,
-           "eval": run_eval, "serve": run_serve, "merge": run_merge}
+           "eval": run_eval, "serve": run_serve, "merge": run_merge,
+           "serve_export": run_serve_export, "serve_load": run_serve_load}
+
+#: cases run with the mesh alone (no one-process run in rank 0)
+MESH_ONLY = ("cd_refused", "serve_load")
 
 
 # ----------------------------------------------------------------- checks
@@ -528,6 +584,26 @@ def summarize(name: str, mesh_out: dict, plain_out, n: int) -> str:
             parts.append(f"{key} {cd:.1e}")
         return (f"ok {name}: Chamfer to the one-process output "
                 + ", ".join(parts))
+    if name == "serve_export":
+        entry, plain = mesh_out["manifest"]["entries"][0], \
+            plain_out["manifest"]["entries"][0]
+        require(np.array_equal(mesh_out["served"], mesh_out["live"]),
+                "the SPMD entry's output differs from the live mesh path")
+        require(np.array_equal(plain_out["served"], plain_out["live"]),
+                "the one-process entry's output differs from live")
+        require(entry["nr_devices"] == n and plain["nr_devices"] == 1,
+                f"nr_devices {entry['nr_devices']}, {plain['nr_devices']}")
+        require("_c10d_functional::all_gather_into_tensor"
+                in entry["collectives"], f"collectives {entry}")
+        require(entry["kernels"] == plain["kernels"], "the entries' ops")
+        require(mesh_out["failed_export"] is not None,
+                "an export that failed in rank 0 returned")
+        cd = _chamfer(mesh_out["served"], plain_out["served"])
+        require(cd <= CLOUD_CHAMFER, f"SPMD against one process: {cd}")
+        return (f"ok {name}: the SPMD entry (nr_devices {n}, "
+                f"{entry['collectives']}, ops {entry['kernels']}) serves "
+                f"bit-equal to the live mesh path; Chamfer to the "
+                f"one-process entry {cd:.1e}")
     if name == "merge":
         require(np.array_equal(mesh_out["idx"], plain_out["idx"]),
                 "sharded merge differs")
@@ -579,9 +655,11 @@ def rank_main(rank: int, n: int, init: str, out: str,
                 log_dir = os.path.join(out, "trainer_log")
                 results[name] = {"mesh": run_trainer(mesh, spec, log_dir)}
             else:
+                if name == "serve_export" and not spec.get("path"):
+                    spec = dict(spec, path=os.path.join(out, "export"))
                 runner = RUNNERS[name]
                 results[name] = {"mesh": runner(mesh, spec)}
-                if rank == 0 and name != "cd_refused":
+                if rank == 0 and name not in MESH_ONLY:
                     results[name]["plain"] = runner(None, spec)
             results[name]["seconds"] = time.perf_counter() - t0
         torch.save(results, os.path.join(out, f"rank{rank}.pt"))

@@ -172,13 +172,19 @@ def broadcast_(tensors, mesh, src: int = 0):
 
 def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     """Every process's ``t`` stacked along a new leading axis, in data
-    rank order: (W, *t.shape)."""
-    import torch.distributed as dist
+    rank order: (W, *t.shape), without a gradient.
 
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(data_size(mesh))]
-    dist.all_gather(parts, t, group=_group(mesh))
-    return torch.stack(parts)
+    The functional collective itself (``_c10d_functional``'s
+    ``all_gather_into_tensor`` and ``wait_tensor``, which the
+    ``_functional_collectives`` wrappers of every torch release lower to),
+    so that ``torch.export`` carries it into a program as two nodes that
+    name the data axis's group; run eagerly it moves the same bytes as
+    ``dist.all_gather``."""
+    group = _group(mesh)
+    out = torch.ops._c10d_functional.all_gather_into_tensor(
+        t.detach().contiguous().unsqueeze(0), group.size(),
+        group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
 
 
 class _AllReduceSum(torch.autograd.Function):

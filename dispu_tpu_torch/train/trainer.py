@@ -12,13 +12,24 @@ Data-parallel training (``mesh``): every process runs the same loop over
 the same batch order and hands the step the global batch, of which the
 step keeps its rows (``train.steps``).  Rank 0's state is broadcast at the
 start; only rank 0 writes ``args.txt``, the logs, the scalars, the source
-manifest and the checkpoints, and a barrier follows each checkpoint, so
-that every process can restore the same file.
+manifest, the renders, the profiler's trace and the checkpoints, and a
+barrier follows each checkpoint, so that every process can restore the
+same file.
+
+``visualize``: every ``steps_per_visu`` steps, the generator in inference
+mode on the step's first cloud, and three views of its input, coarse,
+fine and ground-truth clouds stacked into one grayscale image, written to
+``<log_dir>/plots/epoch_<e>_step_<s>.png`` (with the standard library,
+``utils.visu.write_png``) and, where TensorBoard imports, as the
+``Upsampling`` image.  ``profile``: a ``torch.profiler`` trace of the
+first epoch run, ``<log_dir>/profile/trace.json``
+(``utils.logging.maybe_profile``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Optional, Sequence
 
@@ -35,7 +46,8 @@ from dispu_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                               restore_checkpoint,
                                               save_checkpoint)
 from dispu_tpu_torch.utils.logging import (MetricsLogger, StepTimer,
-                                           backup_sources, dump_args)
+                                           backup_sources, dump_args,
+                                           maybe_profile)
 from dispu_tpu_torch.utils.meters import AverageMeter
 
 
@@ -79,6 +91,7 @@ class BaseTrainer:
             if cfg.train.backup_sources:
                 backup_sources(cfg.log_dir)
         self._gt = self._radius = self._inputs = None
+        self._eval_step = None  # built at the first visualize step
 
     # ------------------------------------------------------------- hooks
 
@@ -156,9 +169,43 @@ class BaseTrainer:
             inputs = None if self._inputs is None else self._inputs[idx]
             yield self._gt[idx], inputs, self._radius[idx]
 
-    def _epoch(self, state, generator, step: int):
+    def _visualize(self, state, gt, radius, step: int, epoch: int,
+                   inputs=None):
+        """The renders of one step (module docstring), from the batch's
+        first cloud; in random-input mode its input is drawn anew from a
+        generator seeded with ``step``, so the training draws stay as
+        they are."""
+        import numpy as np
+
+        from dispu_tpu_torch.data.augment import sample_nonuniform_inputs
+        from dispu_tpu_torch.train.steps import make_eval_step
+        from dispu_tpu_torch.utils.visu import (point_cloud_three_views,
+                                                write_png)
+
+        if self._eval_step is None:
+            self._eval_step = make_eval_step(self.cfg, device=self.device,
+                                             impl=self.impl)
+        gt, radius = gt[:1], radius[:1]
+        if inputs is None:
+            inputs = sample_nonuniform_inputs(
+                gt, self.cfg.generator.num_points,
+                torch.Generator(device=self.device).manual_seed(step))
+        else:
+            inputs = inputs[:1]
+        coarse, fine, _ = self._eval_step(state.model, inputs, gt, radius)
+        img = np.concatenate([
+            point_cloud_three_views(t[0].float().cpu().numpy(),
+                                    canvas_size=250)
+            for t in (inputs, coarse, fine, gt)], axis=0)
+        self.logger.image("Upsampling", img, step)
+        plots = os.path.join(self.cfg.log_dir, "plots")
+        os.makedirs(plots, exist_ok=True)
+        write_png(os.path.join(plots, f"epoch_{epoch}_step_{step}.png"), img)
+
+    def _epoch(self, state, generator, step: int, epoch: int = 0):
         """One epoch, one step at a time; scalars every
-        ``steps_per_print`` steps, fetched from the device only then."""
+        ``steps_per_print`` steps, fetched from the device only then, and
+        with ``visualize`` the renders every ``steps_per_visu`` steps."""
         cfg = self.cfg
         sums, n_metric = None, 0
         for gt, inputs, radius in self._batches():
@@ -177,6 +224,9 @@ class BaseTrainer:
                 host = {k: float(v) for k, v in metrics.items()}
                 host["steps_per_sec"] = self._timer.steps_per_sec
                 self.logger.scalars(step, host)
+            if (cfg.train.visualize and self.writer
+                    and step % cfg.train.steps_per_visu == 0):
+                self._visualize(state, gt, radius, step, epoch, inputs)
         return state, sums, n_metric, step
 
     def _train_loop(self, state, start_epoch: int,
@@ -192,7 +242,11 @@ class BaseTrainer:
         saved_epoch = None
         for epoch_i in range(start_epoch, total_epochs):
             t0 = time.time()
-            state, sums, n_metric, step = self._epoch(state, generator, step)
+            profile_this = (cfg.train.profile and self.writer
+                            and epoch_i == start_epoch)
+            with maybe_profile(cfg.log_dir, profile_this, self.device):
+                state, sums, n_metric, step = self._epoch(
+                    state, generator, step, epoch_i)
             meters = {k: AverageMeter() for k in self.epoch_metric_keys}
             if sums is not None:
                 for k in meters:
@@ -211,6 +265,7 @@ class BaseTrainer:
                 saved_epoch = epoch
         if start_epoch < total_epochs and saved_epoch != total_epochs:
             self.save(state, total_epochs)
+        self.logger.flush()
         return state
 
 
@@ -230,6 +285,9 @@ class _Silent:
         pass
 
     def text(self, msg):
+        pass
+
+    def flush(self):
         pass
 
 

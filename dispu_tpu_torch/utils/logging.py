@@ -1,46 +1,80 @@
 """A training run's logs (counterpart of ``utils/logging.py``): scalars as
-JSON lines, the epoch log, the config and a manifest of the code.
-
-The JAX package also writes TensorBoard events when a writer imports and
-offers a profiler trace; the port writes the JSON-lines log only, and its
-``profile`` setting raises (``config.check_train_supported``).
+JSON lines and, where ``tensorboard`` imports, as TensorBoard events; the
+epoch log, the config, a manifest or a copy of the code, and the
+profiler's trace of a block (:func:`maybe_profile`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _tensorboard_writer(log_dir: str):
+    """A ``torch.utils.tensorboard.SummaryWriter`` into ``log_dir``, or None
+    where ``tensorboard`` does not import (as in the JAX package).  Where
+    TensorFlow is installed, TensorBoard imports it to write (its own
+    choice, as for any user of the writer)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
+
+
 class MetricsLogger:
     """``scalars.jsonl`` (one record a call: step, wall time, values) and
-    ``log_train.txt`` (one line a call) in ``log_dir``."""
+    ``log_train.txt`` (one line a call) in ``log_dir``; the scalars and
+    :meth:`image` also as TensorBoard events where a writer imports
+    (``self.tb``, else None)."""
 
     def __init__(self, log_dir: str, filename: str = "scalars.jsonl"):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, filename)
         self.txt_path = os.path.join(log_dir, "log_train.txt")
         self._f = open(self.path, "a")
+        self.tb = _tensorboard_writer(log_dir)
 
     def scalars(self, step: int, values: Dict[str, float]):
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in values.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self.tb is not None:
+            for k, v in values.items():
+                self.tb.add_scalar(k, float(v), int(step))
+
+    def image(self, tag: str, img, step: int):
+        """A (h, w) image in [0, 1] as a TensorBoard image, where a writer
+        imports."""
+        if self.tb is not None:
+            self.tb.add_image(tag, img[None], int(step), dataformats="CHW")
 
     def text(self, msg: str):
         with open(self.txt_path, "a") as f:
             f.write(msg + "\n")
 
+    def flush(self):
+        """Write the TensorBoard events still queued (the JSON lines are
+        flushed at each call)."""
+        if self.tb is not None:
+            self.tb.flush()
+
     def close(self):
         self._f.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 def dump_args(log_dir: str, cfg) -> None:
@@ -58,10 +92,44 @@ def dump_args(log_dir: str, cfg) -> None:
         walk("", cfg)
 
 
-def backup_sources(log_dir: str) -> None:
-    """Record the code that produced a run in ``code_manifest.txt``: the
-    git commit and whether the tree is dirty (``unknown`` outside a git
-    checkout), then a sha256 of each source file of the package."""
+@contextlib.contextmanager
+def maybe_profile(log_dir: Optional[str], enable: bool = False,
+                  device="cpu"):
+    """With ``enable`` and a ``log_dir``, a ``torch.profiler`` trace of the
+    block (CPU activity, and CUDA activity for a CUDA ``device``: each
+    kernel by its ``__global__`` name) written as a Chrome trace to
+    ``<log_dir>/profile/trace.json`` when the block ends; yields the
+    profiler, or None when there is nothing to trace."""
+    if not (enable and log_dir):
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = os.path.join(log_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+def backup_sources(log_dir: str, mode: str = "manifest") -> None:
+    """Record the code that produced a run.  ``mode='manifest'`` (the
+    default) writes ``code_manifest.txt``: the git commit and whether the
+    tree is dirty (``unknown`` outside a git checkout), then a sha256 of
+    each source file of the package.  ``mode='copy'`` copies the package's
+    sources to ``<log_dir>/code/dispu_tpu_torch`` instead (without its
+    build directory and bytecode), replacing an earlier copy."""
+    if mode == "copy":
+        dst = os.path.join(log_dir, "code", os.path.basename(PACKAGE))
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(PACKAGE, dst, ignore=shutil.ignore_patterns(
+            "__pycache__", "*.pyc", "_build"))
+        return
+    if mode != "manifest":
+        raise ValueError(f"mode must be 'manifest' or 'copy', got {mode!r}")
     repo = os.path.dirname(PACKAGE)
     lines = []
     try:

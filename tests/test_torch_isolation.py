@@ -59,7 +59,12 @@ def test_import_leaves_jax_unloaded():
             "dispu_tpu_torch.train.gan_trainer, "
             "dispu_tpu_torch.utils.visu, dispu_tpu_torch.parallel.mesh, "
             "dispu_tpu_torch.parallel.sharded_eval, "
-            "dispu_tpu_torch.parallel.dryrun; "
+            "dispu_tpu_torch.parallel.dryrun, dispu_tpu_torch.native, "
+            "dispu_tpu_torch.utils.convert_tf_checkpoint, "
+            "dispu_tpu_torch.utils.eulerangles, "
+            "dispu_tpu_torch.utils.logging, dispu_tpu_torch.ops.emd, "
+            "dispu_tpu_torch.ops.interpolate, dispu_tpu_torch.ops.patches, "
+            "dispu_tpu_torch.ops.grouping; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))

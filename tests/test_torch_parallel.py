@@ -18,6 +18,7 @@ the CLI under ``torch.distributed.run`` and the 4-process dry run.
 """
 
 import dataclasses
+import json
 import os
 import signal
 import subprocess
@@ -246,6 +247,11 @@ def world(tmp_path_factory, background):
         clouds=clouds, inf_cfgs={f"{r}x": InferenceConfig(final_ratio=r,
                                                           **INF)
                                  for r in (4, 16)})
+    # the SPMD serving export of the same upsampler at 4×
+    inf4 = InferenceConfig(final_ratio=4, **INF)
+    cases["serve_export"] = dict(
+        gen_cfg=GeneratorConfig(**SMALL), model=model.state_dict(),
+        cloud=clouds[0], inf_cfg=inf4, path=str(out / "export"))
     # the bucketed merge
     points = rng.randn(2, 3001, 3).astype(np.float32)
     cases["merge"] = dict(points=points, npoint=700, n_buckets=8,
@@ -292,6 +298,10 @@ def world(tmp_path_factory, background):
                 ref[f"{r}x/{mode}"] = np.asarray(jup.upsample(clouds[0]))
             ref[f"{r}x/fused_many"] = np.asarray(jup.upsample_many(clouds))
         ref["16x/staged"] = ref["16x/fused"]
+        ref["4x/one_device"] = np.asarray(JPatchUpsampler(
+            variables, gen_cfg=JGeneratorConfig(**SMALL),
+            inf_cfg=JInferenceConfig(final_ratio=4, **INF)).upsample(
+            clouds[0]))
         ref["bn"] = _flax_bn(cases["bn"])
     except BaseException:
         ranks.close()
@@ -552,6 +562,115 @@ def test_sharded_bucketed_merge_refuses_indivisible_buckets(world):
         "refused"]
 
 
+# ------------------------------------------------------ SPMD serving export
+
+
+@pytest.fixture(scope="module")
+def fresh_launch(world, tmp_path_factory):
+    """A new launch of W processes that loads the SPMD artifact the
+    ``world`` launch exported and serves its cloud (the one spawn of the
+    export's tests)."""
+    out = tmp_path_factory.mktemp("spmd_serve")
+    spec = world["cases"]["serve_export"]
+    torch.save({"serve_load": dict(path=os.path.join(spec["path"], "mesh"),
+                                   cloud=spec["cloud"])}, out / "cases.pt")
+    return dryrun.spawn(W, str(out), cases=out / "cases.pt",
+                        timeout=SPAWN_TIMEOUT)
+
+
+def _exported(world, rank=0):
+    return world["ranks"][rank]["serve_export"]["mesh"]
+
+
+def test_spmd_export_manifest(world):
+    """Rank 0 wrote, both ranks return the same manifest: ``nr_devices``
+    W, the default group, the functional all-gather and the mesh-less
+    entry's kernel ops."""
+    entry = _exported(world)["manifest"]["entries"][0]
+    # rank 0's as written (tuples), rank 1's as read back (lists)
+    assert _exported(world, 1)["manifest"] == json.loads(json.dumps(
+        _exported(world)["manifest"]))
+    assert (entry["n"], entry["nr_devices"], entry["group"]) == (128, W, "0")
+    assert entry["collectives"] == [
+        "_c10d_functional::all_gather_into_tensor",
+        "_c10d_functional::wait_tensor"]
+    plain = _plain(world, "serve_export")["manifest"]["entries"][0]
+    assert (plain["nr_devices"], plain.get("group")) == (1, None)
+    assert entry["kernels"] == plain["kernels"] == ["fps", "knn"]
+
+
+@pytest.mark.parametrize("rank", range(W))
+def test_spmd_export_serves_live_bits(world, rank):
+    """Loaded by the processes that exported it, the entry returns the
+    live mesh path's bits in every process."""
+    got = _exported(world, rank)
+    np.testing.assert_array_equal(got["served"], got["live"])
+    np.testing.assert_array_equal(got["live"], _exported(world)["live"])
+
+
+@pytest.mark.parametrize("rank", range(W))
+def test_spmd_export_failing_in_rank0_raises_in_every_rank(world, rank):
+    """A second export into the same path whose weights do not fit the
+    generator fails in rank 0, which alone loads them; every rank raises,
+    and none returns the manifest that the first export left there."""
+    err = _exported(world, rank)["failed_export"]
+    if rank == 0:
+        assert err.startswith("RuntimeError: Error(s) in loading state_dict")
+    else:
+        assert err.startswith("RuntimeError: the export into ")
+        assert "failed in the process that writes it" in err
+
+
+@pytest.mark.parametrize("rank", range(W))
+def test_spmd_artifact_serves_in_a_fresh_launch(world, fresh_launch, rank):
+    """A new launch of W processes serves the live mesh path's bits, and
+    imports none of the model code to do it."""
+    got = fresh_launch[rank]["serve_load"]["mesh"]
+    np.testing.assert_array_equal(got["served"], _exported(world)["live"])
+    assert got["imported"] == []
+    assert got["manifest"]["entries"][0]["nr_devices"] == W
+
+
+def test_spmd_artifact_matches_jax_one_device(world, fresh_launch):
+    """Against the JAX package's one-device ``upsample`` of the same flax
+    variables, ``test_torch_inference.py::test_upsample_matches_jax``'s
+    bounds: ≥ 99% of rows within 1e-3 and each set within 1e-3 of the
+    other (f32 round-off of the patches can flip near-tied kNN and merge
+    picks)."""
+    got = fresh_launch[0]["serve_load"]["mesh"]["served"]
+    want = world["ref"]["4x/one_device"]
+    assert got.shape == want.shape == (512, 3)
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want).max(axis=1) <= 1e-3).mean() >= 0.99
+    d = np.sum((got[:, None, :] - want[None, :, :]) ** 2, axis=-1)
+    assert np.sqrt(d.min(axis=1)).max() <= 1e-3
+    assert np.sqrt(d.min(axis=0)).max() <= 1e-3
+
+
+@pytest.mark.parametrize("group", ["none", "world_size_1"])
+def test_spmd_artifact_refuses_another_world_size(world, tmp_path, group):
+    """A W-process entry never serves in one process: without a process
+    group, or in a group of one, loading raises naming both counts."""
+    import torch.distributed as dist
+
+    from dispu_tpu_torch.serving import ServedUpsampler
+
+    path = os.path.join(world["cases"]["serve_export"]["path"], "mesh")
+    if group == "none":
+        with pytest.raises(ValueError, match=f"exported for {W} processes"
+                           r".*\(0 processes\)"):
+            ServedUpsampler(path)
+        return
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/g",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match=f"exported for {W} processes"
+                           ".*the default process group has 1"):
+            ServedUpsampler(path)
+    finally:
+        dist.destroy_process_group()
+
+
 # -------------------------------------------------------- trainer, launcher
 
 
@@ -612,14 +731,15 @@ def test_dryrun_on_four_processes(background, capsys):
     """The dry run (``dryrun_multichip(4)``'s ranks): every mesh path on 4
     gloo processes at sizes that 4 does not divide (clouds of 1003 and 777
     points, ``patch_batch`` 3, 6 patches, 4099 merge candidates), each
-    within its bound of the one-process run, and the refusals."""
+    within its bound of the one-process run, the SPMD serving export
+    served bit-equal to the live mesh path, and the refusals."""
     results = background["dry"].join()
     assert len(results) == 4
     lines = capsys.readouterr().out.splitlines()
     oks = [ln.split(":")[0] for ln in lines if ln.startswith("ok ")]
     assert oks == ["ok cd", "ok cd_bn", "ok cd_drawn", "ok cd_refused",
                    "ok gan", "ok eval_step", "ok bn", "ok eval", "ok serve",
-                   "ok merge", "ok trainer"]
+                   "ok serve_export", "ok merge", "ok trainer"]
     background["results"] = results
 
 

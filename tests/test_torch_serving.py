@@ -169,9 +169,41 @@ def test_warmup_loads_every_entry(artifact):
     assert served.upsample(_cloud(200)).shape == (800, 3)
 
 
-def test_mesh_raises_naming_item_19(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 19"):
-        export_upsampler(None, [128], str(tmp_path), gen_cfg=GEN,
-                         inf_cfg=InferenceConfig(**INF), mesh=object(),
-                         device="cpu")
-    assert not os.listdir(tmp_path)
+def test_mesh_export_at_world_size_one(variables, artifact, tmp_path):
+    """The SPMD export on a (1, 1) mesh of a one-process gloo group: the
+    entry records ``nr_devices`` 1 and the default group, its graph holds
+    the functional all-gather beside the mesh-less entry's ops, and it
+    serves bit-equal to the live mesh path and to the mesh-less entry.
+    Without the group it does not load.  (World size 2 is
+    ``tests/test_torch_parallel.py``'s.)"""
+    import torch.distributed as dist
+
+    from dispu_tpu_torch.parallel.mesh import make_mesh
+
+    path, pc = str(tmp_path / "spmd"), _cloud(128, seed=5)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/group",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cpu")
+        up = PatchUpsampler(variables, gen_cfg=GEN,
+                            inf_cfg=InferenceConfig(**INF), device="cpu",
+                            mesh=mesh)
+        manifest = export_upsampler(variables, [128], path, gen_cfg=GEN,
+                                    inf_cfg=InferenceConfig(**INF),
+                                    mesh=mesh, device="cpu")
+        entry = manifest["entries"][0]
+        assert (entry["nr_devices"], entry["group"]) == (1, "0")
+        assert entry["collectives"] == [
+            "_c10d_functional::all_gather_into_tensor",
+            "_c10d_functional::wait_tensor"]
+        assert entry["kernels"] == artifact[1]["entries"][0]["kernels"]
+        live = up.upsample(pc)
+        served = ServedUpsampler(path)
+        served.warmup()
+        np.testing.assert_array_equal(served.upsample(pc), live)
+        np.testing.assert_array_equal(
+            live, ServedUpsampler(artifact[0]).upsample(pc))
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(ValueError, match="exported for 1 processes"):
+        ServedUpsampler(path)

@@ -528,18 +528,20 @@ def test_checkpoint_round_trip_bit_equal(tmp_path):
     assert (b.count, b.epoch, b.step) == (5, 3.0, 17)
 
 
-@pytest.mark.parametrize("change", [
-    dict(train=dict(visualize=True)), dict(train=dict(profile=True)),
+@pytest.mark.parametrize("setting,writes", [
+    ("visualize", "plots/epoch_0_step_2.png"),
+    ("profile", "profile/trace.json"),
 ], ids=["visualize", "profile"])
-def test_unported_training_settings_raise(change):
-    _, cfg = _cfgs()
-    fields = {}
-    for name, value in change.items():
-        if isinstance(value, dict):
-            value = dataclasses.replace(getattr(cfg, name), **value)
-        fields[name] = value
-    with pytest.raises(NotImplementedError, match="item 22"):
-        check_train_supported(dataclasses.replace(cfg, **fields))
+def test_visualize_and_profile_settings_train(tmp_path, setting, writes):
+    """Each host-side setting alone is accepted and writes its file, and
+    only its own (the renders every ``steps_per_visu`` = 2 steps, the
+    trace of the first epoch)."""
+    cfg = _trainer_cfg(tmp_path, steps_per_visu=2, **{setting: True})
+    check_train_supported(cfg)
+    Trainer(cfg, dataset=_dataset(), device="cpu").train(epochs=1)
+    assert (tmp_path / writes).is_file()
+    other = {"visualize": "profile", "profile": "plots"}[setting]
+    assert not (tmp_path / other).exists()
 
 
 @pytest.mark.parametrize("change", [
