@@ -129,7 +129,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      The point-set ops (``ops_21``): patch extraction, ``dilat_group`` and
      ``three_nn`` through the kernels against the plain versions (near-tie
      swaps only), the EMD against the CPU, and the native host library
-     built with g++ and held against ``knn.cu``;
+     built with g++ and held against ``knn.cu``.  The network modules of
+     ROADMAP 21 (``nets_21``): the hierarchy extractor and upsampler, the
+     GCN backbone with each conv, the up-projection unit and the ball
+     refiner (training, and eval with ``local_impl='fused'``) at their
+     published defaults, each with exact launch counts, its selections
+     against the plain versions, its output against the plain path on
+     the kernels' selections and one backward; the kNN row form at k 48
+     and the hierarchy's ball queries timed;
   5. print one JSON line listing every kernel with its numbers;
   6. print {"ok": true, "device": {...}} as the last line.
 
@@ -140,6 +147,8 @@ where the repository's package is missing beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import math
 import os
@@ -4858,6 +4867,304 @@ def ops_21(card: str) -> dict:
     return counts
 
 
+# ---------------------------------- phase 4: ROADMAP 21's network modules
+
+# ROADMAP 21's network modules on the card.  Each runs once through the
+# kernels with every selection it makes recorded (the site, its inputs,
+# its result); each recorded selection is held against the plain version
+# on the same inputs (FPS bit-equal; kNN and three-NN swaps only between
+# near-ties, KNN_SWAP_RTOL, three-NN distances KNN_DIST_RTOL; the ball
+# query under check_query_ball's contract); then the module runs through
+# the plain versions with the kernel run's selections replayed, so that
+# the outputs differ only where a kernel other than a selection computes
+# values (the refiner's attention and fused local branch): max |d| over
+# the output's max |x|.  Readings on an H100 at 700 W: 0 where the
+# selections are all a kernel does (replayed, the rest is the same torch
+# code); the ball refiner 9.6e-7 in training (attention.cu against its
+# plain bf16 emulation) and 4.3e-6 in eval with 'fused' (refine_local.cu's
+# 3xTF32 sums too).  The refiner's limit is an order above its readings.
+NETS_REL = {"exact": 1e-6, "refiner": 5e-5}
+# the modules' selection sites: (module, name, what it selects)
+SELECTION_SITES = (
+    ("dispu_tpu_torch.nn.pointnet", "farthest_point_sample", "fps"),
+    ("dispu_tpu_torch.nn.pointnet", "query_ball_point", "ball"),
+    ("dispu_tpu_torch.nn.pointnet", "knn_indices", "knn"),
+    ("dispu_tpu_torch.nn.pointnet", "three_nn", "three_nn"),
+    ("dispu_tpu_torch.nn.gcn", "knn_indices", "knn"),
+    ("dispu_tpu_torch.ops.grouping", "query_ball_point", "ball"),
+)
+
+
+class SelectionTape:
+    """Inside ``with tape.recording()`` every selection site records
+    (what, function, args, kwargs, result); inside ``with tape.replaying()``
+    each site returns the next recorded result instead, in order, and
+    every recording must be used."""
+
+    def __init__(self):
+        self.records = []
+
+    @contextlib.contextmanager
+    def _sites(self, make):
+        saved = []
+        for mod_name, name, what in SELECTION_SITES:
+            mod = importlib.import_module(mod_name)
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, make(getattr(mod, name), what))
+        try:
+            yield
+        finally:
+            for mod, name, orig in saved:
+                setattr(mod, name, orig)
+
+    @contextlib.contextmanager
+    def recording(self):
+        self.records = []
+
+        def make(orig, what):
+            def site(*args, **kwargs):
+                out = orig(*args, **kwargs)
+                self.records.append((what, orig, args, kwargs, out))
+                return out
+            return site
+
+        with self._sites(make):
+            yield
+
+    @contextlib.contextmanager
+    def replaying(self):
+        queue = list(self.records)
+
+        def make(orig, what):
+            def site(*args, **kwargs):
+                require(bool(queue), f"replay: no recorded {what} left")
+                rec = queue.pop(0)
+                require(rec[0] == what and rec[1] is orig,
+                        f"replay: {what} called where {rec[0]} was recorded")
+                return rec[4]
+            return site
+
+        with self._sites(make):
+            yield
+        require(not queue, f"replay left {len(queue)} selections unused")
+
+
+def _ball_contract(label, got, want, radius, xyz, qs):
+    """The ball query's (idx, counts) against the plain version's on the
+    same inputs: rows may differ only where a point's plain distance lies
+    within QB_TIE_RTOL of r² (check_query_ball's hit-boundary contract).
+    Returns the number of differing rows."""
+    import torch
+
+    from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
+
+    d = pairwise_sq_dist(qs, xyz)
+    scale = (torch.sum(qs * qs, -1)[..., None]
+             + torch.sum(xyz * xyz, -1)[:, None, :])
+    r2 = float(torch.tensor(radius, dtype=torch.float32) ** 2)
+    boundary = torch.any(torch.abs(d - r2) <= QB_TIE_RTOL * (r2 + scale),
+                         dim=-1)
+    rows_ok = torch.all(got[0] == want[0], dim=-1) & (got[1] == want[1])
+    require(bool(torch.all(rows_ok | boundary)),
+            f"{label}: ball rows differ away from the hit boundary")
+    return int((~rows_ok).sum())
+
+
+def hold_selections(label, tape) -> dict:
+    """Each selection the kernel run recorded against the plain version on
+    the same inputs, under phase 3's contracts.  Returns {what: (calls,
+    differing rows or indices)}."""
+    import torch
+
+    out = {}
+    for what, fn, args, kwargs, got in tape.records:
+        args = [a.detach() if torch.is_tensor(a) else a for a in args]
+        want = fn(*args, **dict(kwargs, impl="torch"))
+        tag = f"{label} {what}"
+        if what == "fps":
+            require(torch.equal(got, want), f"{tag}: seeds differ")
+            diff = 0
+        elif what == "knn":
+            diff = _near_tie_swaps(tag, got, want, args[1], args[2], None,
+                                   KNN_SWAP_RTOL)
+        elif what == "three_nn":
+            pts, qs = args[1], args[0]
+            k = min(3, pts.shape[1])  # fewer points: the nearest repeated
+            diff = _near_tie_swaps(tag, got[1][..., :k], want[1][..., :k],
+                                   pts, qs, None, KNN_SWAP_RTOL)
+            scale = 2.0 * float(torch.amax(torch.sum(pts * pts, -1)))
+            err = float((torch.abs(got[0] - want[0])
+                         / (torch.abs(want[0]) + scale)).max())
+            require(err <= KNN_DIST_RTOL, f"{tag}: distances {err}")
+        else:
+            diff = _ball_contract(tag, got, want, args[0], args[2], args[3])
+        calls, total = out.get(what, (0, 0))
+        out[what] = (calls + 1, total + diff)
+    return out
+
+
+def set_impl(module, impl: str):
+    """Every submodule's ``impl`` (the kernels' 'auto', or 'torch')."""
+    for m in module.modules():
+        if hasattr(m, "impl"):
+            m.impl = impl
+    return module
+
+
+def nets_21(card: str) -> dict:
+    """ROADMAP 21's network modules at their published defaults, from the
+    port's seeded init, on the card: ``HierarchyFeatureExtractor()`` on 28
+    ground-truth patches of 1024 points (``synthetic_patches``),
+    ``HierarchyUpsampler()`` on 28 × 256 → 1024, ``GCNBackbone(conv=c)``
+    for each conv on 28 × 256 (its third graph at k·d = 48: ``knn.cu``'s
+    row form on 24-wide features), ``UpProjectionUnit()`` on the
+    ``GeneratorConfig()`` backbone's features of 28 × 256 patches, and
+    ``PointShuffle2(use_knn=False)`` at the refiner's width on 28 × 1024
+    in training and in eval with ``local_impl='fused'``.  Each with exact
+    launch counts, its selections against the plain versions and its
+    output against the plain path on the kernels' selections (see
+    ``NETS_REL``), and one backward (the refiner's in training) leaving
+    every parameter a finite gradient.  Then the new kernel shapes timed
+    beside their plain versions: the kNN row form at k 48 on 24 channels,
+    the ball query at the hierarchy's ns 64 and 32.  Returns the phase's
+    launch counts."""
+    import torch
+
+    from dispu_tpu_torch import GeneratorConfig, kernels
+    from dispu_tpu_torch.data.dataset import synthetic_patches
+    from dispu_tpu_torch.kernels.knn import knn_cuda, knn_torch
+    from dispu_tpu_torch.kernels.query_ball import (query_ball_cuda,
+                                                    query_ball_torch)
+    from dispu_tpu_torch.models.generator import DisPUGenerator
+    from dispu_tpu_torch.nn.gcn import CONVS, GCNBackbone
+    from dispu_tpu_torch.nn.hierarchy import (HierarchyFeatureExtractor,
+                                              HierarchyUpsampler)
+    from dispu_tpu_torch.nn.layers import init_weights
+    from dispu_tpu_torch.nn.refine import PointShuffle2
+    from dispu_tpu_torch.nn.upsample import UpProjectionUnit
+    from dispu_tpu_torch.ops.sampling import farthest_point_sample
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    gt = torch.from_numpy(synthetic_patches(28, 1024, seed=0)[0]).to(dev)
+    # 256-point inputs: each patch's FPS seeds (plain FPS, no launch)
+    sparse = torch.gather(gt, 1, farthest_point_sample(
+        256, gt, impl="torch").long()[..., None].expand(-1, -1, 3))
+    gcfg = GeneratorConfig()
+    gnet = DisPUGenerator(gcfg, seed=0).to(dev)
+    with torch.no_grad():
+        backbone = gnet.feature_extraction_coarse(sparse)
+    refine_c = gnet.PointShuffle.skip.dense.in_features - 6
+    feats = (0.5 * torch.randn(28, 1024, refine_c, generator=gen)).to(dev)
+    counts, lines = {}, []
+
+    def drive(label, module, inputs, want_counts, kind, train=False,
+              backward=True):
+        nonlocal counts
+        init_weights(module, torch.Generator().manual_seed(0))
+        module = module.to(dev).train(train)
+        tape = SelectionTape()
+        kernels.reset_launch_counts()
+        with tape.recording():
+            out = module(*inputs)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        want = dict(dict.fromkeys(kernels.LAUNCHES, 0), **want_counts)
+        require(got == want, f"nets_21 {label}: launches {got} != {want}")
+        counts = add_counts(counts, got)
+        sel = hold_selections(f"nets_21 {label}", tape)
+        out = out[1] if isinstance(out, tuple) else out
+        kernels.reset_launch_counts()
+        with tape.replaying(), torch.no_grad():
+            plain = set_impl(module, "torch")(*inputs)
+        plain = plain[1] if isinstance(plain, tuple) else plain
+        require(kernels.launch_counts() == dict.fromkeys(kernels.LAUNCHES, 0),
+                f"nets_21 {label}: the plain run launched a kernel")
+        require(bool(torch.isfinite(out).all()),
+                f"nets_21 {label}: a non-finite output")
+        rel = float((out.detach() - plain).abs().max()
+                    / plain.abs().max().clamp_min(1e-30))
+        require(rel <= NETS_REL[kind], f"nets_21 {label}: kernels vs plain "
+                f"{rel} (limit {NETS_REL[kind]})")
+        grads = ""
+        if backward:
+            module.zero_grad(set_to_none=True)
+            torch.sum(out.float() ** 2).backward()
+            bad = [name for name, p in module.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            require(not bad, f"nets_21 {label}: no finite gradient at {bad}")
+            grads = (f", backward: {sum(1 for _ in module.parameters())} "
+                     "parameters with finite gradients")
+        lines.append(
+            f"{label}: out {tuple(out.shape)}, launches "
+            f"{ {k: v for k, v in got.items() if v} }, selections (calls, "
+            f"differing) {sel}, kernels vs plain on the kernels' "
+            f"selections {rel:.2e} of the largest (limit "
+            f"{NETS_REL[kind]:.0e}){grads}")
+
+    drive("HierarchyFeatureExtractor", HierarchyFeatureExtractor(), [gt],
+          dict(fps=3, query_ball=3, knn=4), "exact")
+    drive("HierarchyUpsampler", HierarchyUpsampler(), [sparse],
+          dict(fps=4, query_ball=4, knn=3), "exact")
+    for conv in CONVS:
+        drive(f"GCNBackbone(conv={conv!r})", GCNBackbone(conv=conv),
+              [sparse], dict(knn=3), "exact")
+    drive("UpProjectionUnit", UpProjectionUnit(backbone.shape[-1]),
+          [backbone], {}, "exact")
+    drive("PointShuffle2(use_knn=False), training",
+          PointShuffle2(refine_c, use_knn=False), [gt, feats],
+          dict(query_ball=1, attention=1), "refiner", train=True)
+    drive("PointShuffle2(use_knn=False, local_impl='fused'), eval",
+          PointShuffle2(refine_c, use_knn=False, local_impl="fused"),
+          [gt, feats], dict(query_ball=1, attention=1, refine_local=1),
+          "refiner", backward=False)
+
+    # the new shapes, timed: the third GCN graph (28 x 256, 24 channels,
+    # k 48, the row form) and the hierarchy's ball queries
+    x24 = torch.randn(28, 256, 24, generator=gen).to(dev)
+    dk, ik = knn_cuda(48, x24, x24)
+    dp, ip = knn_torch(48, x24, x24)
+    swaps = _near_tie_swaps("nets_21 knn k 48", ik, ip, x24, x24, None,
+                            KNN_SWAP_RTOL)
+    scale = 2.0 * float(torch.amax(torch.sum(x24 * x24, -1)))
+    dist_err = float((torch.abs(dk - dp) / (torch.abs(dp) + scale)).max())
+    require(dist_err <= KNN_DIST_RTOL, f"nets_21 knn k 48: distances "
+            f"{dist_err}")
+    ms = timed_ms(lambda: knn_cuda(48, x24, x24), reps=20)
+    plain_ms = timed_ms(lambda: knn_torch(48, x24, x24), reps=5)
+    library_ms = timed_ms(lambda: torch.topk(torch.cdist(x24, x24) ** 2, 48,
+                                             dim=-1, largest=False), reps=5)
+    b, n, c = x24.shape
+    bms, by = bound(4 * 2 * b * n * c + 8 * b * n * 48,
+                    b * n * n * (2 * c + 4), F32_FLOPS)
+    lines.append(f"knn row form (b={b} n={n} c={c} k=48): swaps {swaps}, "
+                 f"distances {dist_err:.2e} of the scale, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk "
+                 f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    for r, ns, pts, m in ((0.1, 64, gt, 1024), (0.05, 32, sparse, 256)):
+        qs = pts[:, :m].contiguous()
+        got = query_ball_cuda(r, ns, pts, qs)
+        want = query_ball_torch(r, ns, pts, qs)
+        rows = _ball_contract("nets_21 ball", got, want, r, pts, qs)
+        ms = timed_ms(lambda: query_ball_cuda(r, ns, pts, qs), reps=20)
+        plain_ms = timed_ms(lambda: query_ball_torch(r, ns, pts, qs),
+                            reps=5)
+        b, n, c = pts.shape
+        full = want[1] == ns
+        scanned = torch.where(full, want[0][..., -1].long() + 1, n)
+        bms, by = bound(4 * (b * n * c + b * m * c + b * m * ns + b * m),
+                        float(scanned.sum()) * (3 * c + 3), F32_FLOPS)
+        lines.append(f"query_ball (b={b} n={n} m={m} r={r} ns={ns}): "
+                     f"differing rows {rows}, mean hits "
+                     f"{float(want[1].float().mean()):.2f}, kernel "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{bms:.5f} ms ({by})")
+    for line in lines:
+        log(f"nets_21 {line}")
+    log(f"nets_21: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4951,6 +5258,7 @@ def main() -> int:
     counts = add_counts(counts, multi_device(card))
     counts = add_counts(counts, train_utilities(card))
     counts = add_counts(counts, ops_21(card))
+    counts = add_counts(counts, nets_21(card))
     if args.profile:
         import dataclasses
 

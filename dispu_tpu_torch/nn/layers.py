@@ -90,7 +90,9 @@ def glorot_uniform_(weight: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Glorot-uniform weights and zero biases for every dense layer under
     ``module`` in definition order; batch norm starts at scale 1, bias 0,
-    mean 0, variance 1."""
+    mean 0, variance 1; a module with parameters of its own (an attention
+    unit's ``gamma``, a GIN layer's ``eps``) resets them by its
+    ``reset_own()``."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, _PermutedRowDense)):
             glorot_uniform_(m.weight, generator)
@@ -98,6 +100,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.reset()
+        elif hasattr(m, "reset_own"):
+            m.reset_own()
 
 
 class BatchNorm(nn.Module):

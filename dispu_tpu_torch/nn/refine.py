@@ -4,7 +4,10 @@
   1. kNN-group xyz + features (k = ``nsample``; on the card the kNN
      kernel and one combined ``[xyz | feature]`` gather, or with
      ``gather_impl`` 'fused' / 'fused_turbo' the ``knn_group`` kernel;
-     see ``ops.grouping.grouping``);
+     see ``ops.grouping.grouping``), or with ``use_knn=False`` ball-group
+     them (the ball-query kernel, radius 0.2 unless ``radius`` is given);
+     with ``refine_point``, re-position each point and its query feature
+     from its neighbourhood (``SampleWeights`` + ``adaptive_sampling``);
   2. local branch: per-edge MLP → pooling weights from ``WeightNetHidden``
      over the centred xyz → ``bnkt,bnkc->bntc`` pooling → k-major flatten
      → ``after_conv``, whose stored kernel rows stay (C', k)-major and are
@@ -26,7 +29,7 @@ rounded to bf16 in the grouping, then the local branch.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,7 +37,8 @@ from torch import nn
 from dispu_tpu_torch.config import REFINE_LOCAL_IMPLS
 from dispu_tpu_torch.kernels.refine_block import block_fits, refine_block
 from dispu_tpu_torch.kernels.refine_local import LocalParams, refine_local
-from dispu_tpu_torch.nn.attention import PointNonLocalCell
+from dispu_tpu_torch.nn.attention import (PointNonLocalCell, SampleWeights,
+                                          adaptive_sampling)
 from dispu_tpu_torch.nn.layers import PointConv, WeightNetHidden
 from dispu_tpu_torch.ops.grouping import grouping
 from dispu_tpu_torch.utils.checkpoint import current_key
@@ -58,34 +62,52 @@ class PointShuffle2(nn.Module):
     'fused' or 'megafused'.  Both kernels take the same parameters, folded
     from the module's own at each call (:meth:`local_params`); the stored
     layout stays the composed path's.
+
+    refine_point: the returned xyz are the points re-positioned by
+    ``noise_refine`` (``SampleWeights([c, c])``), whose query features,
+    6 + c wide, feed the non-local cell.  The JAX package runs it at c = 2
+    alone: its c weight channels, less the xyz's, must broadcast against
+    the 6 + c grouped channels; any other width raises here, as it fails
+    there.
     """
 
     def __init__(self, in_features: int, nsample: int = 16,
                  mlp: Tuple[int, ...] = (128, 128, 256), use_bn: bool = False,
-                 bn_momentum: float = 0.95, use_nonlocal: bool = True,
-                 use_local: bool = True, gather_impl: str = "gather",
-                 impl: str = "auto", knn_variant: str = "auto",
-                 local_impl: str = "xla"):
+                 bn_momentum: float = 0.95, use_knn: bool = True,
+                 radius: Optional[float] = None, use_nonlocal: bool = True,
+                 use_local: bool = True, refine_point: bool = False,
+                 gather_impl: str = "gather", impl: str = "auto",
+                 knn_variant: str = "auto", local_impl: str = "xla"):
         super().__init__()
         if local_impl not in REFINE_LOCAL_IMPLS:
             raise ValueError(f"local_impl must be one of {REFINE_LOCAL_IMPLS}"
                              f", got {local_impl!r}")
         c, k, out_c = in_features, nsample, mlp[-1]
+        grouped = 6 + c  # [centred xyz | raw xyz | feature]
+        if refine_point and c != 2:
+            raise ValueError(
+                f"refine_point needs in_features 2: its {c} - 1 = {c - 1} "
+                f"feature weight channels multiply the {grouped} grouped "
+                f"channels, as the JAX package's adaptive_sampling does")
         self.mlp = tuple(mlp)
         kw = dict(use_bn=use_bn, bn_momentum=bn_momentum)
         self.nsample, self.gather_impl, self.impl = k, gather_impl, impl
         self.knn_variant, self.local_impl, self.use_bn = (knn_variant,
                                                           local_impl, use_bn)
+        self.use_knn, self.refine_point = use_knn, refine_point
+        self.radius = 0.2 if radius is None else radius
         self.use_nonlocal, self.use_local = use_nonlocal, use_local
+        if refine_point:
+            self.noise_refine = SampleWeights(grouped, (c, c), **kw)
         if use_nonlocal:
             # flax's 'nonlocal' is a Python keyword, which the code of an
             # exported program cannot hold as an attribute; a state dict
             # under the old name still loads
             self.non_local = PointNonLocalCell(
-                c, c, bottleneck=max(32, c // 2), out_features=out_c,
-                impl=impl, **kw)
+                c, grouped if refine_point else c,
+                bottleneck=max(32, c // 2), out_features=out_c, impl=impl,
+                **kw)
             self.register_load_state_dict_pre_hook(_rename_old_keys)
-        grouped = 6 + c  # [centred xyz | raw xyz | feature]
         self.skip = PointConv(grouped, out_c, **kw)
         width = grouped
         for i, ch in enumerate(mlp[:-1]):
@@ -103,11 +125,11 @@ class PointShuffle2(nn.Module):
         """Which path the local and skip branches take for ``feature``:
         the JAX package's gates (``dispu_tpu/nn/refine.py``).  'fused' and
         'megafused' need inference (``.eval()``), no batch norm, two hidden
-        convs and f32; 'megafused' also the local branch and k ≤ 16 (the
-        port's refiner always groups by kNN, never refines the points),
-        'fused' n % 128 == 0.  Otherwise 'xla', the composed path.  Where
-        'megafused' would launch ``refine_block.cu`` past its shared
-        memory (:func:`~dispu_tpu_torch.kernels.refine_block.block_fits`),
+        convs and f32; 'megafused' also the local branch, k ≤ 16, the kNN
+        grouping and no ``refine_point``, 'fused' n % 128 == 0.
+        Otherwise 'xla', the composed path.  Where 'megafused' would
+        launch ``refine_block.cu`` past its shared memory
+        (:func:`~dispu_tpu_torch.kernels.refine_block.block_fits`),
         'fused' where n % 128 == 0, else 'xla'."""
         return self._routes(feature)[0]
 
@@ -123,6 +145,7 @@ class PointShuffle2(nn.Module):
                    and self.num_convs == 2
                    and feature.dtype == torch.float32)
         if (self.local_impl == "megafused" and fusable and self.use_local
+                and self.use_knn and not self.refine_point
                 and self.nsample <= 16):
             on_card = feature.is_cuda and self.impl != "torch"
             if not on_card or block_fits(n, self.nsample, 6 + c, *self.mlp):
@@ -159,14 +182,19 @@ class PointShuffle2(nn.Module):
         if route != "megafused":
             grouped_xyz, grouped_feat, _ = grouping(
                 feature, self.nsample, xyz, xyz, use_xyz=True,
+                use_knn=self.use_knn, radius=self.radius,
                 gather_impl=gather_impl, impl=self.impl,
                 knn_variant=knn_variant,
             )
             centered = grouped_xyz - xyz[:, :, None, :]
             grouped_feat = torch.cat([centered, grouped_feat], dim=-1)
 
+        new_xyz, new_feat = xyz, feature
+        if self.refine_point:
+            new_xyz, new_feat = adaptive_sampling(
+                self.noise_refine, centered, grouped_feat, self.nsample)
         if self.use_nonlocal:
-            nl = self.non_local(feature, feature[:, None])[:, 0]
+            nl = self.non_local(feature, new_feat[:, None])[:, 0]
         if self.use_nonlocal and not self.use_local:
             y = nl
         else:
@@ -187,4 +215,4 @@ class PointShuffle2(nn.Module):
                 y = y + skip
             if self.use_nonlocal:
                 y = y + nl
-        return xyz, self.aggregation(y)
+        return new_xyz, self.aggregation(y)

@@ -172,9 +172,13 @@ def grouping(feature: torch.Tensor, k: int, src_xyz: torch.Tensor,
     ``'fused'`` / ``'fused_turbo'``: the kNN and both gathers in the
     ``knn_group`` kernel (features exact / bf16-rounded) inside the JAX
     package's gate, the composed ``'onehot_hp'`` / ``'onehot'`` path
-    outside it.  ``knn_variant`` ('auto' or 'packed') picks the composed
+    outside it; with the ball query (``use_knn=False``) both are the
+    exact combined gather, as the JAX package's ``group_point`` takes
+    their names.  ``knn_variant`` ('auto' or 'packed') picks the composed
     path's kNN selection.
     """
+    if not use_knn and gather_impl in ("fused", "fused_turbo"):
+        gather_impl = "gather"
     if use_knn and gather_impl in ("fused", "fused_turbo"):
         if _fused_fits(feature, src_xyz):
             _, idx, grouped_xyz, grouped_feature = _knn_group.knn_group(
