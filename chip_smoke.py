@@ -136,7 +136,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      published defaults, each with exact launch counts, its selections
      against the plain versions, its output against the plain path on
      the kernels' selections and one backward; the kNN row form at k 48
-     and the hierarchy's ball queries timed;
+     and the hierarchy's ball queries timed.  The last of the JAX
+     package (``nets_21b``): ``nn/experimental.py``'s down- and
+     up-scalers, ``EdgeConv``, the dense-block variants and the new
+     losses at full width, the same way, and their new kernel shapes
+     timed;
   5. print one JSON line listing every kernel with its numbers;
   6. print {"ok": true, "device": {...}} as the last line.
 
@@ -4884,22 +4888,31 @@ def ops_21(card: str) -> dict:
 # plain bf16 emulation) and 4.3e-6 in eval with 'fused' (refine_local.cu's
 # 3xTF32 sums too).  The refiner's limit is an order above its readings.
 NETS_REL = {"exact": 1e-6, "refiner": 5e-5}
-# the modules' selection sites: (module, name, what it selects)
+# the modules' and the losses' selection sites: (module, name, what it
+# selects)
 SELECTION_SITES = (
     ("dispu_tpu_torch.nn.pointnet", "farthest_point_sample", "fps"),
     ("dispu_tpu_torch.nn.pointnet", "query_ball_point", "ball"),
     ("dispu_tpu_torch.nn.pointnet", "knn_indices", "knn"),
     ("dispu_tpu_torch.nn.pointnet", "three_nn", "three_nn"),
     ("dispu_tpu_torch.nn.gcn", "knn_indices", "knn"),
+    ("dispu_tpu_torch.nn.experimental", "farthest_point_sample", "fps"),
+    ("dispu_tpu_torch.nn.edgeconv", "knn_unique_indices", "knn_unique"),
+    ("dispu_tpu_torch.ops.grouping", "knn_indices", "knn"),
     ("dispu_tpu_torch.ops.grouping", "query_ball_point", "ball"),
+    ("dispu_tpu_torch.losses", "farthest_point_sample", "fps"),
+    ("dispu_tpu_torch.losses", "knn_indices", "knn"),
+    ("dispu_tpu_torch.losses", "query_ball_point", "ball"),
+    ("dispu_tpu_torch.losses", "knn", "knn_dists"),
+    ("dispu_tpu_torch.ops.chamfer", "directed_argmin", "argmin"),
 )
 
 
 class SelectionTape:
-    """Inside ``with tape.recording()`` every selection site records
-    (what, function, args, kwargs, result); inside ``with tape.replaying()``
-    each site returns the next recorded result instead, in order, and
-    every recording must be used."""
+    """Inside ``with tape.recording()`` every selection site of
+    SELECTION_SITES records (what, function, args, kwargs, result); inside
+    ``with tape.replaying()`` each site returns the next recorded result
+    instead, in order, and every recording must be used."""
 
     def __init__(self):
         self.records = []
@@ -4987,6 +5000,23 @@ def hold_selections(label, tape) -> dict:
         elif what == "knn":
             diff = _near_tie_swaps(tag, got, want, args[1], args[2], None,
                                    KNN_SWAP_RTOL)
+        elif what == "knn_unique":  # duplicate rows biased last
+            from dispu_tpu_torch.ops.knn import mask_duplicate_rows
+
+            bias = mask_duplicate_rows(args[1].float()).float() * 1e30
+            diff = _near_tie_swaps(tag, got, want, args[1].float(),
+                                   args[2].float(), bias, KNN_SWAP_RTOL)
+        elif what == "argmin":  # the chamfer's nearest b row of each a row
+            diff = _near_tie_swaps(tag, got[..., None], want[..., None],
+                                   args[1], args[0], None, KNN_SWAP_RTOL)
+        elif what == "knn_dists":  # (distances, indices)
+            pts, qs = args[1], args[2]
+            diff = _near_tie_swaps(tag, got[1], want[1], pts, qs, None,
+                                   KNN_SWAP_RTOL)
+            scale = 2.0 * float(torch.amax(torch.sum(pts * pts, -1)))
+            err = float((torch.abs(got[0].detach() - want[0])
+                         / (torch.abs(want[0]) + scale)).max())
+            require(err <= KNN_DIST_RTOL, f"{tag}: distances {err}")
         elif what == "three_nn":
             pts, qs = args[1], args[0]
             k = min(3, pts.shape[1])  # fewer points: the nearest repeated
@@ -5165,6 +5195,339 @@ def nets_21(card: str) -> dict:
     return counts
 
 
+# nets_21b's kernels-vs-plain limits, max |d| over the output's max |x| on
+# the kernels' selections replayed: "exact" where the kernels only select
+# (the rest is the same torch code), "attention" where the non-local cell
+# runs attention.cu against its plain bf16 emulation (the refiner's limit:
+# the same kernel at the same widths).  Readings on an H100 at 700 W: 0,
+# and 2.5e-6 to 4.7e-6.
+NETS_B_REL = {"exact": NETS_REL["exact"], "attention": NETS_REL["refiner"]}
+
+
+def nets_21b(card: str) -> dict:
+    """The last of the JAX package at full width, from the port's seeded
+    init, on the card: ``nn/experimental.py``'s downscalers
+    (``PointASNLSetAbstraction(npoint=256, nsample=16, mlp=(64, 64,
+    128))``, ``PointDownscale``, ``2``, ``3``, ``3_1``, ``4`` and
+    ``PointShuffleV1(nsample=8)``; the ASNL and ``PointDownscale3`` also
+    with ``use_knn=False``) on 28 × 1024 ``synthetic_patches`` with the
+    refiner's feature width; the up/shuffle family (``UpShuffleLayer`` of
+    both variants, ``3``, ``4``, ``5``, ``DuplicateUpEdge``,
+    ``DuplicateUp2``, ``PointUpscale(npoint=1024)``,
+    ``WeightLearningUnit``, the coordinate unit, instance norm) on the
+    ``GeneratorConfig()`` backbone's features of 28 × 256 FPS-seed
+    patches; ``feature_extraction_up`` and ``_down`` on the seeds;
+    ``EdgeConv`` and the dense-block variants; each with exact launch
+    counts, its selections against the plain versions, its output
+    against the plain path on the kernels' selections (``NETS_B_REL``)
+    and one backward leaving every parameter a finite gradient.  Then
+    the new losses on a 28 × 1024 prediction the same way.  Then the new
+    kernel shapes timed beside their plain versions, ``cdist`` + ``topk``
+    (the kNN) or SDPA (the attention), and their bounds.  Returns the
+    phase's launch counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from dispu_tpu_torch import GeneratorConfig, kernels, losses
+    from dispu_tpu_torch.data.dataset import synthetic_patches
+    from dispu_tpu_torch.kernels.attention import (attention_cuda,
+                                                   attention_torch)
+    from dispu_tpu_torch.kernels.fps import fps_cuda, fps_torch
+    from dispu_tpu_torch.kernels.knn import knn_cuda, knn_torch
+    from dispu_tpu_torch.kernels.query_ball import (query_ball_cuda,
+                                                    query_ball_torch)
+    from dispu_tpu_torch.models.generator import DisPUGenerator
+    from dispu_tpu_torch.nn import experimental as ex
+    from dispu_tpu_torch.nn.edgeconv import DenseEdgeBlock, EdgeConv
+    from dispu_tpu_torch.nn.layers import init_weights
+    from dispu_tpu_torch.ops.knn import mask_duplicate_rows
+    from dispu_tpu_torch.ops.sampling import farthest_point_sample
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    b, n, m = 28, 1024, 256
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    gt = torch.from_numpy(synthetic_patches(b, n, seed=0)[0]).to(dev)
+    sparse = torch.gather(gt, 1, farthest_point_sample(
+        m, gt, impl="torch").long()[..., None].expand(-1, -1, 3))
+    gnet = DisPUGenerator(GeneratorConfig(), seed=0).to(dev)
+    with torch.no_grad():
+        backbone = gnet.feature_extraction_coarse(sparse)  # (b, m, 480)
+    c_up = backbone.shape[-1]
+    refine_c = gnet.PointShuffle.skip.dense.in_features - 6
+    feats = (0.5 * torch.randn(b, n, refine_c, generator=gen)).to(dev)
+    noise = torch.randn(b, m, ex.NOISE_CHANNELS, generator=gen).to(dev)
+    pred = (gt + 0.01 * torch.randn(gt.shape, generator=gen).to(dev))
+    gt2 = torch.from_numpy(synthetic_patches(b, n, seed=1)[0]).to(dev)
+    del gnet
+    counts, lines = {}, []
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def hold(label, run, want_counts):
+        """``run(impl)`` under the tape: the launches, the selections, the
+        plain run on them.  Returns (kernel output, plain output, the
+        selections' summary)."""
+        nonlocal counts
+        tape = SelectionTape()
+        kernels.reset_launch_counts()
+        with tape.recording():
+            out = run("auto")
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        want = dict(zero, **want_counts)
+        require(got == want, f"nets_21b {label}: launches {got} != {want}")
+        counts = add_counts(counts, got)
+        sel = hold_selections(f"nets_21b {label}", tape)
+        kernels.reset_launch_counts()
+        with tape.replaying(), torch.no_grad():
+            plain = run("torch")
+        require(kernels.launch_counts() == zero,
+                f"nets_21b {label}: the plain run launched a kernel")
+        return out, plain, got, sel
+
+    def relative(label, out, plain, kind):
+        out = torch.as_tensor(out).detach()
+        plain = torch.as_tensor(plain)
+        require(bool(torch.isfinite(out).all()),
+                f"nets_21b {label}: a non-finite output")
+        rel = float((out - plain).abs().max()
+                    / plain.abs().max().clamp_min(1e-30))
+        require(rel <= NETS_B_REL[kind], f"nets_21b {label}: kernels vs "
+                f"plain {rel} (limit {NETS_B_REL[kind]})")
+        return rel
+
+    def drive(label, module, inputs, want_counts, kind="exact", pick=1,
+              **kw):
+        """``pick``: the output of a tuple that is held (the features
+        after a downscaler's xyz, a dense block's before its indices)."""
+        init_weights(module, torch.Generator().manual_seed(0))
+        module = module.to(dev).eval()
+
+        def run(impl):
+            out = set_impl(module, impl)(*inputs, **kw)
+            return out[pick] if isinstance(out, tuple) else out
+
+        out, plain, got, sel = hold(label, run, want_counts)
+        rel = relative(label, out, plain, kind)
+        module.zero_grad(set_to_none=True)
+        set_impl(module, "auto")
+        torch.sum(out.float() ** 2).backward()
+        bad = [name for name, p in module.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        require(not bad, f"nets_21b {label}: no finite gradient at {bad}")
+        lines.append(
+            f"{label}: out {tuple(out.shape)}, launches "
+            f"{ {k: v for k, v in got.items() if v} }, selections (calls, "
+            f"differing) {sel}, kernels vs plain on the kernels' selections "
+            f"{rel:.2e} of the largest (limit {NETS_B_REL[kind]:.0e}), "
+            f"backward: {sum(1 for _ in module.parameters())} parameters "
+            "with finite gradients")
+
+    def drive_loss(label, fn, want_counts, backward=True):
+        leaf = pred.clone().requires_grad_(backward)
+        out, plain, got, sel = hold(label, lambda impl: fn(leaf, impl),
+                                    want_counts)
+        rel = relative(label, out, plain, "exact")
+        grad = ""
+        if backward:
+            (g,) = torch.autograd.grad(out, leaf)
+            require(bool(torch.isfinite(g).all()),
+                    f"nets_21b {label}: a non-finite gradient")
+            grad = f", gradient finite (max |g| {float(g.abs().max()):.3e})"
+        value = float(torch.as_tensor(out).detach())
+        lines.append(f"{label}: {value:.6e}, launches "
+                     f"{ {k: v for k, v in got.items() if v} }, selections "
+                     f"(calls, differing) {sel}, kernels vs plain on the "
+                     f"kernels' selections {rel:.2e}{grad}")
+
+    # the downscalers: b x n patches, the refiner's feature width
+    asnl = dict(npoint=m, nsample=16, mlp=(64, 64, 128))
+    drive("PointASNLSetAbstraction", ex.PointASNLSetAbstraction(
+        refine_c, **asnl, in_points=n), [gt, feats],
+        dict(fps=1, knn=1, attention=1), "attention")
+    drive("PointASNLSetAbstraction(use_knn=False)",
+          ex.PointASNLSetAbstraction(refine_c, **asnl, in_points=n,
+                                     use_knn=False),
+          [gt, feats], dict(fps=1, query_ball=1, attention=1), "attention")
+    drive("PointDownscale", ex.PointDownscale(refine_c, m, 16),
+          [gt, feats], dict(fps=1, knn=1))
+    drive("PointDownscale2", ex.PointDownscale2(refine_c, m, 16),
+          [gt, feats], dict(fps=1, knn=1))
+    drive("PointDownscale3(use_noise=True)", ex.PointDownscale3(
+        refine_c, m, 16, use_noise=True), [gt, feats], dict(fps=1, knn=1),
+        noise=noise)
+    drive("PointDownscale3(use_knn=False)", ex.PointDownscale3(
+        refine_c, m, 16, use_knn=False), [gt, feats],
+        dict(fps=1, query_ball=1))
+    drive("PointDownscale3_1", ex.PointDownscale3_1(refine_c, **asnl),
+          [gt, feats], dict(fps=1, knn=1, attention=1), "attention")
+    drive("PointDownscale4(use_noise=True)", ex.PointDownscale4(
+        refine_c, m, use_noise=True), [gt, feats], dict(fps=1, knn=1),
+        noise=noise)
+    drive("PointShuffleV1", ex.PointShuffleV1(refine_c, 8), [gt, feats],
+          dict(knn=1))
+    # the up/shuffle family: the backbone's 480 channels of b x m
+    for variant in (1, 2):
+        drive(f"UpShuffleLayer(variant={variant})",
+              ex.UpShuffleLayer(c_up, variant=variant), [backbone], {})
+    drive("UpShuffleLayer3", ex.UpShuffleLayer3(c_up), [backbone],
+          dict(knn=1))
+    drive("UpShuffleLayer4", ex.UpShuffleLayer4(c_up), [backbone],
+          dict(knn=1))
+    drive("UpShuffleLayer5", ex.UpShuffleLayer5(c_up), [sparse, backbone],
+          dict(knn=1))
+    drive("DuplicateUpEdge", ex.DuplicateUpEdge(c_up), [backbone],
+          dict(knn=2))
+    drive("DuplicateUp2", ex.DuplicateUp2(c_up), [backbone], {})
+    drive(f"PointUpscale(npoint={n})", ex.PointUpscale(c_up, n, m),
+          [backbone], dict(knn=1))
+    drive("WeightLearningUnit", ex.WeightLearningUnit(c_up),
+          [backbone[:, :, None, :]], {})
+    drive("CoordinateReconstructionUnit",
+          ex.CoordinateReconstructionUnit(c_up), [backbone[:, :, None, :]],
+          {})
+    for faithful in (False, True):
+        drive(f"InstanceNorm(faithful={faithful})",
+              ex.InstanceNorm(c_up, faithful=faithful), [backbone], {})
+    drive("feature_extraction_up", ex.feature_extraction_up(3), [sparse],
+          dict(knn=4))
+    drive("feature_extraction_down", ex.feature_extraction_down(3),
+          [sparse], {})
+    drive("EdgeConv(64)", EdgeConv(c_up, 64), [backbone], dict(knn=1))
+    for variant in ("v0", "v2"):
+        for dense_impl in ("concat", "split"):
+            drive(f"DenseEdgeBlock(variant={variant!r}, "
+                  f"dense_impl={dense_impl!r})",
+                  DenseEdgeBlock(48, 24, variant=variant,
+                                 dense_impl=dense_impl),
+                  [backbone[..., :48].contiguous()], dict(knn=1), pick=0)
+    # the new losses on a b x n prediction
+    drive_loss("repulsion4", lambda p, impl: losses.repulsion4(p, impl=impl),
+               dict(query_ball=1))
+    for use_knn in (False, True):
+        for use_l1 in (False, True):
+            drive_loss(f"perulsion_loss(use_knn={use_knn}, use_l1={use_l1})",
+                       lambda p, impl, a=use_knn, b=use_l1:
+                       losses.perulsion_loss(p, use_knn=a, use_l1=b,
+                                             impl=impl),
+                       dict(knn=1) if use_knn else dict(query_ball=1))
+    drive_loss("cd_loss2", lambda p, impl: losses.cd_loss2(p, gt2, impl=impl),
+               dict(knn=2))
+    drive_loss("uniform_knn", lambda p, impl: losses.uniform_knn(p, impl),
+               dict(knn=1))
+    drive_loss("geometric_losses", lambda p, impl: sum(
+        losses.geometric_losses(p, gt2)), {})
+    for cap in (False, True):
+        t0 = time.perf_counter()
+        drive_loss(f"uniform_exact(cap_counts={cap})",
+                   lambda p, impl, cap=cap: losses.uniform_exact(
+                       p, cap_counts=cap, impl=impl), dict(fps=1),
+                   backward=False)
+        lines[-1] += f" ({time.perf_counter() - t0:.2f} s with its replay)"
+
+    # the new kernel shapes, timed
+    def time_knn(label, k, pts, qs, bias=None):
+        dk, ik = knn_cuda(k, pts, qs, bias)
+        dp, ip = knn_torch(k, pts, qs, bias)
+        swaps = _near_tie_swaps(f"nets_21b {label}", ik, ip, pts, qs, bias,
+                                KNN_SWAP_RTOL)
+        scale = 2.0 * float(torch.amax(torch.sum(pts * pts, -1)))
+        err = float((torch.abs(dk - dp) / (torch.abs(dp) + scale)).max())
+        require(err <= KNN_DIST_RTOL, f"nets_21b {label}: distances {err}")
+        ms = timed_ms(lambda: knn_cuda(k, pts, qs, bias), reps=20)
+        plain_ms = timed_ms(lambda: knn_torch(k, pts, qs, bias), reps=5)
+        library_ms = timed_ms(lambda: torch.topk(
+            torch.cdist(qs, pts) ** 2, k, dim=-1, largest=False), reps=5)
+        bb, nn, c = pts.shape
+        mm = qs.shape[1]
+        bms, by = bound(4 * (bb * nn * c + bb * mm * c + 2 * bb * mm * k)
+                        + (0 if bias is None else 4 * bb * nn),
+                        bb * mm * nn * (2 * c + 4), F32_FLOPS)
+        lines.append(f"knn {label} (b={bb} n={nn} m={mm} c={c} k={k}): swaps "
+                     f"{swaps}, distances {err:.2e} of the scale, kernel "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk "
+                     f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+    def dup_bias(x):
+        return mask_duplicate_rows(x).float() * 1e30
+
+    tiled = torch.cat([backbone.repeat(1, 4, 1), torch.repeat_interleave(
+        torch.tensor([[-0.2, -0.2], [0.2, -0.2], [-0.2, 0.2], [0.2, 0.2]],
+                     device=dev), m, dim=0).expand(b, -1, -1)], -1)
+    x256 = torch.relu(torch.randn(b, n, 256, generator=gen)).to(dev)
+    seeds = sparse.contiguous()
+    for label, k, pts, qs, bias in (
+            ("DuplicateUpEdge graph 1 (c 482)", 17, tiled, tiled,
+             dup_bias(tiled)),
+            ("DuplicateUpEdge graph 2 (c 256)", 17, x256, x256,
+             dup_bias(x256)),
+            ("the backbone's features (c 480)", 17, backbone, backbone,
+             dup_bias(backbone)),
+            ("the seeds' grouping (k 16)", 16, gt, seeds, None),
+            ("PointDownscale4's grouping (k 32)", 32, gt, seeds, None),
+            ("PointShuffleV1 / perulsion (self, k 16)", 16, gt, gt, None),
+            ("uniform_knn (self, k 6)", 6, gt, gt, None)):
+        time_knn(label, k, pts.contiguous(), qs.contiguous(), bias)
+    # the non-local cell's map: m queries on n points, bottleneck 64
+    bc = max(32, refine_c // 2)
+    q = torch.randn(b, m, bc, generator=gen).to(dev)
+    kk, v = (torch.randn(b, n, bc, generator=gen).to(dev)
+             for _ in range(2))
+    sc = 1.0 / math.sqrt(bc)
+    err = torch.abs(attention_cuda(q, kk, v, sc)
+                    - attention_torch(q, kk, v, sc, bf16_operands=True))
+    require(float(err.max()) <= ATTN_MAX_ABS
+            and float(err.mean()) <= ATTN_MEAN_ABS,
+            f"nets_21b attention: max|d| {float(err.max())}")
+    ms = timed_ms(lambda: attention_cuda(q, kk, v, sc), reps=20)
+    plain_ms = timed_ms(lambda: attention_torch(q, kk, v, sc,
+                                                bf16_operands=True), reps=5)
+    library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        q, kk, v, scale=sc), reps=5)
+    bms, by = bound(4 * b * (2 * m * bc + 2 * n * bc),
+                    2 * b * m * n * 2 * bc, BF16_FLOPS)
+    lines.append(f"attention (b={b} nq={m} nk={n} c=cv={bc}): max|d| "
+                 f"{float(err.max()):.3e}, kernel {ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+                 f"{bms:.5f} ms ({by})")
+    # the seeds: FPS n -> m and the uniform_exact metric's n -> 5%
+    for npoint in (m, int(n * 0.05)):
+        got = fps_cuda(npoint, gt)
+        require(torch.equal(got, fps_torch(npoint, gt)),
+                f"nets_21b fps {npoint}: seeds differ")
+        ms = timed_ms(lambda: fps_cuda(npoint, gt), reps=20)
+        plain_ms = timed_once(lambda: fps_torch(npoint, gt))[1]
+        bms, by = bound(4 * b * n * 3 + 4 * b * npoint,
+                        b * n * npoint * 9, F32_FLOPS)
+        lines.append(f"fps (b={b} n={n} npoint={npoint}): seeds bit-equal, "
+                     f"kernel {ms:.4f} ms ({1e3 * ms / npoint:.3f} us a "
+                     f"round), plain {plain_ms:.3f} ms, bound {bms:.5f} ms "
+                     f"({by})")
+    # the ball queries: the downscalers' r 0.2 ns 16 (m of n), the
+    # repulsion losses' r 0.07 at ns 20 and 15 (n of n)
+    for r, ns, qs in ((0.2, 16, seeds), (0.07, 20, gt), (0.07, 15, gt)):
+        qs = qs.contiguous()
+        got = query_ball_cuda(r, ns, gt, qs)
+        want = query_ball_torch(r, ns, gt, qs)
+        rows = _ball_contract("nets_21b ball", got, want, r, gt, qs)
+        ms = timed_ms(lambda: query_ball_cuda(r, ns, gt, qs), reps=20)
+        plain_ms = timed_ms(lambda: query_ball_torch(r, ns, gt, qs), reps=5)
+        c, mq = gt.shape[-1], qs.shape[1]
+        full = want[1] == ns
+        scanned = torch.where(full, want[0][..., -1].long() + 1, n)
+        bms, by = bound(4 * (b * n * c + b * mq * c + b * mq * ns + b * mq),
+                        float(scanned.sum()) * (3 * c + 3), F32_FLOPS)
+        lines.append(f"query_ball (b={b} n={n} m={mq} r={r} ns={ns}): "
+                     f"differing rows {rows}, mean hits "
+                     f"{float(want[1].float().mean()):.2f}, kernel "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{bms:.5f} ms ({by})")
+    for line in lines:
+        log(f"nets_21b {line}")
+    log(f"nets_21b: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -5259,6 +5622,7 @@ def main() -> int:
     counts = add_counts(counts, train_utilities(card))
     counts = add_counts(counts, ops_21(card))
     counts = add_counts(counts, nets_21(card))
+    counts = add_counts(counts, nets_21b(card))
     if args.profile:
         import dataclasses
 

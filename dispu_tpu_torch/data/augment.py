@@ -9,7 +9,7 @@ packages the same numbers: PyTorch's and JAX's generators differ.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -127,3 +127,88 @@ def augment_batch(inputs: torch.Tensor, gt: torch.Tensor,
              * (scale_high - scale_low) + scale_low)
     return augment_batch_from(inputs, gt, normal, angle, scale,
                               jitter_sigma, jitter_max)
+
+
+def shift_point_cloud_from(batch: torch.Tensor, shifts: torch.Tensor,
+                           gt: Optional[torch.Tensor] = None):
+    """Per-cloud translation by the drawn (b, 1, 3) ``shifts``, of ``gt``
+    too when given."""
+    if gt is None:
+        return batch + shifts
+    return batch + shifts, gt + shifts
+
+
+def shift_point_cloud(batch: torch.Tensor, generator: torch.Generator,
+                      gt: Optional[torch.Tensor] = None,
+                      shift_range: float = 0.3):
+    """Per-cloud random translation, uniform in [−shift_range,
+    shift_range) on each axis."""
+    shifts = (torch.rand((batch.shape[0], 1, 3), generator=generator,
+                         device=batch.device) * (2 * shift_range)
+              - shift_range)
+    return shift_point_cloud_from(batch, shifts, gt)
+
+
+def rotate_perturbation_from(batch: torch.Tensor, normal: torch.Tensor,
+                             angle_sigma: float = 0.03,
+                             angle_clip: float = 0.09) -> torch.Tensor:
+    """Small full-3D rotations given the (b, 3) standard normal draws:
+    angles ``clip(σ·normal, ±clip)`` about x, y and z, ``R = Rz·Ry·Rx``
+    applied on the right (``points @ R``)."""
+    b = batch.shape[0]
+    angles = torch.clamp(angle_sigma * normal, -angle_clip, angle_clip)
+    cx, sx = torch.cos(angles[:, 0]), torch.sin(angles[:, 0])
+    cy, sy = torch.cos(angles[:, 1]), torch.sin(angles[:, 1])
+    cz, sz = torch.cos(angles[:, 2]), torch.sin(angles[:, 2])
+    z, o = torch.zeros_like(cx), torch.ones_like(cx)
+    rx = torch.stack([o, z, z, z, cx, -sx, z, sx, cx], -1).reshape(b, 3, 3)
+    ry = torch.stack([cy, z, sy, z, o, z, -sy, z, cy], -1).reshape(b, 3, 3)
+    rz = torch.stack([cz, -sz, z, sz, cz, z, z, z, o], -1).reshape(b, 3, 3)
+    rot = torch.einsum("bij,bjk,bkl->bil", rz, ry, rx)
+    return torch.einsum("bnc,bcd->bnd", batch, rot)
+
+
+def rotate_perturbation(batch: torch.Tensor, generator: torch.Generator,
+                        angle_sigma: float = 0.03,
+                        angle_clip: float = 0.09) -> torch.Tensor:
+    """Small random full-3D rotation of each cloud (see
+    :func:`rotate_perturbation_from`)."""
+    normal = torch.randn((batch.shape[0], 3), generator=generator,
+                         device=batch.device)
+    return rotate_perturbation_from(batch, normal, angle_sigma, angle_clip)
+
+
+def random_point_dropout_from(batch: torch.Tensor, ratio_u: torch.Tensor,
+                              mask_u: torch.Tensor,
+                              max_dropout_ratio: float = 0.875
+                              ) -> torch.Tensor:
+    """Given the uniform draws ``ratio_u`` (b, 1) and ``mask_u`` (b, n):
+    each cloud drops the points whose ``mask_u ≤ ratio_u·max_ratio``, each
+    replaced by the cloud's first point, so the shape stays."""
+    drop = mask_u <= ratio_u * max_dropout_ratio
+    return torch.where(drop[..., None], batch[:, :1, :], batch)
+
+
+def random_point_dropout(batch: torch.Tensor, generator: torch.Generator,
+                         max_dropout_ratio: float = 0.875) -> torch.Tensor:
+    """Collapse a random share (up to ``max_dropout_ratio``) of each
+    cloud's points onto its first point."""
+    b, n, _ = batch.shape
+    ratio_u = torch.rand((b, 1), generator=generator, device=batch.device)
+    mask_u = torch.rand((b, n), generator=generator, device=batch.device)
+    return random_point_dropout_from(batch, ratio_u, mask_u,
+                                     max_dropout_ratio)
+
+
+def shuffle_points_from(batch: torch.Tensor,
+                        perm: torch.Tensor) -> torch.Tensor:
+    """The point axis of every cloud permuted by the one drawn ``perm``."""
+    return batch[:, perm.long(), :]
+
+
+def shuffle_points(batch: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """One random permutation of the point axis, shared by the batch."""
+    perm = torch.randperm(batch.shape[1], generator=generator,
+                          device=batch.device)
+    return shuffle_points_from(batch, perm)

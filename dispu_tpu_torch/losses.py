@@ -1,14 +1,17 @@
 """Losses of CD and GAN training (counterpart of ``losses.py``): Chamfer,
 Hausdorff, the approximate EMD, repulsion, the uniformity statistic, the
 LSGAN critic and generator losses, the composite ``pu_losses`` and the
-epoch schedules.
+epoch schedules; and the reference's variants that no training path
+calls: the exact disk uniformity metric (host numpy on FPS seeds), the
+geometric triplet, L1 and cross entropy, the RBF repulsion
+(``repulsion4``), ``perulsion_loss``, the unnormalised Chamfer
+``cd_loss2`` and the kNN spacing variance ``uniform_knn``.
 
 Every loss takes ``impl`` for the kernels it reaches (the chamfer argmin's
 kNN kernel and the ball-query kernel; see ``dispu_tpu_torch.kernels``).
 Where the JAX package ranks with ``lax.top_k``, the port takes a stable
 sort, which orders ties by index as ``top_k`` does, so the same neighbour
-receives the gradient.  The JAX package's unused loss variants are not
-ported.
+receives the gradient.
 """
 
 from __future__ import annotations
@@ -16,12 +19,14 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from dispu_tpu_torch.ops.chamfer import nn_distance
 from dispu_tpu_torch.ops.emd import earth_mover_cost
 from dispu_tpu_torch.ops.grouping import group_point, query_ball_point
-from dispu_tpu_torch.ops.knn import knn_indices
+from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
+from dispu_tpu_torch.ops.knn import knn, knn_indices
 from dispu_tpu_torch.ops.sampling import farthest_point_sample, gather_point
 
 
@@ -142,6 +147,89 @@ def uniform(pcd: torch.Tensor,
     return sum(loss) / len(percentages)
 
 
+def uniform_exact(pcd, percentages: Sequence[float] = (
+        0.002, 0.004, 0.006, 0.008, 0.010, 0.012, 0.015),
+                  radius: float = 1.0, cap_counts: bool = False,
+                  impl: str = "auto") -> float:
+    """Exact disk-uniformity metric (the reference's 'whole, slower'
+    variant; no gradient).  ``pcd`` (b, n, 3), a tensor (on the card or
+    the CPU) or an array.  The 5% seeds come from
+    :func:`farthest_point_sample` on the tensor's device; the rest is host
+    numpy, as in the JAX package: per disk of area fraction p, coverage
+    ``(count − nsample)² / nsample``, and from 5 members on, times the
+    χ²-normalised deviation of each member's nearest-member spacing from
+    the hexagonal ideal.
+
+    Membership is every point strictly inside the radius, so an overdense
+    disk (count > nsample) is penalised; ``cap_counts=True`` keeps only
+    the first ``nsample`` members, as the reference's CUDA ball query
+    does."""
+    pts_t = torch.as_tensor(pcd)
+    b, n, _ = pts_t.shape
+    npoint = int(n * 0.05)
+    seeds_idx = farthest_point_sample(npoint, pts_t.detach(),
+                                      impl=impl).cpu().numpy()
+    pcd = pts_t.detach().cpu().numpy()
+    total = []
+    for p in percentages:
+        nsample = max(int(n * p), 1)
+        r = math.sqrt(p * radius)
+        vals = []
+        for i in range(b):
+            pts = pcd[i]
+            seeds = pts[seeds_idx[i]]
+            # strict d < r with the CUDA op's 1e-20 floor
+            d = np.sqrt(np.maximum(
+                np.sum((seeds[:, None] - pts[None]) ** 2, -1), 1e-40))
+            inside = d < r  # (npoint, n)
+            for j in range(npoint):
+                members = np.nonzero(inside[j])[0]
+                number = len(members)
+                if cap_counts and number > nsample:
+                    members = members[:nsample]
+                    number = nsample
+                coverage = (number - nsample) ** 2 / nsample
+                if number < 5:
+                    vals.append(coverage)
+                    continue
+                disk = pts[members]
+                dd = np.sum((disk[:, None] - disk[None]) ** 2, -1)
+                np.fill_diagonal(dd, np.inf)
+                shortest = np.sqrt(dd.min(axis=1))
+                disk_area = math.pi * (r ** 2) / disk.shape[0]
+                expect_d = math.sqrt(2 * disk_area / 1.732)  # hexagon
+                dis = (shortest - expect_d) ** 2 / expect_d
+                vals.append(coverage * float(np.mean(dis)))
+        total.append(float(np.mean(vals)) * math.sqrt(p * 100))
+    return sum(total) / len(percentages)
+
+
+def geometric_losses(pred: torch.Tensor, gt: torch.Tensor, nnk: int = 8):
+    """(shape, density, direction): the symmetric mean nearest euclidean
+    distance; the mean absolute difference of the gt→pred and gt→gt
+    ``nnk`` nearest-distance spectra; their normalised correlation."""
+    d = torch.sqrt(torch.clamp_min(pairwise_sq_dist(gt, pred), 1e-12))
+    shape = (torch.mean(torch.amin(d, dim=2))
+             + torch.mean(torch.amin(d, dim=1)))
+    d2 = torch.sqrt(torch.clamp_min(pairwise_sq_dist(gt, gt), 1e-12))
+    k1, k2 = -_smallest(d, nnk), -_smallest(d2, nnk)
+    density = torch.mean(torch.abs(k1 - k2))
+    gt_off = k2 / (torch.sum(k2 ** 2) + 1e-8)
+    pt_off = k1 / (torch.sum(k1 ** 2) + 1e-8)
+    return shape, density, torch.sum(gt_off * pt_off)
+
+
+def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``mean(|x − y|)``."""
+    return torch.mean(torch.abs(x - y))
+
+
+def classify_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sparse softmax cross entropy: ``−mean(log_softmax(logits)[label])``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logp, -1, labels.long()[..., None]))
+
+
 # ---------------------------------------------------------------- GAN (LSGAN)
 
 
@@ -220,3 +308,59 @@ def pu_losses(coarse: torch.Tensor, fine: torch.Tensor, gt: torch.Tensor,
         "offset_max": torch.amax(off),
     }
     return total, metrics
+
+
+def repulsion4(pred: torch.Tensor, nsample: int = 20, radius: float = 0.07,
+               impl: str = "auto") -> torch.Tensor:
+    """RBF-weighted spacing penalty (the PU-Net-style 'uniform loss'): the
+    ball query's ``nsample`` neighbours, the 5 nearest squared distances
+    less the self column (floored at 1e-12), h = 0.03,
+    ``mean(radius − d·exp(−d²/h²))``."""
+    idx, _ = query_ball_point(radius, nsample, pred, pred, impl=impl)
+    grouped = group_point(pred, idx) - pred[:, :, None, :]
+    d2 = _smallest(torch.sum(grouped ** 2, dim=-1), 5)[:, :, 1:]
+    d2 = torch.maximum(d2, d2.new_tensor(1e-12))
+    h = 0.03
+    return torch.mean(radius - torch.sqrt(d2) * torch.exp(-d2 / h ** 2))
+
+
+def perulsion_loss(pred: torch.Tensor, nsample: int = 15,
+                   radius: float = 0.07, use_knn: bool = False,
+                   use_l1: bool = False, impl: str = "auto") -> torch.Tensor:
+    """Repulsion with an L1/L2 switch: kNN or ball neighbourhoods, the 4
+    nearest non-self squared (or, with ``use_l1``, euclidean) distances,
+    h = 2√0.001 (L1) or 0.01 (L2), ``mean(max(0, h − d))``."""
+    if use_knn:
+        idx = knn_indices(nsample, pred, pred, impl=impl)
+    else:
+        idx, _ = query_ball_point(radius, nsample, pred, pred, impl=impl)
+    grouped = group_point(pred, idx) - pred[:, :, None, :]
+    dists = torch.sum(grouped ** 2, dim=-1)
+    if use_l1:
+        dists = torch.sqrt(dists + 1e-12)
+    val = -_smallest(dists, 5)[:, :, 1:]
+    h = math.sqrt(0.001) * 2 if use_l1 else 0.01
+    return torch.mean(_relu(h + val))
+
+
+#: the reference's spelling
+get_perulsion_loss = perulsion_loss
+
+
+def cd_loss2(pred: torch.Tensor, gt: torch.Tensor,
+             forward_weight: float = 1.0, threshold: float | None = 100.0,
+             impl: str = "auto") -> torch.Tensor:
+    """:func:`chamfer` at radius 1 with an outlier threshold of 100× each
+    cloud's mean by default."""
+    return chamfer(pred, gt, radius=1.0, forward_weight=forward_weight,
+                   threshold=threshold, impl=impl)
+
+
+def uniform_knn(pred: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Variance of kNN spacing: the 6 nearest squared distances (self
+    included); the variance over the points of each point's mean, plus
+    each point's variance over its 6, summed over the batch."""
+    d, _ = knn(6, pred, pred, impl=impl)
+    mean = torch.mean(d, dim=2)
+    return (torch.sum(torch.var(mean, dim=1, correction=0))
+            + torch.sum(torch.var(d, dim=2, correction=0)))

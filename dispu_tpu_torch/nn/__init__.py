@@ -1,10 +1,10 @@
-"""nn modules of the port: the JAX package's ``nn`` exports but
-``EdgeConv``, which only ``nn/experimental.py`` uses."""
+"""nn modules of the port: the JAX package's ``nn`` exports."""
 
 from dispu_tpu_torch.nn.layers import PointConv, PointMLP, WeightNetHidden
 from dispu_tpu_torch.nn.edgeconv import (
     edge_feature,
     DenseEdgeBlock,
+    EdgeConv,
     FeatureExtractorGCN,
 )
 from dispu_tpu_torch.nn.attention import (
@@ -22,6 +22,7 @@ __all__ = [
     "WeightNetHidden",
     "edge_feature",
     "DenseEdgeBlock",
+    "EdgeConv",
     "FeatureExtractorGCN",
     "PointNonLocalCell",
     "SampleWeights",

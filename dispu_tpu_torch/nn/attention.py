@@ -116,8 +116,9 @@ class SampleWeights(nn.Module):
         return torch.softmax(out, dim=2)
 
 
-def adaptive_sampling(sample_weights: SampleWeights, group_xyz: torch.Tensor,
-                      group_feature: torch.Tensor, num_neighbor: int):
+def adaptive_sampling(sample_weights_module: SampleWeights,
+                      group_xyz: torch.Tensor, group_feature: torch.Tensor,
+                      num_neighbor: int):
     """Query points re-positioned from their first ``num_neighbor``
     neighbours: the first weight channel sums the xyz, the others the
     features (which must broadcast against them, as in the JAX package).
@@ -126,7 +127,7 @@ def adaptive_sampling(sample_weights: SampleWeights, group_xyz: torch.Tensor,
         return group_xyz[:, :, 0, :], group_feature[:, :, 0, :]
     sg_xyz = group_xyz[:, :, :num_neighbor, :]
     sg_feat = group_feature[:, :, :num_neighbor, :]
-    w = sample_weights(sg_feat, sg_xyz)
+    w = sample_weights_module(sg_feat, sg_xyz)
     return (torch.sum(sg_xyz * w[..., :1], dim=2),
             torch.sum(sg_feat * w[..., 1:], dim=2))
 

@@ -5,7 +5,8 @@ biased last, the first column dropped) in every dense block; on the card
 that is the kNN kernel, or with ``gather_impl`` 'fused' / 'fused_turbo'
 the ``knn_group`` kernel, which gathers the neighbours in the same pass.
 Both evaluations of a block are ported, 'concat' and the part-split
-'split'; only the 'default' block variant is.
+'split', each with the three block variants ('default', 'v0', 'v2');
+and the single EdgeConv layer of the experimental modules.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from dispu_tpu_torch.ops.grouping import group_point
 from dispu_tpu_torch.ops.knn import knn_unique_indices, mask_duplicate_rows
 
 DENSE_IMPLS = ("concat", "split")
+#: 'default' (``dense_conv``), 'v0' (``dense_conv0``: layer 0 does not
+#: carry the centre on) and 'v2' (``dense_conv2``: the last layer keeps its
+#: ReLU)
+VARIANTS = ("default", "v0", "v2")
 
 
 def edge_parts(feature: torch.Tensor, k: int,
@@ -107,30 +112,39 @@ class DenseEdgeBlock(nn.Module):
     ``dense_impl`` 'concat' evaluates that dataflow literally; 'split'
     distributes each conv over its concat parts, so the center enters
     as (b, n, 1, c) and only the (b, n, k, g) conv outputs are formed
-    (``DenseEdgeBlock._split`` of the JAX package).  Same parameters."""
+    (``DenseEdgeBlock._split`` of the JAX package).  Same parameters.
+
+    ``variant`` 'v0' leaves the centre out of layer 0's output (n·g
+    channels out, no centre term anywhere after the edge tensor); 'v2'
+    keeps the last layer's ReLU."""
 
     def __init__(self, in_features: int, growth_rate: int, n: int = 3,
                  k: int = 16, use_bn: bool = False, bn_momentum: float = 0.95,
                  gather_impl: str = "gather", impl: str = "auto",
-                 knn_variant: str = "auto", dense_impl: str = "concat"):
+                 knn_variant: str = "auto", dense_impl: str = "concat",
+                 variant: str = "default"):
         super().__init__()
         if dense_impl not in DENSE_IMPLS:
             raise ValueError(f"unknown dense_impl {dense_impl!r}")
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}")
         self.n, self.k = n, k
         self.gather_impl, self.impl = gather_impl, impl
         self.knn_variant, self.dense_impl = knn_variant, dense_impl
+        self.variant = variant
         c, g = in_features, growth_rate
         kw = dict(use_bn=use_bn, bn_momentum=bn_momentum)
+        center = () if variant == "v0" else (c,)
         for i in range(n):
-            act = None if i == n - 1 else torch.relu
+            act = (None if i == n - 1 and variant != "v2" else torch.relu)
             # layer inputs: [center | nbr − center], then [out_{i−1} | …
             # | out_0 | center]
-            rows = (c, c) if i == 0 else (g,) * i + (c,)
+            rows = (c, c) if i == 0 else (g,) * i + center
             conv = (_SplitPointConv(rows, g, activation=act, **kw)
                     if dense_impl == "split"
                     else PointConv(sum(rows), g, activation=act, **kw))
             self.add_module(f"l{i}", conv)
-        self.out_features = n * g + c
+        self.out_features = n * g + len(center) * c
 
     def forward(self, feature: torch.Tensor,
                 idx: Optional[torch.Tensor] = None):
@@ -140,7 +154,9 @@ class DenseEdgeBlock(nn.Module):
                               self.impl, self.knn_variant)
         for i in range(self.n):
             conv = getattr(self, f"l{i}")
-            if i == 0:
+            if i == 0 and self.variant == "v0":
+                y = conv(y)
+            elif i == 0:
                 center = feature[:, :, None, :].expand(
                     feature.shape[:2] + (y.shape[2], feature.shape[-1]))
                 y = torch.cat([conv(y), center], dim=-1)
@@ -150,7 +166,8 @@ class DenseEdgeBlock(nn.Module):
 
     def _split(self, feature: torch.Tensor, idx: Optional[torch.Tensor]):
         """The max over k distributes over the output concat, and the
-        tiled center's max is the center itself."""
+        tiled center's max is the center itself ('v0' carries no center
+        after layer 0)."""
         center, nbr, idx = edge_parts(feature, self.k, idx, self.gather_impl,
                                       self.impl, self.knn_variant)
         c1 = center[:, :, None, :]  # (b, n, 1, c): the k-independent terms
@@ -159,10 +176,33 @@ class DenseEdgeBlock(nn.Module):
             if i == 0:
                 parts = [[(c1, +1)], [(nbr, +1), (c1, -1)]]
             else:  # out_{i−1} first, as in the concat
-                parts = [[(o, +1)] for o in outs[::-1]] + [[(c1, +1)]]
+                parts = [[(o, +1)] for o in outs[::-1]]
+                if self.variant != "v0":
+                    parts.append([(c1, +1)])
             outs.append(getattr(self, f"l{i}")(parts))
-        pieces = [torch.amax(o, dim=-2) for o in outs[::-1]] + [center]
+        pieces = [torch.amax(o, dim=-2) for o in outs[::-1]]
+        if self.variant != "v0":
+            pieces.append(center)
         return torch.cat(pieces, dim=-1), idx
+
+
+class EdgeConv(nn.Module):
+    """A single EdgeConv layer (DGCNN): the edge tensor of the feature-space
+    kNN graph, one ReLU :class:`PointConv` ``conv`` to ``features``, the
+    max over the neighbours.  (b, n, in_features) → (b, n, features)."""
+
+    def __init__(self, in_features: int, features: int, k: int = 16,
+                 use_bn: bool = False, bn_momentum: float = 0.95,
+                 impl: str = "auto"):
+        super().__init__()
+        self.k, self.impl = k, impl
+        self.conv = PointConv(2 * in_features, features, use_bn=use_bn,
+                              bn_momentum=bn_momentum)
+        self.out_features = features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        edges, _ = edge_feature(x, self.k, impl=self.impl)
+        return torch.amax(self.conv(edges), dim=-2)
 
 
 class FeatureExtractorGCN(nn.Module):

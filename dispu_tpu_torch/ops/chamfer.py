@@ -42,7 +42,7 @@ def directed_argmin(a: torch.Tensor, b: torch.Tensor,
 
 
 def _directed_min(a: torch.Tensor, b: torch.Tensor, impl: str):
-    idx = directed_argmin(a, b, impl)
+    idx = directed_argmin(a, b, impl=impl)
     dist = torch.sum((a - gather_point(b, idx)) ** 2, dim=-1)
     return dist, idx
 

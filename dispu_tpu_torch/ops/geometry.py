@@ -70,3 +70,35 @@ def gen_grid(up_ratio: int) -> torch.Tensor:
     grid_y = torch.linspace(-0.2, 0.2, num_y, dtype=torch.float32)
     x, y = torch.meshgrid(grid_x, grid_y, indexing="xy")
     return torch.stack([x, y], dim=-1).reshape(-1, 2)
+
+
+def gen_2d_grid(num_grid_point: int) -> torch.Tensor:
+    """(num², 2) float32 square grid in [-0.2, 0.2]², 'xy' meshgrid
+    order."""
+    x = torch.linspace(-0.2, 0.2, num_grid_point, dtype=torch.float32)
+    gx, gy = torch.meshgrid(x, x, indexing="xy")
+    return torch.stack([gx, gy], dim=-1).reshape(-1, 2)
+
+
+def gen_1d_grid(num_grid_point: int) -> torch.Tensor:
+    """(1, num) float32 line code in [-0.02, 0.02]."""
+    return torch.linspace(-0.02, 0.02, num_grid_point,
+                          dtype=torch.float32)[None, :]
+
+
+def covariance_matrix(pc: torch.Tensor):
+    """Per-neighbourhood barycentre and 3×3 covariance: pc (b, p, k, 3) →
+    (barycentre (b, p, 1, 3), centredᵀ·centred (b, p, 3, 3))."""
+    barycenter = torch.mean(pc, dim=2, keepdim=True)
+    centered = pc - barycenter
+    return barycenter, torch.einsum("bpki,bpkj->bpij", centered, centered)
+
+
+def exponential_distance(query: torch.Tensor, points: torch.Tensor):
+    """Squared distances and a self-calibrated RBF affinity of broadcastable
+    (b, p, k, 3) tensors: h is the mean over p of each row's smallest
+    distance; returns (distance, exp(−d / (h/2))), both (b, p, k, 1)."""
+    distance = torch.sum((query - points) ** 2, dim=-1, keepdim=True)
+    h = torch.mean(torch.amin(distance, dim=2, keepdim=True), dim=1,
+                   keepdim=True)
+    return distance, torch.exp(-distance / (h / 2.0))

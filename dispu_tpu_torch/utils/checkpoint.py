@@ -47,9 +47,9 @@ def latest_checkpoint(log_dir: str) -> Tuple[int, Optional[str]]:
     return best
 
 
-def restore_checkpoint(path: str, state):
-    """Load a checkpoint written by :func:`save_checkpoint` into ``state``
-    (a state of the same configuration), on ``state``'s device."""
-    device = next(state.model.parameters()).device
+def restore_checkpoint(path: str, target):
+    """Load a checkpoint written by :func:`save_checkpoint` into ``target``
+    (a state of the same configuration), on ``target``'s device."""
+    device = next(target.model.parameters()).device
     saved = torch.load(path, map_location=device, weights_only=True)
-    return state.load_state_dict(saved)
+    return target.load_state_dict(saved)

@@ -64,7 +64,7 @@ def test_import_leaves_jax_unloaded():
             "dispu_tpu_torch.utils.eulerangles, "
             "dispu_tpu_torch.utils.logging, dispu_tpu_torch.ops.emd, "
             "dispu_tpu_torch.ops.interpolate, dispu_tpu_torch.ops.patches, "
-            "dispu_tpu_torch.ops.grouping; "
+            "dispu_tpu_torch.ops.grouping, dispu_tpu_torch.nn.experimental; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(REPO))
