@@ -21,9 +21,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      critic's ball grouping and the ``uniform`` metric's disks, with no
      synchronization in a call), and time the kernel, the plain version
      and one PyTorch library call for the same function where there is
-     one; the split row form of the exact kNN bit-equal to the row form at
-     n = 20,000 and at the patch cut of a 60,000-point cloud against the
-     plain version; the cluster FPS kernel also
+     one; the exact kNN's radix form in its 'split' regime bit-equal to
+     the 'row' regime at n = 20,000 and at the patch cut of a
+     60,000-point cloud against the plain version; the cluster FPS kernel also
      past its on-chip capacity, at a ragged n with ties across its
      blocks and at each edge of its forms; the turbo path's kernels at
      its shapes: the fused kNN + gather
@@ -61,7 +61,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ('megafused' at 4× by its generator rows before the merge, and its
      output against the plain merge of its own candidates), timed beside
      'xla'.  Past two kernels' limits: a 4× request on a 60,000-point
-     cloud (the patch cut in the split row form, the merge of 719,872
+     cloud (the patch cut in the 'split' regime, the merge of 719,872
      candidates) twice, bit-equal, and the turbo 4× request on it (the
      bucketed merge's large buckets); 'megafused' at ``patch_num_point`` 512
      and 16× (pass 2's refiner past ``refine_block.cu``'s shared memory
@@ -135,7 +135,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      refiner (training, and eval with ``local_impl='fused'``) at their
      published defaults, each with exact launch counts, its selections
      against the plain versions, its output against the plain path on
-     the kernels' selections and one backward; the kNN row form at k 48
+     the kernels' selections and one backward; the kNN radix form at k 48
      and the hierarchy's ball queries timed.  The last of the JAX
      package (``nets_21b``): ``nn/experimental.py``'s down- and
      up-scalers, ``EdgeConv``, the dense-block variants and the new
@@ -318,8 +318,9 @@ def check_knn(dev):
     per-request aggregate for the JSON line."""
     import torch
 
-    from dispu_tpu_torch.kernels.knn import knn_cuda, knn_torch
-    from dispu_tpu_torch.kernels.measure import KNN_CASES, knn_inputs
+    from dispu_tpu_torch.kernels.knn import knn_kernel_cuda, knn_torch
+    from dispu_tpu_torch.kernels.measure import (KNN_CASES, KNN_WIDE_CASES,
+                                                 knn_inputs)
     from dispu_tpu_torch.ops.geometry import (normalize_point_cloud,
                                               pairwise_sq_dist)
     from dispu_tpu_torch.ops.knn import mask_duplicate_rows
@@ -330,17 +331,21 @@ def check_knn(dev):
     # measure.KNN_CASES: the shapes of a 4x request (its launches, the
     # aggregate), of a 16x request's second pass and of a train step at
     # batch 28 (backbone, refiner, and the chamfer argmin at k = 1, whose
-    # library call is cdist + argmin), checked and timed
+    # library call is cdist + argmin), checked and timed; then the 'row'
+    # regime's other shapes of measure.KNN_WIDE_CASES (the GCN graph at k
+    # 48, the patch cut at k 512), outside the aggregate (check_knn_split
+    # takes the scan)
     agg = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                t_bytes=0.0, t_ops=0.0, max_abs_err=0.0)
-    for case, (pts, qs) in zip(KNN_CASES, knn_inputs(gen, KNN_CASES,
-                                                      cloud)):
+    cases = KNN_CASES + [case for case in KNN_WIDE_CASES
+                         if case.queries != "scan"]
+    for case, (pts, qs) in zip(cases, knn_inputs(gen, cases, cloud)):
         label, k, dup, per_req = (case.label, case.k, case.dup,
                                   case.per_request)
         pts = pts.to(dev)
         qs = pts if qs is None else qs.to(dev)
         bias = (mask_duplicate_rows(pts).float() * 1e30) if dup else None
-        dk, ik = knn_cuda(k, pts, qs, bias)
+        dk, ik = knn_kernel_cuda(k, pts, qs, bias)
         dp, ip = knn_torch(k, pts, qs, bias)
         torch.cuda.synchronize()
         # the plain distance of each index the kernel chose must equal the
@@ -366,7 +371,7 @@ def check_knn(dev):
 
         b, n, c = pts.shape
         m = qs.shape[1]
-        ms = timed_ms(lambda: knn_cuda(k, pts, qs, bias), reps=20)
+        ms = timed_ms(lambda: knn_kernel_cuda(k, pts, qs, bias), reps=20)
         plain_ms = timed_ms(lambda: knn_torch(k, pts, qs, bias), reps=5)
 
         def library():
@@ -387,7 +392,7 @@ def check_knn(dev):
             f"max|d|err {max_abs:.3e} rel {float(dist_err.max()):.2e}, "
             f"swaps {n_swaps}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"cdist+{'argmin' if k == 1 else 'topk'} {library_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
+            f"bound {bms:.3g} ms ({by})")
         agg["ms"] += per_req * ms
         agg["plain_ms"] += per_req * plain_ms
         agg["library_ms"] += per_req * library_ms
@@ -1032,18 +1037,20 @@ def big_cloud(n: int, seed: int):
 
 
 def check_knn_split(dev):
-    """The split row form (k > 32 past the row form's n): bit-equal to the
-    row form at n = 20,000 (three chunks, with points repeated across
-    chunks: exact ties between them), and the patch cut of a 60,000-point
-    cloud (k 256, 703 queries, one in 85 points) through the shape gate
-    ``knn_kernel_cuda`` against the plain version under ``check_knn``'s
-    contract.  The aggregate is that cut, one launch a 60,000-point
-    request."""
+    """The radix form's 'split' regime (k > 32 past the 'row' regime's n,
+    the distances recomputed each pass): bit-equal to the 'row' regime at
+    n = 20,000 (points repeated: exact ties), with and without a block of
+    1e30-biased columns, with the default buffer and with one of 64 pairs
+    (more passes over the cloud), both regimes timed there; and the patch
+    cut of a 60,000-point cloud (k 256, 703 queries, one in 85 points)
+    through the shape gate ``knn_kernel_cuda`` against the plain version
+    under ``check_knn``'s contract, timed beside ``cdist`` + ``topk``.
+    The aggregate is that cut, one launch a 60,000-point request."""
     import torch
 
-    from dispu_tpu_torch.kernels.knn import (knn_cuda, knn_form,
+    from dispu_tpu_torch.kernels.knn import (RADIX_CAP, knn_cuda, knn_form,
                                              knn_kernel_cuda, knn_split_cuda,
-                                             knn_torch, split_plan)
+                                             knn_torch, radix_plan)
     from dispu_tpu_torch.ops.geometry import normalize_point_cloud
 
     k = 256
@@ -1054,14 +1061,20 @@ def check_knn_split(dev):
     bias = torch.zeros(pts.shape[:2], device=dev)
     bias[:, 7000:7300] = 1e30
     for bb in (None, bias):
-        got = knn_split_cuda(k, pts, qs, bb)
         want = knn_cuda(k, pts, qs, bb)
-        torch.cuda.synchronize()
-        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                "knn_split at n = 20,000: not the row form's bits")
-    chunk, chunks = split_plan(k, 20000, 3)
-    log(f"knn_split (n=20000 m={qs.shape[1]} k={k}, {chunks} chunks of "
-        f"{chunk}): bit-equal to the row form, with and without a bias")
+        for cap in (None, 64):
+            got = knn_split_cuda(k, pts, qs, bb, cap=cap)
+            torch.cuda.synchronize()
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]),
+                    f"knn_split at n = 20,000 (cap {cap}): not the 'row' "
+                    f"regime's bits")
+    row_ms = timed_ms(lambda: knn_cuda(k, pts, qs), reps=20)
+    split_ms = timed_ms(lambda: knn_split_cuda(k, pts, qs), reps=20)
+    log(f"knn_split (n=20000 m={qs.shape[1]} k={k}): bit-equal to the "
+        f"'row' regime, with and without a bias, buffers of "
+        f"{RADIX_CAP} and 64 pairs; 'row' "
+        f"{row_ms:.4f} ms, 'split' {split_ms:.4f} ms")
 
     n = 60000
     pts = normalize_point_cloud(torch.from_numpy(
@@ -1079,18 +1092,19 @@ def check_knn_split(dev):
             f"{dist_err}")
     max_abs = float(torch.abs(dk - dp).max())
     m = qs.shape[1]
-    ms = timed_ms(lambda: knn_split_cuda(k, pts, qs), reps=5)
+    ms = timed_ms(lambda: knn_split_cuda(k, pts, qs), reps=20)
     plain_ms = timed_ms(lambda: knn_torch(k, pts, qs), reps=3)
     library_ms = timed_ms(lambda: torch.topk(
         torch.cdist(qs, pts) ** 2, k, dim=-1, largest=False), reps=3)
     nbytes = 4 * (n * 3 + m * 3) + 8 * m * k
     ops = m * n * (2 * 3 + 4)
     bms, by = bound(nbytes, ops, F32_FLOPS)
-    chunk, chunks = split_plan(k, n, 3)
-    log(f"knn_split patch cut (n={n} m={m} k={k}, {chunks} chunks of "
-        f"{chunk}): max|d|err {max_abs:.3e} rel {dist_err:.2e}, swaps "
-        f"{swaps}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"cdist+topk {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    plan = radix_plan(k, n, 3, m)
+    log(f"knn_split patch cut (n={n} m={m} k={k}, {plan.threads} threads "
+        f"a row, a buffer of {plan.cap} pairs): max|d|err {max_abs:.3e} rel "
+        f"{dist_err:.2e}, swaps {swaps}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, cdist+topk {library_ms:.4f} ms, bound "
+        f"{bms:.3g} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bms, t_bytes=nbytes / HBM_BYTES_PER_S,
                 t_ops=ops / F32_FLOPS, max_abs_err=max_abs)
@@ -1537,8 +1551,8 @@ def refine_route(g, points: int, cf: int, dtype: str = "float32"):
 def expected_counts(up, n: int, b: int = 1) -> dict:
     """Kernel launches of one call of ``up``'s path on b clouds of n points,
     from ``plan_counts`` and the JAX package's shape gates: one seed FPS
-    and one patch kNN for all b clouds (the split row form past the row
-    form's n); per chunk of patches and pass, one attention and a kNN in
+    and one patch kNN for all b clouds (the radix form's 'split' regime
+    past the 'row' regime's n); per chunk of patches and pass, one attention and a kNN in
     each dense block and in the refiner, each in the kernel its gate picks
     (the fused kNN + gather at n ≤ 2048 with ``fused_grouping``, else the
     packed selection at 64 ≤ n ≤ 4096 with ``fast_knn``, else the exact
@@ -4759,11 +4773,12 @@ def ops_21(card: str) -> dict:
         return out, fn("torch")
 
     # patches for training: 24 FPS seeds a cloud, 256-point patches, and
-    # 1024-point ground-truth patches around the same seeds
+    # 1024-point ground-truth patches around the same seeds (k 1024 over
+    # 8,192 points: the kNN radix form's 'split' regime)
     (kp, _, kg), (pp, _, pg) = through(
         lambda impl: extract_patches_train(pcs, 256, patch_num=24,
                                            gt_xyz=gt, gt_k=1024, impl=impl),
-        dict(fps=1, knn=2), "extract_patches_train")
+        dict(fps=1, knn=1, knn_split=1), "extract_patches_train")
     # patch-major: rows j·b + v hold cloud v's patch j
     require(torch.equal(kp[:, 0], pp[:, 0]),
             "extract_patches_train: the seeds (each patch's row 0) differ")
@@ -5047,7 +5062,7 @@ def nets_21(card: str) -> dict:
     ground-truth patches of 1024 points (``synthetic_patches``),
     ``HierarchyUpsampler()`` on 28 × 256 → 1024, ``GCNBackbone(conv=c)``
     for each conv on 28 × 256 (its third graph at k·d = 48: ``knn.cu``'s
-    row form on 24-wide features), ``UpProjectionUnit()`` on the
+    radix form on 24-wide features), ``UpProjectionUnit()`` on the
     ``GeneratorConfig()`` backbone's features of 28 × 256 patches, and
     ``PointShuffle2(use_knn=False)`` at the refiner's width on 28 × 1024
     in training and in eval with ``local_impl='fused'``.  Each with exact
@@ -5055,7 +5070,7 @@ def nets_21(card: str) -> dict:
     output against the plain path on the kernels' selections (see
     ``NETS_REL``), and one backward (the refiner's in training) leaving
     every parameter a finite gradient.  Then the new kernel shapes timed
-    beside their plain versions: the kNN row form at k 48 on 24 channels,
+    beside their plain versions: the kNN radix form at k 48 on 24 channels,
     the ball query at the hierarchy's ns 64 and 32.  Returns the phase's
     launch counts."""
     import torch
@@ -5151,7 +5166,7 @@ def nets_21(card: str) -> dict:
           "refiner", backward=False)
 
     # the new shapes, timed: the third GCN graph (28 x 256, 24 channels,
-    # k 48, the row form) and the hierarchy's ball queries
+    # k 48, the radix form's 'row' regime) and the hierarchy's ball queries
     x24 = torch.randn(28, 256, 24, generator=gen).to(dev)
     dk, ik = knn_cuda(48, x24, x24)
     dp, ip = knn_torch(48, x24, x24)
@@ -5168,9 +5183,9 @@ def nets_21(card: str) -> dict:
     b, n, c = x24.shape
     bms, by = bound(4 * 2 * b * n * c + 8 * b * n * 48,
                     b * n * n * (2 * c + 4), F32_FLOPS)
-    lines.append(f"knn row form (b={b} n={n} c={c} k=48): swaps {swaps}, "
+    lines.append(f"knn radix form (b={b} n={n} c={c} k=48): swaps {swaps}, "
                  f"distances {dist_err:.2e} of the scale, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk "
-                 f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                 f"{library_ms:.4f} ms, bound {bms:.3g} ms ({by})")
     for r, ns, pts, m in ((0.1, 64, gt, 1024), (0.05, 32, sparse, 256)):
         qs = pts[:, :m].contiguous()
         got = query_ball_cuda(r, ns, pts, qs)

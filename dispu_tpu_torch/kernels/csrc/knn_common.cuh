@@ -15,9 +15,11 @@
 // Two forms:
 // - the row form (row_distances, select_min, knock_out): one warp per
 //   query, its n distances in shared memory, k rounds of a strided pass,
-//   a butterfly and a knock-out.  knn.cu and knn_group.cu take it for
-//   k > kStreamK; refine_block.cu for its k <= 16.  One row must fit one
-//   block's shared memory: n + c <= 58,112.
+//   a butterfly and a knock-out.  knn_group.cu and knn.cu's packed
+//   selection take it for k > kStreamK; refine_block.cu for its k <= 16.
+//   One row must fit one block's shared memory: n + c <= 58,112.  (knn.cu's
+//   exact selection past k = 32 is a radix select of its own, with the same
+//   bits.)
 // - the tiled form (stream_topk), for k <= kStreamK = 32 (MAX_STREAM_K in
 //   kernels/knn.py, whose wrappers refuse only the row form's n).  A block
 //   takes one cloud and kTQ = 32 queries and streams the cloud through shared
@@ -49,9 +51,8 @@
 //   selection, whose list holds one int key a pair, (bits(d) & ~lmask) | j,
 //   compared as ints.  ExactOrder's key is the index itself, so the exact
 //   form's code and bits are those it had before the order was a parameter.
-// - the split row form (knn.cu, k > kStreamK past the row form's n): the
-//   row form over chunks of the row, each chunk's k best written out, then
-//   the row form over those candidates.
+// - knn.cu's radix form (k > kStreamK) takes only the distance code
+//   (query_sq, point_distance) from here; its selection is its own.
 
 #pragma once
 
@@ -70,6 +71,28 @@ __device__ __forceinline__ bool lex_less(float v, int i, float ov, int oi) {
 
 // ------------------------------------------------------------ row form
 
+// |q|^2 of a query of c floats: one fmaf chain over ascending coordinates.
+__device__ __forceinline__ float query_sq(const float* q, int c) {
+  float q2 = 0.f;
+  for (int t = 0; t < c; ++t) q2 = fmaf(q[t], q[t], q2);
+  return q2;
+}
+
+// The distance of point p (c floats) from query q with |q|^2 = q2 and
+// column bias bj: max((q2 - 2 q.p) + p2, 0) + bj.
+__device__ __forceinline__ float point_distance(const float* q, float q2,
+                                                const float* __restrict__ p,
+                                                float bj, int c) {
+  float qp = 0.f, p2 = 0.f;
+  for (int t = 0; t < c; ++t) {
+    const float pv = p[t];
+    qp = fmaf(q[t], pv, qp);
+    p2 = fmaf(pv, pv, p2);
+  }
+  const float e = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, qp)), p2);
+  return __fadd_rn(fmaxf(e, 0.f), bj);
+}
+
 // Distances of query row ``qrow`` to the cloud's n points into d[0, n); q
 // (c floats of shared memory) receives the query.  Ends with a __syncwarp.
 __device__ __forceinline__ void row_distances(const float* __restrict__ qrow,
@@ -79,19 +102,9 @@ __device__ __forceinline__ void row_distances(const float* __restrict__ qrow,
                                               int c, int lane) {
   for (int t = lane; t < c; t += 32) q[t] = qrow[t];
   __syncwarp();
-  float q2 = 0.f;
-  for (int t = 0; t < c; ++t) q2 = fmaf(q[t], q[t], q2);
-  for (int j = lane; j < n; j += 32) {
-    const float* p = pts + (size_t)j * c;
-    float qp = 0.f, p2 = 0.f;
-    for (int t = 0; t < c; ++t) {
-      const float pv = p[t];
-      qp = fmaf(q[t], pv, qp);
-      p2 = fmaf(pv, pv, p2);
-    }
-    const float e = __fadd_rn(__fsub_rn(q2, __fmul_rn(2.f, qp)), p2);
-    d[j] = __fadd_rn(fmaxf(e, 0.f), bs[j]);
-  }
+  const float q2 = query_sq(q, c);
+  for (int j = lane; j < n; j += 32)
+    d[j] = point_distance(q, q2, pts + (size_t)j * c, bs[j], c);
   __syncwarp();
 }
 

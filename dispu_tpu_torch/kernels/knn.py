@@ -1,18 +1,24 @@
 """kNN kernels (``csrc/knn.cu``) and their plain PyTorch versions.
 
 Replaces ``knn_pallas`` (``dispu_tpu/ops/pallas_kernels.py``): the exact
-selection (:func:`knn`, count ``LAUNCHES["knn"]``, and past the row form's
-n ``LAUNCHES["knn_split"]``) and the packed-key turbo selection of
-``variant="packed"`` (:func:`knn_packed`, count ``LAUNCHES["knn_packed"]``).
-For k <= :data:`MAX_STREAM_K` both kernels stream each cloud through
-shared memory in coalesced tiles, with a register tile of queries by
-points a thread, and keep each query's k best in registers (any n); they
-are bound by the distances' f32 FMAs and the selection's compares.  Beyond
-that k one warp per query keeps the query's distance row in shared memory
-and takes k rounds over it (n + c <= :data:`MAX_ROW_FLOATS`); past that n
-the exact selection splits the row into chunks (:func:`knn_split_cuda`),
-which :func:`knn_kernel_cuda` picks by shape.  See the note at the top of
-the source.  :func:`knn` is differentiable through :class:`KnnFunction`,
+selection (:func:`knn`, count ``LAUNCHES["knn"]``, and past the radix
+form's shared memory ``LAUNCHES["knn_split"]``) and the packed-key turbo
+selection of ``variant="packed"`` (:func:`knn_packed`, count
+``LAUNCHES["knn_packed"]``).  For k <= :data:`MAX_STREAM_K` both kernels
+stream each cloud through shared memory in coalesced tiles, with a
+register tile of queries by points a thread, and keep each query's k best
+in registers (any n); they are bound by the distances' f32 FMAs and the
+selection's compares.  Beyond that k the exact selection is a radix
+select, one block a query row (:func:`radix_plan`): digit passes over the
+(distance, index) composites find the k-th, then the k are collected and
+sorted.  Up to :data:`RADIX_ROW_POINTS` points the row's distances stay
+in shared memory ('row', :func:`knn_cuda`, which takes n + c <=
+:data:`RADIX_ROW_FLOATS`); past them each pass recomputes them from the
+cloud (:func:`knn_split_cuda`), at any n.
+:func:`knn_kernel_cuda` picks by shape (:func:`knn_form`).  The packed
+selection past k = 32 keeps one warp a row and k rounds over the row
+(n + c <= :data:`MAX_ROW_FLOATS`).  See the note at the top of the
+source.  :func:`knn` is differentiable through :class:`KnnFunction`,
 which carries ``knn_pallas_diff``'s backward rule in torch ops; so is
 :func:`knn_packed`, by the same rule.  Both selections are custom ops,
 ``dispu_tpu_torch::knn`` (the shape gate of :func:`knn_kernel_cuda`
@@ -22,6 +28,8 @@ included) and ``dispu_tpu_torch::knn_packed``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,12 +39,30 @@ from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
 
 #: the largest k of the tiled form, which takes any n
 MAX_STREAM_K = 32
-#: beyond it the row form's one query's distance row plus the query, in
-#: floats, must fit one block's shared memory (232,448 bytes on Hopper);
-#: so must the split form's chunk rows and its merge's candidate row
+#: one block's shared memory on Hopper (232,448 bytes), in floats: the
+#: packed selection's row form past k = 32 holds one query's distance row
+#: plus the query there (``knn_group``'s row form the same)
 MAX_ROW_FLOATS = 232448 // 4
-#: warps a block of the row forms holds at most (``kMaxWarps``)
-ROW_WARPS = 8
+#: the radix form's words ahead of the query: a histogram of 256 bins and
+#: 16 words of control (``kRadixHead``)
+RADIX_HEAD_WORDS = 256 + 16
+#: the radix form's 'row' regime keeps a query's n distances beside the
+#: query and the head: n + c <= RADIX_ROW_FLOATS (57,840)
+RADIX_ROW_FLOATS = MAX_ROW_FLOATS - RADIX_HEAD_WORDS
+#: the most points at which :func:`knn_form` takes the 'row' regime: past
+#: them the 'split' regime, which recomputes the distances, took no more
+#: device time at k 256 and c 3, 24 to 703 queries (``time_knn_forms
+#: --regimes``)
+RADIX_ROW_POINTS = 4096
+#: the 'split' regime's buffer: the tied group of the descent is taken into
+#: shared memory once it holds at most this many entries
+RADIX_CAP = 4096
+#: threads of a radix block at most (``kRadixMaxThreads``)
+RADIX_MAX_THREADS = 1024
+#: rows from which the 'split' regime takes blocks of 512 threads: two
+#: blocks of 1024 on each of an H100's 132 SMs (on the 60,000-point cut,
+#: 703 rows, 512 threads took 0.486 ms against 0.528 at 1024)
+RADIX_SPLIT_ROWS = 2 * 132
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,7 +84,7 @@ def knn_torch(k: int, points: torch.Tensor, queries: torch.Tensor,
     return d[..., :k].contiguous(), idx[..., :k].to(torch.int32).contiguous()
 
 
-def _check(k, points, queries, bias, row_form):
+def _check(k, points, queries, bias, row_floats=None):
     if points.dim() != 3 or queries.dim() != 3:
         raise ValueError("knn kernel takes (b, n, c) points and (b, m, c) "
                          "queries")
@@ -77,110 +103,156 @@ def _check(k, points, queries, bias, row_form):
         raise ValueError(f"bias must be (b, n) = {(b, n)}")
     if not 1 <= k <= n:
         raise ValueError(f"k={k} must lie in [1, n={n}]")
-    if row_form and n + c > MAX_ROW_FLOATS:
+    if row_floats is not None and n + c > row_floats:
         raise ValueError(
             f"knn kernel at k={k} holds a query's n + c = {n + c} floats in "
-            f"shared memory; the limit is {MAX_ROW_FLOATS}"
+            f"shared memory; the limit is {row_floats}"
         )
 
 
 def knn_form(k: int, n: int, c: int) -> str:
     """The exact kernel's form for k neighbours among n points of c
-    coordinates: 'tiled' (k <= :data:`MAX_STREAM_K`, any n), 'row' (the
-    row fits a block's shared memory) or 'split'."""
+    coordinates: 'tiled' (k <= :data:`MAX_STREAM_K`, any n), else the
+    radix form's 'row' regime (at most :data:`RADIX_ROW_POINTS` points,
+    the row in a block's shared memory beside the head, n + c <=
+    :data:`RADIX_ROW_FLOATS`) or its 'split' regime."""
     if k <= MAX_STREAM_K:
         return "tiled"
-    return "row" if n + c <= MAX_ROW_FLOATS else "split"
+    return ("row" if n <= RADIX_ROW_POINTS and n + c <= RADIX_ROW_FLOATS
+            else "split")
 
 
-def split_chunk(c: int) -> int:
-    """The split form's chunk of points: as many, in multiples of 32, as
-    let :data:`ROW_WARPS` rows of chunk + c floats fill one block's
-    shared memory (7,232 at c = 3)."""
-    return max(32, (MAX_ROW_FLOATS // ROW_WARPS - c) // 32 * 32)
+def radix_threads(n: int, form: str, rows: int) -> int:
+    """Threads of a radix block for ``rows`` query rows of n points: in
+    the 'row' regime the power of two nearest above n / 4, from a warp to
+    :data:`RADIX_MAX_THREADS` (64 at 256 points, 512 at 2,048); in the
+    'split' regime, whose passes sweep the whole cloud, 512 where the rows
+    fill the card (:data:`RADIX_SPLIT_ROWS`), else the most."""
+    if form == "split":
+        return 512 if rows >= RADIX_SPLIT_ROWS else RADIX_MAX_THREADS
+    t = 32
+    while t < RADIX_MAX_THREADS and 4 * t < n:
+        t *= 2
+    return t
 
 
-def split_plan(k: int, n: int, c: int, chunk: int | None = None):
-    """(chunk, chunks) of the split form; raises ``ValueError`` where a
-    chunk's row or the merge's row of k · chunks candidates does not fit
-    one block's shared memory."""
-    chunk = split_chunk(c) if chunk is None else chunk
-    chunks = -(-n // chunk)
-    if chunk < 1 or chunk + c > MAX_ROW_FLOATS \
-            or k * chunks > MAX_ROW_FLOATS:
+def radix_smem(k: int, row_words: int, c: int) -> tuple[int, bool]:
+    """(bytes of dynamic shared memory, whether the k pairs sort there) of
+    a radix block holding ``row_words`` words of row: the 'row' regime's n
+    distances or the 'split' regime's buffer of 2 · cap words; (0, False)
+    where the row does not fit.  ``radix_smem`` in the source."""
+    base = RADIX_HEAD_WORDS + c + row_words
+    if base > MAX_ROW_FLOATS:
+        return 0, False
+    if base + 2 * k <= MAX_ROW_FLOATS:
+        return 4 * (base + 2 * k), True
+    return 4 * base, False
+
+
+class RadixPlan(NamedTuple):
+    """A radix launch: its regime (:func:`knn_form`), threads a block,
+    dynamic shared memory in bytes, whether the k pairs sort in shared
+    memory (else in the output rows), and the 'split' buffer's pairs (0
+    for 'row')."""
+    form: str
+    threads: int
+    smem: int
+    out_smem: bool
+    cap: int
+
+
+@functools.lru_cache(maxsize=256)
+def radix_plan(k: int, n: int, c: int, rows: int, form: str | None = None,
+               cap: int | None = None) -> RadixPlan:
+    """The radix launch for ``rows`` query rows of k > :data:`MAX_STREAM_K`
+    neighbours among n points of c coordinates, in ``form`` (by default
+    :func:`knn_form`'s) and for 'split' with a buffer of ``cap`` pairs
+    (default :data:`RADIX_CAP`); raises ``ValueError`` where it does not
+    fit."""
+    form = knn_form(k, n, c) if form is None else form
+    if form == "row":
+        smem, out = radix_smem(k, n, c)
+        cap = 0
+    elif form == "split":
+        cap = RADIX_CAP if cap is None else cap
+        if cap < 1:
+            raise ValueError(f"knn split form: cap={cap} must be >= 1")
+        smem, out = radix_smem(k, 2 * cap, c)
+    else:
+        raise ValueError(f"no radix regime {form!r} (k={k}, n={n})")
+    if not smem:
         raise ValueError(
-            f"knn split form at k={k}, n={n}, c={c}: chunks of {chunk} + c "
-            f"floats and the merge's {k} x {chunks} candidates must each "
-            f"fit {MAX_ROW_FLOATS} floats of shared memory")
-    return chunk, chunks
+            f"knn radix form ({form}) at k={k}, n={n}, c={c}: the row and "
+            f"the query must fit {MAX_ROW_FLOATS} floats of shared memory")
+    return RadixPlan(form, radix_threads(n, form, rows), smem, out, cap)
 
 
 def knn_kernel_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
                     bias: torch.Tensor | None = None):
     """The exact selection on the card: :func:`knn_split_cuda` exactly
-    where :func:`knn_form` says the row form does not fit, else
-    :func:`knn_cuda`.  A shape gate: both return the same bits wherever
-    both run."""
+    where :func:`knn_form` says 'split', else :func:`knn_cuda`.  A shape
+    gate: both return the same bits wherever both run."""
     if points.dim() == 3 and knn_form(k, *points.shape[1:]) == "split":
         return knn_split_cuda(k, points, queries, bias)
     return knn_cuda(k, points, queries, bias)
 
 
-def knn_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
-             bias: torch.Tensor | None = None):
-    """Launch the kernel (the tiled or the row form).  Same contract as
-    :func:`knn_torch`; raises ``ValueError`` past the row form's n."""
+def _launch(name, argtypes, what, points, *args):
+    """Call entry ``name`` of ``csrc/knn.cu`` (built on first use) on
+    ``points``' device and current stream; raise on a CUDA error."""
     from dispu_tpu_torch.kernels import _build
 
-    _check(k, points, queries, bias, row_form=k > MAX_STREAM_K)
-    b, n, c = points.shape
-    m = queries.shape[1]
-    if bias is None:
-        bias = torch.zeros((b, n), dtype=torch.float32, device=points.device)
-    dists = torch.empty((b, m, k), dtype=torch.float32, device=points.device)
-    idx = torch.empty((b, m, k), dtype=torch.int32, device=points.device)
-    fn = _build.load("knn").dispu_knn
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn = getattr(_build.load("knn"), name)
+    fn.argtypes = argtypes
     fn.restype = _I
     with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(points.data_ptr(), queries.data_ptr(), bias.data_ptr(),
-                    dists.data_ptr(), idx.data_ptr(), b, n, m, c, k, stream)
-    _build.check(status, "knn kernel launch")
+        status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _build.check(status, what)
+
+
+def _outputs(k, points, queries):
+    b, m = queries.shape[:2]
+    return (torch.empty((b, m, k), dtype=torch.float32, device=points.device),
+            torch.empty((b, m, k), dtype=torch.int32, device=points.device))
+
+
+def knn_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
+             bias: torch.Tensor | None = None):
+    """Launch the kernel: the tiled form, or past k = 32 the radix form's
+    'row' regime.  Same contract as :func:`knn_torch`; raises
+    ``ValueError`` past the 'row' regime's n."""
+    row = k > MAX_STREAM_K
+    _check(k, points, queries, bias, RADIX_ROW_FLOATS if row else None)
+    b, n, c = points.shape
+    m = queries.shape[1]
+    threads = radix_plan(k, n, c, b * m, "row").threads if row else 0
+    if bias is None and not row:  # the tiled form reads a bias
+        bias = torch.zeros((b, n), dtype=torch.float32, device=points.device)
+    dists, idx = _outputs(k, points, queries)
+    _launch("dispu_knn", [_P] * 5 + [_I] * 6 + [_P], "knn kernel launch",
+            points, points.data_ptr(), queries.data_ptr(),
+            0 if bias is None else bias.data_ptr(), dists.data_ptr(),
+            idx.data_ptr(), b, n, m, c, k, threads)
     LAUNCHES["knn"] += 1
     return dists, idx
 
 
 def knn_split_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
-                   bias: torch.Tensor | None = None,
-                   chunk: int | None = None):
-    """Launch the split row form (``chunk`` points a chunk, by default
-    :func:`split_chunk`): the row form's bits at any n that
-    :func:`split_plan` admits.  Same contract as :func:`knn_torch`."""
-    from dispu_tpu_torch.kernels import _build
-
-    _check(k, points, queries, bias, row_form=False)
+                   bias: torch.Tensor | None = None, cap: int | None = None):
+    """Launch the radix form's 'split' regime (the distances recomputed
+    from the cloud each pass, the tied group taken into a buffer of
+    ``cap`` pairs, by default :data:`RADIX_CAP`) at any n and any k >= 1:
+    the 'row' regime's bits.  Same contract as :func:`knn_torch`."""
+    _check(k, points, queries, bias)
     b, n, c = points.shape
     m = queries.shape[1]
-    chunk, chunks = split_plan(k, n, c, chunk)
-    dev = points.device
-    if bias is None:
-        bias = torch.zeros((b, n), dtype=torch.float32, device=dev)
-    cand_d = torch.empty((b * m * chunks * k,), dtype=torch.float32,
-                         device=dev)
-    cand_j = torch.empty((b * m * chunks * k,), dtype=torch.int32,
-                         device=dev)
-    dists = torch.empty((b, m, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((b, m, k), dtype=torch.int32, device=dev)
-    fn = _build.load("knn").dispu_knn_split
-    fn.argtypes = [_P] * 7 + [_I] * 6 + [_P]
-    fn.restype = _I
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(points.data_ptr(), queries.data_ptr(), bias.data_ptr(),
-                    cand_d.data_ptr(), cand_j.data_ptr(), dists.data_ptr(),
-                    idx.data_ptr(), b, n, m, c, k, chunk, stream)
-    _build.check(status, "knn split kernel launch")
+    plan = radix_plan(k, n, c, b * m, "split", cap)
+    dists, idx = _outputs(k, points, queries)
+    _launch("dispu_knn_split", [_P] * 5 + [_I] * 7 + [_P],
+            "knn split kernel launch", points, points.data_ptr(),
+            queries.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            dists.data_ptr(), idx.data_ptr(), b, n, m, c, k, plan.threads,
+            plan.cap)
     LAUNCHES["knn_split"] += 1
     return dists, idx
 
@@ -316,24 +388,17 @@ def knn_packed_cuda(k: int, points: torch.Tensor, queries: torch.Tensor,
     """Launch the packed kernel.  Same contract as
     :func:`knn_packed_torch`; the tiled form for k <= ``MAX_STREAM_K``,
     beyond it the row form, which refuses n + c > ``MAX_ROW_FLOATS``."""
-    from dispu_tpu_torch.kernels import _build
-
-    _check(k, points, queries, bias, row_form=k > MAX_STREAM_K)
+    _check(k, points, queries, bias,
+           MAX_ROW_FLOATS if k > MAX_STREAM_K else None)
     b, n, c = points.shape
     m = queries.shape[1]
     if bias is None:
         bias = torch.zeros((b, n), dtype=torch.float32, device=points.device)
-    dists = torch.empty((b, m, k), dtype=torch.float32, device=points.device)
-    idx = torch.empty((b, m, k), dtype=torch.int32, device=points.device)
-    fn = _build.load("knn").dispu_knn_packed
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    fn.restype = _I
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(points.data_ptr(), queries.data_ptr(), bias.data_ptr(),
-                    dists.data_ptr(), idx.data_ptr(), b, n, m, c, k,
-                    packed_lane_bits(n), stream)
-    _build.check(status, "packed knn kernel launch")
+    dists, idx = _outputs(k, points, queries)
+    _launch("dispu_knn_packed", [_P] * 5 + [_I] * 6 + [_P],
+            "packed knn kernel launch", points, points.data_ptr(),
+            queries.data_ptr(), bias.data_ptr(), dists.data_ptr(),
+            idx.data_ptr(), b, n, m, c, k, packed_lane_bits(n))
     LAUNCHES["knn_packed"] += 1
     return dists, idx
 

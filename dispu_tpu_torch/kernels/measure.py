@@ -1,7 +1,8 @@
 """Shapes and a timer that ``chip_smoke.py`` and ``time_fps`` share.
 
 ``KNN_CASES`` and ``KNN_GROUP_CASES`` are the kNN kernels' shapes on the
-serving and training paths, with :func:`knn_inputs` and
+serving and training paths (``KNN_WIDE_CASES`` the exact kNN's past k = 32
+beside the 4× patch cut), with :func:`knn_inputs` and
 :func:`knn_group_inputs` to make their inputs from a seed;
 ``GATHER_CASES`` are the gather pair's shapes in a train step at batch 28
 with ``gather_impl='pallas'``; ``SCATTER_CASES`` the scatter kernel's in a
@@ -30,9 +31,9 @@ class KnnCase(NamedTuple):
     """One exact kNN launch: ``b`` clouds of ``n`` points in ``c``
     dimensions, ``m`` queries each, ``k`` neighbours; ``dup``: the last 8
     rows repeat the first 8 and duplicates carry the 1e30 column bias
-    (``knn_unique``); ``queries``: ``"self"`` (the points), ``"patch"`` (24
-    points of the cloud, every 85th) or ``"other"`` (a cloud of their
-    own); ``per_request``: launches in a 2048-point 4× request;
+    (``knn_unique``); ``queries``: ``"self"`` (the points), ``"patch"`` (m
+    points of the demo cloud, every 85th), ``"scan"`` (the same of a
+    scan of n points) or ``"other"`` (a cloud of their own); ``per_request``: launches in a 2048-point 4× request;
     ``per_step``: launches in a CD train step at batch 28."""
     label: str
     b: int
@@ -67,6 +68,35 @@ KNN_CASES = [
     KnnCase("eval 4x k1", 1, 2048, 8192, 3, 1, False, "other", 0),
     KnnCase("eval 16x k1", 1, 2048, 32768, 3, 1, False, "other", 0),
 ]
+
+
+#: exact kNN shapes past k = 32 that a 2048-point 4× request does not
+#: make (its patch cut is ``KNN_CASES``' first): the patch cut of a
+#: 60,000-point scan (703 queries; the radix form's 'split' regime), the
+#: GCN backbone's k 48 graph (28 × 256, c 24; ``nn/gcn.py``), and the
+#: patch cut at 'megafused''s ``patch_num_point`` 512 (12 queries of the
+#: 2048-point cloud); ``per_request`` 0, so that a 4× request's aggregate
+#: stays ``KNN_CASES``'
+KNN_WIDE_CASES = [
+    KnnCase("scan60k k256", 1, 60000, 703, 3, 256, False, "scan", 0),
+    KnnCase("gcn k48", 28, 256, 256, 24, 48, False, "self", 0),
+    KnnCase("patch k512", 1, 2048, 12, 3, 512, False, "patch", 0),
+]
+
+
+def scan_cloud(n: int, seed: int) -> torch.Tensor:
+    """(n, 3) f32 points on a torus's surface (radii 1 and 0.35) with
+    noise, from a numpy seed (``chip_smoke.py``'s ``big_cloud``), centred
+    and scaled by its furthest point as a request normalizes it."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    u, v = rs.uniform(0.0, 2.0 * np.pi, (2, n))
+    ring = 1.0 + 0.35 * np.cos(v)
+    pts = np.stack([ring * np.cos(u), ring * np.sin(u), 0.35 * np.sin(v)], 1)
+    x = torch.from_numpy((pts + 0.002 * rs.randn(n, 3)).astype(np.float32))
+    x = x - torch.mean(x, dim=0, keepdim=True)
+    return x / torch.amax(torch.sqrt(torch.sum(x * x, dim=-1)))
 
 
 class KnnGroupCase(NamedTuple):
@@ -123,11 +153,14 @@ def knn_inputs(gen: torch.Generator, cases=KNN_CASES,
                patch_cloud: torch.Tensor | None = None) -> list:
     """(points, queries or None for the points, dup) a case, on the CPU,
     drawn in the order of ``cases``; a ``"patch"`` case takes its points
-    from ``patch_cloud`` ((n, 3), e.g. a normalized demo cloud)."""
+    from ``patch_cloud`` ((n, 3), e.g. a normalized demo cloud), a
+    ``"scan"`` case from :func:`scan_cloud` (seed 11), both every 85th
+    point as the queries."""
     out = []
     for case in cases:
-        if case.queries == "patch":
-            pts = patch_cloud[None]
+        if case.queries in ("patch", "scan"):
+            pts = (patch_cloud if case.queries == "patch"
+                   else scan_cloud(case.n, 11))[None]
             qs = pts[:, ::85][:, :case.m]
         else:
             pts = _cloud(gen, case.b, case.n, case.c, 8 if case.dup else 0)

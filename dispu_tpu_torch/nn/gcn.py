@@ -5,7 +5,7 @@ backbone.
 
 The graphs are the port's kNN, on the card the kNN kernel (``knn.cu``):
 at k·dilation = 16, 32 and 48 over the backbone's features, the last
-past the tiled form's k ≤ 32, so the row form.  The JAX package draws
+past the tiled form's k ≤ 32, so the radix form.  The JAX package draws
 the stochastic dilation's k-subset and its ε gate with ``jax.random``,
 whose bits torch cannot make; here :func:`draw_dilation` draws them from
 a ``torch.Generator`` and :func:`select_dilated` takes them as inputs.

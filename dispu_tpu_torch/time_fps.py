@@ -4,7 +4,7 @@ checkouts on the card, in turns.
     python3 -m dispu_tpu_torch.time_fps [--b 1] [--n 98304] [--npoint 32768]
                                         [--reps 3]
                                         [--kernel KERNEL | --request R
-                                         [--points N] | --steps]
+                                         [--points N [--exact]] | --steps]
                                         [TREE ...]
 
 Each TREE is the root of a checkout of this repository (default: the one
@@ -50,12 +50,15 @@ only within one such call.
   digest a shape; the top-level ``ms`` is the 4× merge's.  To time a
   form, copy the package into ``_trees/NAME/`` with the list in
   ``csrc/fps_bucketed.cu``'s ``with_form`` edited and pass that tree too.
-- ``--kernel knn``: ``knn_cuda`` at every shape of ``measure.KNN_CASES``
-  (inputs from ``measure.knn_inputs`` with seed 1, the patch cut on the
-  normalized ``demo/gt/Icosahedron.xyz``, ``measure`` loaded from this
-  checkout into every tree), ``ms`` by CUDA events around ``--reps``
-  back-to-back calls after one warm-up, and a digest of (dists, idx)
-  a shape; the top-level ``ms`` is a 4× request's launches.
+- ``--kernel knn``: ``knn_kernel_cuda`` (the shape gate) at every shape
+  of ``measure.KNN_CASES`` and ``measure.KNN_WIDE_CASES`` (inputs from
+  ``measure.knn_inputs`` with seed 1, the patch cuts on the normalized
+  ``demo/gt/Icosahedron.xyz`` and on a 60,000-point scan, ``measure``
+  loaded from this checkout into every tree), ``ms`` by CUDA events
+  around ``--reps`` back-to-back calls after one warm-up, ``kernel_ms``
+  the profiler's device time a call (``measure.device_ms``), and a digest
+  of (dists, idx) a shape; the top-level ``ms`` is a 4× request's
+  launches.
   ``--kernel knn_group``: ``knn_group_cuda`` the same way at
   ``measure.KNN_GROUP_CASES`` (seed 5), its digest over (dists, idx,
   grouped xyz, grouped features); the top-level ``ms`` is a 4× turbo
@@ -97,7 +100,8 @@ only within one such call.
   and a digest of every step's loss.
 - ``--request R --points N``: the turbo request alone on a scan of N
   points on a torus (``chip_smoke.py``'s ``big_cloud`` with seed 11),
-  under ``turbo_``.
+  under ``turbo_``; with ``--exact`` also the exact request
+  (``InferenceConfig(final_ratio=R)``) first, under the bare keys.
 - ``--request R``: ``PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
   final_ratio=R)).upsample`` of ``demo/gt/fandisk.xyz``, host wall
   milliseconds a call (the result is on the host when it returns) over
@@ -149,6 +153,7 @@ if mode.startswith("request"):
     from dispu_tpu_torch import InferenceConfig, cli
     from dispu_tpu_torch.inference import PatchUpsampler
     ratio, _, points = mode[len("request"):].partition("_")
+    points, exact = points.rstrip("x"), points.endswith("x")
     ratio = int(ratio)
     turbo = cli.build_config(cli.parse_args(["--phase", "test", "--turbo",
                                              "true"]))
@@ -164,6 +169,9 @@ if mode.startswith("request"):
         pc = np.stack([ring * np.cos(u), ring * np.sin(u), 0.35 * np.sin(v)],
                       1)
         pc = (pc + 0.002 * rs.randn(int(points), 3)).astype(np.float32)
+        if exact:
+            setups = [("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
+                final_ratio=ratio)))] + setups
     else:
         pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
         setups = [("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
@@ -295,11 +303,11 @@ elif mode in ("knn", "knn_group"):
     from dispu_tpu_torch.ops.knn import mask_duplicate_rows
     shapes, total = {}, 0.0
     if mode == "knn":
-        from dispu_tpu_torch.kernels.knn import knn_cuda
+        from dispu_tpu_torch.kernels.knn import knn_kernel_cuda
         from dispu_tpu_torch.ops.geometry import normalize_point_cloud
         cloud = normalize_point_cloud(torch.from_numpy(np.loadtxt(
             "demo/gt/Icosahedron.xyz", dtype=np.float32)[:, :3]))[0]
-        cases = measure.KNN_CASES
+        cases = measure.KNN_CASES + measure.KNN_WIDE_CASES
         inputs = measure.knn_inputs(torch.Generator().manual_seed(1), cases,
                                     cloud)
     else:
@@ -314,7 +322,7 @@ elif mode in ("knn", "knn_group"):
         bias = mask_duplicate_rows(pts).float() * 1e30 if dup else None
         if mode == "knn":
             def call():
-                return knn_cuda(case.k, pts, other, bias)
+                return knn_kernel_cuda(case.k, pts, other, bias)
         else:
             def call():
                 return knn_group_cuda(case.k, pts, pts, other, bias,
@@ -324,6 +332,8 @@ elif mode in ("knn", "knn_group"):
         out = [o.cpu().numpy() for o in call() if o is not None]
         ms = event_ms(call)
         shapes[case.label] = {"ms": ms, "digest": digest(*out)}
+        if mode == "knn":
+            shapes[case.label]["kernel_ms"] = measure.device_ms(call, reps)
         total += case.per_request * ms
     joined = "".join(v["digest"] for v in shapes.values()).encode()
     print(json.dumps({"ms": total, "shapes": shapes,
@@ -486,13 +496,16 @@ def main() -> int:
     parser.add_argument("--points", type=int, default=0,
                         help="with --request: a turbo request on a scan of "
                              "this many points instead of demo/gt/fandisk.xyz")
+    parser.add_argument("--exact", action="store_true",
+                        help="with --points: time the exact request too")
     parser.add_argument("--steps", action="store_true",
                         help="time CD train steps instead of a kernel")
     args = parser.parse_args()
     mode = args.kernel
     if args.request is not None:
         mode = f"request{args.request}" + (
-            f"_{args.points}" if args.points else "")
+            f"_{args.points}{'x' if args.exact else ''}" if args.points
+            else "")
     elif args.steps:
         mode = "steps"
 

@@ -24,7 +24,8 @@ from dispu_tpu_torch.kernels.fps_chunked import (fps_chunked_cuda, form_for,
 from dispu_tpu_torch.kernels.gather_rows import (BUILD_SMEM, SCATTER_MAX_N,
                                                  build_max_n, build_warps)
 from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
-                                         knn_cuda, knn_torch)
+                                         RADIX_ROW_FLOATS, knn_cuda,
+                                         knn_split_cuda, knn_torch)
 from dispu_tpu_torch.kernels.measure import SCATTER_CASES
 from dispu_tpu_torch.kernels.query_ball import (MAX_C, MAX_N, MAX_NSAMPLE,
                                                 query_ball_cuda,
@@ -78,16 +79,16 @@ def test_knn_kernel_matches_plain(dev, b, n, m, c, k, dup):
 
 
 def test_knn_kernel_refuses_rows_beyond_shared_memory(dev):
-    """The row form (k > MAX_STREAM_K) holds a query's row in shared
-    memory and refuses what does not fit."""
-    pts = torch.zeros((1, MAX_ROW_FLOATS, 1), device=dev)
-    with pytest.raises(ValueError, match=str(MAX_ROW_FLOATS)):
+    """The radix form's 'row' regime (k > MAX_STREAM_K) holds a query's
+    row in shared memory and refuses what does not fit."""
+    pts = torch.zeros((1, RADIX_ROW_FLOATS, 1), device=dev)
+    with pytest.raises(ValueError, match=str(RADIX_ROW_FLOATS)):
         knn_cuda(MAX_STREAM_K + 1, pts, pts[:, :4].contiguous())
 
 
 @pytest.mark.parametrize("k", [1, 16, MAX_STREAM_K])
 def test_knn_kernel_takes_rows_beyond_shared_memory_up_to_k_32(dev, k):
-    """The tiled form keeps no row in shared memory: n past the row form's
+    """The tiled form keeps no row in shared memory: n past the 'row' regime's
     limit runs, under the plain version's contract."""
     n = MAX_ROW_FLOATS + 1000
     pts = _randn(k, 1, n, 3).to(dev)
@@ -145,7 +146,7 @@ def test_knn_kernel_matches_plain_at_tile_edges(dev, b, n, m, c, k):
                                        if e[4] <= MAX_STREAM_K])
 def test_knn_tiled_form_bit_equal_to_row_form(dev, b, n, m, c, k):
     """Both forms keep one association and one order, so the tiled form's
-    k (k <= 32) are the row form's first k (k' = 33), bit for bit."""
+    k (k <= 32) are the radix form's first k (k' = 33), bit for bit."""
     pts = _randn(n + c, b, n, c).to(dev)
     qs = _randn(m + k, b, m, c).to(dev)
     pts[:, -5:] = pts[:, :5]
@@ -186,14 +187,13 @@ def test_knn_kernel_reports_unfilled_slots(dev, k):
     assert bool(torch.all(ik[..., filled:] == 2**31 - 1))
 
 
-@pytest.mark.parametrize("k,chunk", [(33, None), (256, None), (256, 5000),
-                                     (100, 333)])
-def test_knn_split_form_bit_equal_to_row_form(dev, k, chunk):
-    """Where both run (n + c <= MAX_ROW_FLOATS) the split form returns the
-    row form's bits: points repeated across chunks (exact ties between
-    chunks) and a column bias included."""
-    from dispu_tpu_torch.kernels.knn import knn_split_cuda
-
+@pytest.mark.parametrize("k,cap", [(33, None), (256, None), (256, 64),
+                                   (100, 1)])
+def test_knn_split_form_bit_equal_to_row_form(dev, k, cap):
+    """Where both run (n + c <= RADIX_ROW_FLOATS) the 'split' regime, its
+    distances recomputed each pass, returns the 'row' regime's bits:
+    repeated points (exact ties) and a column bias included; a small
+    buffer forces more passes over the cloud."""
     n = 20000
     pts = _randn(7, 2, n, 3).to(dev)
     pts[:, 15000:15100] = pts[:, 100:200]
@@ -201,7 +201,7 @@ def test_knn_split_form_bit_equal_to_row_form(dev, k, chunk):
     bias = torch.zeros((2, n), device=dev)
     bias[:, 7000:7300] = 1e30
     for bb in (None, bias):
-        got = knn_split_cuda(k, pts, qs, bb, chunk=chunk)
+        got = knn_split_cuda(k, pts, qs, bb, cap=cap)
         want = knn_cuda(k, pts, qs, bb)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -221,16 +221,116 @@ def test_knn_split_form_past_the_row_form_matches_plain(dev):
 
 
 def test_knn_split_form_reports_unfilled_slots(dev):
-    """As the row form: past the finite distances (+inf, INT_MAX)."""
-    from dispu_tpu_torch.kernels.knn import knn_split_cuda
-
+    """As the 'row' regime: past the finite distances (+inf, INT_MAX)."""
     pts = _randn(9, 1, 3000, 3).to(dev)
     pts[:, 20:] = 1e30
     qs = _randn(10, 1, 7, 3).to(dev)
-    dk, ik = knn_split_cuda(40, pts, qs, chunk=256)
+    dk, ik = knn_split_cuda(40, pts, qs, cap=16)
     dr, ir = knn_cuda(40, pts, qs)
     assert torch.equal(dk, dr) and torch.equal(ik, ir)
     assert bool(torch.all(ik[..., 20:] == 2**31 - 1))
+
+
+def _lattice_cloud(seed, b, n, c, span=8):
+    """Integer coordinates in [-span, span]: every distance (and every sum
+    with an integer bias) is exact in f32 in any association, so the
+    plain version's stable sort is the kernel's contract bit for bit;
+    many exact ties."""
+    rs = np.random.RandomState(seed)
+    return torch.from_numpy(
+        rs.randint(-span, span + 1, (b, n, c)).astype(np.float32))
+
+
+def _both_regimes(k, pts, qs, bias=None):
+    """The 'row' and the 'split' regime's (dists, idx), held bit-equal."""
+    got = knn_cuda(k, pts, qs, bias)
+    split = knn_split_cuda(k, pts, qs, bias)
+    assert torch.equal(got[0], split[0]) and torch.equal(got[1], split[1])
+    return got
+
+
+@pytest.mark.parametrize("k,n,m,c", [
+    (33, 2048, 24, 3), (48, 256, 256, 24), (256, 2048, 24, 3),
+    (512, 2048, 12, 3), (256, 4097, 40, 3), (33, 33, 50, 5),
+])
+def test_knn_radix_form_bit_equal_to_plain_contract(dev, k, n, m, c):
+    """k > 32, both regimes, at the paths' k (33, the GCN graph's 48, the
+    patch cut's 256, 'megafused''s 512) on lattice clouds whose distances
+    are exact: the plain version's bits, ties to the lower index."""
+    pts = _lattice_cloud(n + k, 2, n, c).to(dev)
+    qs = _lattice_cloud(m + k, 2, m, c).to(dev)
+    dk, ik = _both_regimes(k, pts, qs)
+    dp, ip = knn_torch(k, pts, qs)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+
+
+@pytest.mark.parametrize("n,k", [(3000, 256), (2048, 512), (300, 40)])
+def test_knn_radix_form_ties_across_the_threshold(dev, n, k):
+    """Repeated points and a block of 1e30-biased columns wider than
+    n - k: the k-th distance is a tie thousands wide, broken by index."""
+    pts = _lattice_cloud(n, 2, n, 3, span=3).to(dev)
+    pts[:, n // 2:n // 2 + 50] = pts[:, :50]
+    qs = pts[:, ::max(1, n // 30)].contiguous()
+    bias = torch.zeros((2, n), device=dev)
+    bias[:, 7:7 + n - k + 10] = 1e30
+    dk, ik = _both_regimes(k, pts, qs, bias)
+    dp, ip = knn_torch(k, pts, qs, bias)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    for cap in (1, 64):
+        sd, si = knn_split_cuda(k, pts, qs, bias, cap=cap)
+        assert torch.equal(sd, dk) and torch.equal(si, ik)
+
+
+def test_knn_radix_form_negative_zero_negative_bias_and_inf(dev):
+    """-0.0 coordinates and bias entries (-0.0 equals +0.0: the lower
+    index first), negative distances from a negative bias (their bits
+    sort reversed), and +inf from overflowed points, never selected."""
+    n, k = 1000, 300
+    pts = _lattice_cloud(3, 2, n, 3, span=2).to(dev)
+    pts[pts == 0] = -0.0
+    qs = pts[:, ::40].contiguous()
+    bias = _lattice_cloud(4, 2, n, 1, span=3)[..., 0].to(dev)
+    bias[bias == 0] = -0.0
+    pts[:, 900:] = 1e30  # p2 overflows: 100 columns at +inf
+    dk, ik = _both_regimes(k, pts, qs, bias)
+    dp, ip = knn_torch(k, pts, qs, bias)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    assert bool(torch.all(dk[..., 0] < 0))
+    assert bool(torch.all(ik < 900))
+
+
+@pytest.mark.parametrize("n", [300, 20000])
+def test_knn_radix_form_k_equal_n_and_unfilled_slots(dev, n):
+    """k = n: every pair, sorted (at 20,000 the pairs sort in the output
+    rows, past the shared memory the row leaves); with +inf columns the
+    slots past the finite ones report (+inf, INT_MAX)."""
+    pts = _lattice_cloud(n, 1, n, 3).to(dev)
+    qs = pts[:, :7].contiguous()
+    dk, ik = _both_regimes(n, pts, qs)
+    dp, ip = knn_torch(n, pts, qs)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    pts[:, n // 3:] = 1e30
+    dk, ik = _both_regimes(n, pts, qs)
+    dp, ip = knn_torch(n, pts, qs)
+    filled = n // 3
+    assert torch.equal(dk[..., :filled], dp[..., :filled])
+    assert torch.equal(ik[..., :filled], ip[..., :filled])
+    assert bool(torch.all(dk[..., filled:] == float("inf")))
+    assert bool(torch.all(ik[..., filled:] == 2**31 - 1))
+
+
+def test_knn_split_form_past_the_old_cap_meets_the_contract(dev):
+    """The patch cut of a 2,000,000-point cloud at k 256 (past the
+    1.64 M points that the chunked split form's merge held), through the
+    shape gate, under the plain version's contract."""
+    from dispu_tpu_torch.ops.knn import knn as knn_ops
+
+    pts = _randn(11, 1, 2_000_000, 3).to(dev)
+    qs = pts[:, ::20000].contiguous()
+    kernels.reset_launch_counts()
+    dk, ik = knn_ops(256, pts, qs)
+    assert kernels.launch_counts()["knn_split"] == 1
+    _assert_knn_contract(256, pts, qs, None, ik, dk)
 
 
 @pytest.mark.parametrize("b,n,npoint", [
@@ -1448,7 +1548,7 @@ def test_refine_block_predicate_is_the_kernels_formula(dev):
 
 
 def test_upsample_of_60000_points(dev):
-    """Past the row form's n: the patch cut takes the split form, the
+    """Past the 'row' regime's n: the patch cut takes the 'split' regime, the
     merge fps_chunked.cu's device-memory form; finite, the right shape,
     bit-equal on repeat."""
     pc = _randn(14, 60000, 3).numpy()

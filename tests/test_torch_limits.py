@@ -1,5 +1,6 @@
-"""The port past two kernels' limits, on the CPU: the exact kNN's split
-row form and the mega-fused refiner's route past its shared memory, whose
+"""The port past two kernels' limits, on the CPU: the exact kNN's radix
+form (its two regimes and their launch plan) and the mega-fused refiner's
+route past its shared memory, whose
 decisions are made in Python from shapes alone, the scatter's choice of
 its index build's route and the size of its scratch, and the ball
 query's scalar radius squared on the host.  The kernels themselves run on the
@@ -18,8 +19,12 @@ from dispu_tpu_torch.kernels.gather_rows import (BUILD_SMEM, SCATTER_MAX_N,
                                                  build_max_n, build_warps,
                                                  scratch_ints)
 from dispu_tpu_torch.kernels.knn import (MAX_ROW_FLOATS, MAX_STREAM_K,
-                                         KnnFunction, knn_form, knn_torch,
-                                         split_chunk, split_plan)
+                                         RADIX_CAP, RADIX_HEAD_WORDS,
+                                         RADIX_ROW_FLOATS, RADIX_ROW_POINTS,
+                                         RADIX_SPLIT_ROWS, KnnFunction,
+                                         RadixPlan, knn_form, knn_torch,
+                                         radix_plan, radix_smem,
+                                         radix_threads)
 from dispu_tpu_torch.kernels.query_ball import host_radius_sq, radius_sq
 from dispu_tpu_torch.kernels.refine_block import (block_fits, block_smem,
                                                   refine_block_torch)
@@ -73,33 +78,106 @@ def test_scatter_scratch_holds_each_routes_arrays(b, n, q, ints):
     assert scratch_ints(b, n, q) == ints
 
 
-# ------------------------------------------------------- the split row form
+# ------------------------------------------------- the radix form's regimes
 
 @pytest.mark.parametrize("k,n,c,form", [
     (1, 10**6, 3, "tiled"), (MAX_STREAM_K, 10**6, 3, "tiled"),
-    (MAX_STREAM_K + 1, MAX_ROW_FLOATS - 3, 3, "row"),
-    (MAX_STREAM_K + 1, MAX_ROW_FLOATS - 2, 3, "split"),
-    (256, 58109, 3, "row"), (256, 58110, 3, "split"),
-    (256, 60000, 3, "split"), (256, 2048, 3, "row"),
-    (100, MAX_ROW_FLOATS - 48, 48, "row"),
-    (100, MAX_ROW_FLOATS - 47, 48, "split"),
+    (MAX_STREAM_K + 1, RADIX_ROW_POINTS, 3, "row"),
+    (MAX_STREAM_K + 1, RADIX_ROW_POINTS + 1, 3, "split"),
+    (256, 2048, 3, "row"), (512, 2048, 3, "row"), (48, 256, 24, "row"),
+    (256, 60000, 3, "split"), (256, 20000, 3, "split"),
+    # the row and the query must fit shared memory beside the head
+    (100, 1000, RADIX_ROW_FLOATS - 1000, "row"),
+    (100, 1000, RADIX_ROW_FLOATS - 999, "split"),
 ])
 def test_knn_form_is_a_shape_gate(k, n, c, form):
     assert knn_form(k, n, c) == form
 
 
-def test_split_plan_fills_a_block_and_bounds_the_merge():
-    # eight warps' rows of chunk + c floats fit one block
-    assert split_chunk(3) == 7232
-    assert 8 * (split_chunk(3) + 3) <= MAX_ROW_FLOATS
-    assert 8 * (split_chunk(3) + 32 + 3) > MAX_ROW_FLOATS
-    assert split_plan(256, 60000, 3) == (7232, 9)
-    assert split_plan(256, 20000, 3, chunk=5000) == (5000, 4)
-    # the merge holds k * chunks candidates in one row
-    last = (MAX_ROW_FLOATS // 256) * 7232
-    assert split_plan(256, last, 3) == (7232, MAX_ROW_FLOATS // 256)
-    with pytest.raises(ValueError, match="candidates"):
-        split_plan(256, last + 1, 3)
+def test_radix_row_limit_leaves_the_head_beside_the_row():
+    # 256 histogram bins and 16 control words ahead of the query and row
+    assert RADIX_HEAD_WORDS == 272
+    assert RADIX_ROW_FLOATS == 57840 == MAX_ROW_FLOATS - 272
+    assert radix_smem(33, RADIX_ROW_FLOATS - 3, 3) == (232448, False)
+    assert radix_smem(33, RADIX_ROW_FLOATS - 2, 3) == (0, False)
+
+
+@pytest.mark.parametrize("k,n,c,rows,form,plan", [
+    # the patch cut: 512 threads, the row, the query and 256 pairs
+    (256, 2048, 3, 24, None, RadixPlan("row", 512,
+                                       4 * (272 + 3 + 2048 + 512), True, 0)),
+    # 'megafused' at patch 512
+    (512, 2048, 3, 12, None, RadixPlan("row", 512,
+                                       4 * (272 + 3 + 2048 + 1024), True,
+                                       0)),
+    # the GCN backbone's k 48 graph: two warps a row
+    (48, 256, 24, 28 * 256, None, RadixPlan("row", 64,
+                                            4 * (272 + 24 + 256 + 96), True,
+                                            0)),
+    (33, 100, 3, 7, None, RadixPlan("row", 32, 4 * (272 + 3 + 100 + 66),
+                                    True, 0)),
+    (100, 4096, 48, 2, None, RadixPlan("row", 1024,
+                                       4 * (272 + 48 + 4096 + 200), True,
+                                       0)),
+    # k = n: the pairs no longer fit beside the row and sort in place in
+    # the output rows
+    (20000, 20000, 3, 7, "row", RadixPlan("row", 1024, 4 * (272 + 3 + 20000),
+                                          False, 0)),
+    # past 4,096 points: the buffer of 4,096 pairs instead, at any n; 512
+    # threads where the rows fill the card
+    (256, 60000, 3, 703, None, RadixPlan("split", 512,
+                                         4 * (272 + 3 + 2 * 4096 + 512),
+                                         True, 4096)),
+    (256, 2_000_000, 3, 100, None, RadixPlan("split", 1024,
+                                             4 * (272 + 3 + 2 * 4096 + 512),
+                                             True, 4096)),
+    (60000, 60000, 3, 7, None, RadixPlan("split", 1024,
+                                         4 * (272 + 3 + 2 * 4096), False,
+                                         4096)),
+])
+def test_radix_plan_sizes_the_block_and_its_shared_memory(k, n, c, rows,
+                                                          form, plan):
+    assert radix_plan(k, n, c, rows, form) == plan
+    assert plan.smem <= 4 * MAX_ROW_FLOATS
+
+
+@pytest.mark.parametrize("n,threads", [
+    (1, 32), (128, 32), (129, 64), (256, 64), (2048, 512), (2049, 1024),
+    (50000, 1024),
+])
+def test_radix_threads_near_a_quarter_of_the_row(n, threads):
+    assert radix_threads(n, "row", 24) == threads
+
+
+@pytest.mark.parametrize("rows,threads", [
+    (1, 1024), (RADIX_SPLIT_ROWS - 1, 1024), (RADIX_SPLIT_ROWS, 512),
+    (703, 512),
+])
+def test_radix_split_threads_halve_where_the_rows_fill_the_card(rows,
+                                                                threads):
+    assert RADIX_SPLIT_ROWS == 264
+    assert radix_threads(60000, "split", rows) == threads
+
+
+def test_radix_plan_forced_split_and_its_cap():
+    # the 'split' regime runs where 'row' does too (the card's tests hold
+    # their bits equal there); a smaller buffer forces more passes
+    assert radix_plan(256, 20000, 3, 236, "split") == RadixPlan(
+        "split", 1024, 4 * (272 + 3 + 2 * RADIX_CAP + 512), True, RADIX_CAP)
+    assert radix_plan(100, 20000, 3, 236, "split", cap=1) == RadixPlan(
+        "split", 1024, 4 * (272 + 3 + 2 + 200), True, 1)
+    with pytest.raises(ValueError, match="cap"):
+        radix_plan(100, 20000, 3, 236, "split", cap=0)
+
+
+def test_radix_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        radix_plan(33, RADIX_ROW_FLOATS - 2, 3, 1, "row")
+    # the query itself must fit beside the buffer
+    with pytest.raises(ValueError, match="shared memory"):
+        radix_plan(33, 100, MAX_ROW_FLOATS, 1, "split")
+    with pytest.raises(ValueError, match="regime"):
+        radix_plan(16, 100, 3, 1)
 
 
 def _stand_ins(monkeypatch):
@@ -121,15 +199,15 @@ def _stand_ins(monkeypatch):
 
 
 @pytest.mark.parametrize("k,n,wrapper", [
-    (256, 2048, "knn_cuda"), (256, 58109, "knn_cuda"),
-    (256, 58110, "knn_split_cuda"), (256, 60000, "knn_split_cuda"),
+    (256, 2048, "knn_cuda"), (256, 4096, "knn_cuda"),
+    (256, 4097, "knn_split_cuda"), (256, 60000, "knn_split_cuda"),
     (MAX_STREAM_K, 60000, "knn_cuda"),
 ])
 def test_kernel_route_takes_the_split_form_exactly_past_the_row_form(
         monkeypatch, k, n, wrapper):
     """What ``KnnFunction`` runs for a CUDA tensor (``use_cuda``), with
-    both wrappers replaced by stand-ins: the split form exactly where the
-    row form refuses the shape, the tiled form at any n for k <= 32."""
+    both wrappers replaced by stand-ins: the 'split' regime exactly past
+    :data:`RADIX_ROW_POINTS`, the tiled form at any n for k <= 32."""
     calls = _stand_ins(monkeypatch)
     pts = torch.zeros((1, n, 3))
     dists, idx = KnnFunction.apply(k, pts, pts[:, :5], None, True)

@@ -22,7 +22,8 @@ from dispu_tpu_torch.kernels import knn_group as knn_group_module
 from dispu_tpu_torch.inference import plan_counts
 from dispu_tpu_torch.kernels.measure import (BALL_CASES, BUCKETED_CASES,
                                              GATHER_CASES, KNN_CASES,
-                                             KNN_GROUP_CASES, REFINE_CASES,
+                                             KNN_GROUP_CASES, KNN_WIDE_CASES,
+                                             REFINE_CASES,
                                              SCATTER_CASES, ball_inputs,
                                              bucketed_inputs, gather_inputs,
                                              kernel_name, knn_group_inputs,
@@ -295,6 +296,32 @@ def test_knn_inputs_follow_their_cases():
             assert torch.equal(qs, qs2)
         if case.dup:
             assert torch.equal(pts[:, -8:], pts[:, :8])
+
+
+def test_knn_wide_inputs_follow_their_cases():
+    """The exact kNN's shapes past k = 32 beside the 4× patch cut: the
+    60,000-point scan centred and scaled to its furthest point, the patch
+    cuts' queries every 85th point, the GCN graph's features drawn; none
+    counted in a 4× request, and only the scan past the 'row' regime."""
+    from dispu_tpu_torch.kernels.knn import MAX_STREAM_K, knn_form
+
+    cloud = torch.randn(2048, 3)
+    inputs = knn_inputs(torch.Generator().manual_seed(1), KNN_WIDE_CASES,
+                        cloud)
+    for case, (pts, qs) in zip(KNN_WIDE_CASES, inputs):
+        assert case.k > MAX_STREAM_K and case.per_request == 0
+        assert pts.shape == (case.b, case.n, case.c)
+        assert knn_form(case.k, case.n, case.c) == (
+            "split" if case.queries == "scan" else "row")
+        if case.queries == "self":
+            assert qs is None
+            continue
+        assert torch.equal(qs[0], pts[0, ::85][:case.m])
+        assert qs.shape == (1, case.m, 3)
+        if case.queries == "scan":
+            radius = torch.sqrt(torch.sum(pts[0] ** 2, dim=-1))
+            assert abs(float(radius.max()) - 1.0) < 1e-6
+            assert float(pts[0].mean(0).abs().max()) < 1e-4
 
 
 def test_knn_group_inputs_follow_their_cases():
