@@ -40,8 +40,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      with the profiler's device time; ``knn_group``'s
      backward rule at the backbone's and the refiner's train shapes; the
      fused refiner kernels (``refine_local`` on grouped rows,
-     ``refine_block`` with its own kNN, whose indices are bit-equal to the
-     kNN kernel's) at the refiner's pass-1 and pass-2 shapes;
+     ``refine_block`` after ``knn.cu``'s launch of its selection, whose
+     indices are held to the plain selection's under the near-tie
+     contract) at the refiner's pass-1 and pass-2 shapes and at pass 2 of
+     a patch-512 request; each check's wall seconds logged;
   4. drive each serving path at full GeneratorConfig() width from the
      port's own seeded init, on demo/gt/Icosahedron.xyz and
      demo/gt/fandisk.xyz, with the launch counts set to 0 just before each
@@ -1400,8 +1402,9 @@ REFINE_REL = 1e-5
 
 def check_refine_local(dev):
     """The fused local + skip kernel against ``refine_local_torch`` on the
-    card at the refiner's pass-1 and pass-2 shapes (``measure``'s
-    ``REFINE_CASES``), on random grouped rows and full-width parameters:
+    card at the refiner's pass-1 and pass-2 shapes and pass 2 at
+    ``patch_num_point`` 512 (``measure``'s ``REFINE_CASES``), on random
+    grouped rows and full-width parameters:
     every row within ``REFINE_REL`` of the output's scale.  The aggregate
     is a 4× 'fused' request's one launch (pass 1)."""
     import torch
@@ -1451,18 +1454,25 @@ def check_refine_local(dev):
 
 
 def check_refine_block(dev):
-    """The mega-fused kernel at the refiner's pass-1 and pass-2 shapes on
-    random points and features: its selection (``idx_out``) bit-equal to
-    the kNN kernel's on the same points, its output within
-    ``REFINE_REL`` of the output's scale on every row from
-    ``refine_block_torch`` fed those indices; with the plain version's
-    own selection (cuBLAS distances), the rows that move at near-ties are
-    counted.  The aggregate is a 4× 'megafused' request's one launch."""
+    """The mega-fused kernel at the refiner's pass-1 and pass-2 shapes and
+    at pass 2 of a patch-512 16× request (8,192 points a patch, past the
+    5,195 its selection held before it became knn.cu's launch), on random
+    points and features: its selection (``with_idx``, ``knn.cu``'s)
+    against the plain version's own (``knn_torch``) under phase 3's
+    near-tie contract, its output within ``REFINE_REL`` of the output's
+    scale on every row from ``refine_block_torch`` fed those indices; the
+    rows that move with the plain version's own selection are counted.
+    The plain version and the library call are timed over 5 calls at the
+    aggregate's shape and once at the others (its full sorts take tens of
+    seconds at 8,192 points).  The aggregate is a 4× 'megafused'
+    request's one launch."""
     import torch
 
-    from dispu_tpu_torch.kernels.knn import knn_cuda
-    from dispu_tpu_torch.kernels.measure import (REFINE_CASES, refine_chain,
-                                                 refine_ops, refine_params)
+    from dispu_tpu_torch.kernels.knn import knn_torch
+    from dispu_tpu_torch.kernels.measure import (REFINE_CASES,
+                                                 device_ms_by_kernel,
+                                                 refine_chain, refine_ops,
+                                                 refine_params)
     from dispu_tpu_torch.kernels.refine_block import (grouped_rows,
                                                       refine_block_cuda,
                                                       refine_block_torch)
@@ -1477,12 +1487,22 @@ def check_refine_block(dev):
         xyz = torch.randn(b, n, 3, generator=gen).to(dev)
         feats = torch.randn(b, n, c, generator=gen).to(dev)
         got, idx = refine_block_cuda(xyz, feats, p, with_idx=True)
-        _, kidx = knn_cuda(k, xyz, xyz)
         want = refine_block_torch(xyz, feats, p, idx=idx)
-        own = refine_block_torch(xyz, feats, p)
+        # the plain version's kNN sorts whole (b, n, n) rows: in groups of
+        # clouds of at most 8 GiB of distances, indices and sorted copies
+        per = max(1, (8 << 30) // (16 * n * n))
+        groups = [slice(i, i + per) for i in range(0, b, per)]
+
+        def plain():  # refine_block_torch, its selection kept
+            sel = torch.cat([knn_torch(k, xyz[g], xyz[g])[1]
+                             for g in groups])
+            return refine_block_torch(xyz, feats, p, idx=sel), sel
+
+        own, sel = plain()
         torch.cuda.synchronize()
-        require(torch.equal(idx, kidx),
-                f"refine_block {case.label}: selection differs from knn.cu's")
+        swaps = sum(_near_tie_swaps(f"refine_block {case.label}", idx[g],
+                                    sel[g], xyz[g], xyz[g], None,
+                                    KNN_SWAP_RTOL) for g in groups)
         scale = max(float(want.abs().max()), 1.0)
         err = float((got - want).abs().max())
         require(bool(torch.isfinite(got).all()) and err <= REFINE_REL * scale,
@@ -1495,9 +1515,11 @@ def check_refine_block(dev):
             return library(grouped_rows(xyz, feats, sel))
 
         ms = timed_ms(lambda: refine_block_cuda(xyz, feats, p), reps=10)
-        plain_ms = timed_ms(lambda: refine_block_torch(xyz, feats, p),
-                            reps=5)
-        library_ms = timed_ms(lib, reps=5)
+        split = device_ms_by_kernel(lambda: refine_block_cuda(xyz, feats, p),
+                                    5)
+        reps, warmup = (5, 2) if case.per_request else (1, 0)
+        plain_ms = timed_ms(plain, reps=reps, warmup=warmup)
+        library_ms = timed_ms(lib, reps=reps, warmup=warmup)
         nbytes = 4 * (xyz.numel() + feats.numel()
                       + sum(t.numel() for t in p) + b * n * p.wsk.shape[-1])
         ops = refine_ops(case) + b * n * n * (2 * 3 + 4)
@@ -1505,7 +1527,9 @@ def check_refine_block(dev):
         tf32_ms = (3 * refine_ops(case) / TF32_FLOPS
                    + b * n * n * (2 * 3 + 4) / F32_FLOPS) * 1e3
         log(f"refine_block {case.label} (b={b} n={n} k={k} c={c} mlp="
-            f"{case.mlp}): idx bit-equal to knn.cu; max|d| {err:.3e} of "
+            f"{case.mlp}): idx the plain selection's but for {swaps} "
+            f"near-tie swaps; device ms by kernel "
+            f"{json.dumps(split)}; max|d| {err:.3e} of "
             f"scale {scale:.3f} at those indices (bound {REFINE_REL} of "
             f"it); rows that move with the plain version's own selection "
             f"{moved} of {b * n}; kernel {ms:.4f} ms "
@@ -1532,15 +1556,15 @@ def refine_route(g, points: int, cf: int, dtype: str = "float32"):
     norm, a three-layer ``refine_mlp`` and f32 compute (``dtype``, the
     compute dtype); 'megafused' also the local
     branch and k ≤ 16, 'fused' points % 128 == 0; otherwise 'xla'.  On
-    the card 'megafused' past ``refine_block.cu``'s shared memory
-    (``block_fits``) takes 'fused' where points % 128 == 0, else 'xla',
-    grouping by the exact kNN."""
+    the card 'megafused' at widths past ``refine_block.cu``'s shared
+    memory (``block_fits``; any number of points fits) takes 'fused'
+    where points % 128 == 0, else 'xla', grouping by the exact kNN."""
     from dispu_tpu_torch.kernels.refine_block import block_fits
 
     fusable = not g.use_bn and len(g.refine_mlp) == 3 and dtype == "float32"
     if (g.refine_local_impl == "megafused" and fusable and g.use_local
             and g.refine_nsample <= 16):
-        if block_fits(points, g.refine_nsample, cf, *g.refine_mlp):
+        if block_fits(g.refine_nsample, cf, *g.refine_mlp):
             return "megafused", False
         return ("fused" if points % 128 == 0 else "xla"), True
     if g.refine_local_impl == "fused" and fusable and points % 128 == 0:
@@ -1557,9 +1581,11 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
     (the fused kNN + gather at n ≤ 2048 with ``fused_grouping``, else the
     packed selection at 64 ≤ n ≤ 4096 with ``fast_knn``, else the exact
     kNN); the refiner's 'fused' route adds ``refine_local`` to its kNN,
-    its 'megafused' route replaces the kNN by ``refine_block``
-    (``refine_route``; past that kernel's limit the exact kNN and
-    ``refine_local`` or the composed branch); one merge FPS, bucketed or
+    its 'megafused' route ``refine_block`` after the exact kNN (its
+    selection, ``knn.cu``'s launch, whatever the grouping's flags) at any
+    number of points (``refine_route``; at widths past that kernel's
+    shared memory the exact kNN and ``refine_local`` or the composed
+    branch); one merge FPS, bucketed or
     in the kernel that takes its candidates.  At bf16 compute the
     attention is the kernel's bf16 entry (``attention_bf16``) and the
     refiner takes the composed route."""
@@ -1591,7 +1617,8 @@ def expected_counts(up, n: int, b: int = 1) -> dict:
         counts[knn_kernel(points, 64, g.knn + 1)] += g.dense_block * chunks
         points *= g.up_ratio
         route, past_block = refine_route(g, points, cf, inf.compute_dtype)
-        if route == "megafused":
+        if route == "megafused":  # knn.cu's selection, then the block
+            counts["knn"] += chunks
             counts["refine_block"] += chunks
         elif past_block:  # over 2048 points: no fused grouping kernel
             counts["knn"] += chunks
@@ -2129,9 +2156,9 @@ def serve_large(card: str):
     candidates to 240,000 points in ``fps_chunked.cu``'s device-memory
     form; twice, finite, the right shape, bit-equal, with exact launch
     counts.  Then 'megafused' at ``patch_num_point`` 512 and 16× on
-    demo/gt/Icosahedron.xyz: pass 1's refiner (2,048 points) in
-    ``refine_block``, pass 2's (8,192, past its shared memory) by the
-    'fused' route; twice, with exact launch counts, bit-equal, and within
+    demo/gt/Icosahedron.xyz: both passes' refiners (2,048 and 8,192
+    points) in ``refine_block``, no ``refine_local``; twice, with exact
+    launch counts, bit-equal, and within
     'megafused''s 16× contract: Chamfer against the composed
     ``fast_gather`` path through the kernels ≤ ``CHAMFER_MAX[16]``.  And
     the turbo 4× request on the same 60,000-point cloud: the bucketed
@@ -2179,6 +2206,10 @@ def serve_large(card: str):
             f"{expected}); ms per request {', '.join('%.1f' % t for t in laps)}"
             f" on {card}")
         require(counts == expected, f"{label}: launch counts {counts}")
+        if up.gen_cfg.refine_local_impl == "megafused":
+            require(counts["refine_block"] > 0
+                    and counts["refine_local"] == 0,
+                    f"{label}: pass 2's refiner not in refine_block")
         require(np.array_equal(outs[0], outs[1]),
                 f"{label}: repeated request differs")
         total = add_counts(total, counts)
@@ -5586,21 +5617,26 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # phase 3
-    aggs = {"knn": check_knn(dev), "knn_split": check_knn_split(dev),
-            "knn_packed": check_knn_packed(dev),
-            "knn_group": check_knn_group(dev), "fps": check_fps(dev),
-            "fps_chunked": check_fps_chunked(dev),
-            "fps_bucketed": check_fps_bucketed(dev),
-            "attention": check_attention(dev),
-            "attention_bf16": check_attention_bf16(dev),
-            "query_ball": check_query_ball(dev),
-            "fps_lite": check_fps_lite(dev),
-            "gather_rows": check_gather_rows(dev),
-            "scatter_rows": check_scatter_rows(dev),
-            "refine_local": check_refine_local(dev),
-            "refine_block": check_refine_block(dev)}
-    check_knn_group_backward(dev)
+    # phase 3, each check's wall seconds logged
+    checks = {"knn": check_knn, "knn_split": check_knn_split,
+              "knn_packed": check_knn_packed, "knn_group": check_knn_group,
+              "fps": check_fps, "fps_chunked": check_fps_chunked,
+              "fps_bucketed": check_fps_bucketed,
+              "attention": check_attention,
+              "attention_bf16": check_attention_bf16,
+              "query_ball": check_query_ball, "fps_lite": check_fps_lite,
+              "gather_rows": check_gather_rows,
+              "scatter_rows": check_scatter_rows,
+              "refine_local": check_refine_local,
+              "refine_block": check_refine_block,
+              "knn_group_backward": check_knn_group_backward}
+    aggs, check_s = {}, {}
+    for name, check in checks.items():
+        t0 = time.perf_counter()
+        aggs[name] = check(dev)
+        check_s[name] = time.perf_counter() - t0
+    log("phase 3: " + ", ".join(f"{name} {s:.1f} s"
+                                for name, s in check_s.items()))
     from dispu_tpu_torch.kernels.measure import KNN_CASES
 
     train_knn = {case.label: (case.per_step, TRAIN_KNN_MS[case.label])
@@ -5671,7 +5707,8 @@ def main() -> int:
     # gather_rows also with the profiler's device time, see its check); the
     # critic's seed FPS (28 x 1024 -> 128) for fps_lite, which no path
     # calls; a 4x request with refine_local_impl 'fused' / 'megafused' for
-    # refine_local / refine_block (one launch at the pass-1 shape)
+    # refine_local / refine_block (one launch at the pass-1 shape;
+    # refine_block's ms with knn.cu's launch of its selection before it)
     meta = {
         "knn": ("dispu_tpu_torch/kernels/csrc/knn.cu",
                 "dispu_tpu/ops/pallas_kernels.py:867"),

@@ -1,7 +1,8 @@
-// The distance and selection code shared by knn.cu, knn_group.cu and
-// refine_block.cu, so that the three return the same bits for the same
-// inputs (knn_group_pallas's contract: its dists and idx are knn_pallas's);
-// query_ball.cu streams its cloud through the same tiles (stream_tiles).
+// The distance and selection code shared by knn.cu and knn_group.cu, so
+// that the two return the same bits for the same inputs (knn_group_pallas's
+// contract: its dists and idx are knn_pallas's; refine_block.cu takes
+// knn.cu's own launch); query_ball.cu streams its cloud through the same
+// tiles (stream_tiles).
 //
 // Every distance keeps the JAX association max((q2 - 2 q.p) + p2, 0) +
 // bias[j], with q2, q.p and p2 each one fmaf chain over the coordinates
@@ -16,7 +17,7 @@
 // - the row form (row_distances, select_min, knock_out): one warp per
 //   query, its n distances in shared memory, k rounds of a strided pass,
 //   a butterfly and a knock-out.  knn_group.cu and knn.cu's packed
-//   selection take it for k > kStreamK; refine_block.cu for its k <= 16.
+//   selection take it for k > kStreamK.
 //   One row must fit one block's shared memory: n + c <= 58,112.  (knn.cu's
 //   exact selection past k = 32 is a radix select of its own, with the same
 //   bits.)

@@ -10,8 +10,9 @@ train step with ``gather_impl='pallas'`` and with ``fused_grouping``;
 ``BUCKETED_CASES`` the bucketed merge FPS's on the turbo serving path;
 ``BALL_CASES`` the ball query's in a CD and
 a GAN step, with :func:`ball_inputs`; ``REFINE_CASES`` are the fused
-refiner kernels' two passes, with :func:`refine_params`,
-:func:`refine_ops` and :func:`refine_chain`; :func:`device_ms` is the
+refiner kernels' two passes (and pass 2 at ``patch_num_point`` 512),
+with :func:`refine_params`, :func:`refine_ops` and :func:`refine_chain`;
+:func:`device_ms` is the
 device time of the
 kernels a call launches, from a ``torch.profiler`` trace, and
 :func:`device_ms_by_kernel` the same by kernel name.  Importing this
@@ -329,7 +330,8 @@ class RefineCase(NamedTuple):
     (grouped rows of 6 + c floats), the refiner's ``mlp`` (c1, c2, c_out);
     ``per_request``: launches in a 2048-point 4× request with
     ``refine_local_impl`` 'fused' (of ``refine_block`` with 'megafused'),
-    ``per_16x``: in a 16× one."""
+    ``per_16x``: in a 16× one, both at the default ``patch_num_point``;
+    ``patch``: the ``patch_num_point`` whose requests make the launch."""
     label: str
     b: int
     n: int
@@ -338,14 +340,18 @@ class RefineCase(NamedTuple):
     mlp: tuple
     per_request: int
     per_16x: int
+    patch: int = 256
 
 
 #: the refiner of a generator pass over a chunk of 32 patches of 256
-#: points (pass 1: a 4× request's, and a 16× request's first) and of 1024
-#: points (pass 2, a 16× request's second)
+#: points (pass 1: a 4× request's, and a 16× request's first), of 1024
+#: points (pass 2, a 16× request's second), and of 2048 points (pass 2 of
+#: a 16× request at ``patch_num_point`` 512, 8,192 points a patch)
 REFINE_CASES = [
     RefineCase("pass 1", 32, 1024, 16, 128, (128, 128, 256), 1, 1),
     RefineCase("pass 2", 32, 4096, 16, 128, (128, 128, 256), 0, 1),
+    RefineCase("pass 2, patch 512", 32, 8192, 16, 128, (128, 128, 256), 0,
+               0, 512),
 ]
 
 

@@ -3,12 +3,13 @@ PyTorch version.
 
 Replaces ``refine_block_pallas`` (``dispu_tpu/ops/pallas_kernels.py``),
 which ``PointShuffle2`` reaches with ``local_impl='megafused'``: the exact
-self-kNN of the coarse points (k ≤ 16, the kNN kernel's bits), the
-neighbourhood gathers (xyz exact, features rounded once to bf16) and the
-local + skip branches of :mod:`dispu_tpu_torch.kernels.refine_local`, with
-no grouped tensor in device memory.  Inference only, as in the JAX
-package: :class:`RefineBlockFunction` raises in backward.  Its forward is
-the custom op ``dispu_tpu_torch::refine_block``.
+self-kNN of the coarse points (k ≤ 16; on the card ``knn.cu``'s launch
+just before the block's), the neighbourhood gathers (xyz exact, features
+rounded once to bf16) and the local + skip branches of
+:mod:`dispu_tpu_torch.kernels.refine_local`, with no grouped tensor in
+device memory.  Inference only, as in the JAX package:
+:class:`RefineBlockFunction` raises in backward.  Its forward is the
+custom op ``dispu_tpu_torch::refine_block``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
                                      use_kernel)
-from dispu_tpu_torch.kernels.knn import knn_torch
+from dispu_tpu_torch.kernels.knn import knn_cuda, knn_torch
 from dispu_tpu_torch.kernels.knn_group import bf16_round, rows_at
 from dispu_tpu_torch.kernels.refine_local import (LocalParams, cuda_args,
                                                   packed_scratch, param_dims,
@@ -35,8 +36,6 @@ MAX_K = 16
 #: rounded up to 4)
 MAX_SMEM = 232448
 RING_BYTES = 2 * 32768 + 2 * 2 * 8 + 4 * 4
-#: compute warps a block (``kWarps``): the distance rows a block holds
-WARPS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,29 +50,28 @@ def _ld(c: int) -> int:
     return ((c + 7) & ~7) + 4
 
 
-def block_smem(n: int, k: int, cf: int, c1: int, c2: int, c_out: int,
+def block_smem(k: int, cf: int, c1: int, c2: int, c_out: int,
                tile: int) -> int:
     """Shared-memory bytes of one block of the kernel at these widths and
     ``tile`` queries a block, or 0 past a block's limit: the formula of
     ``csrc/refine_block.cu``'s ``dispu_refine_block_smem`` (the ring, the
-    tile's selection, then the larger of the distance rows and
-    ``tile_mlp``'s regions), so that the CPU can route without the
-    library.  ``c_out`` does not enter it."""
+    tile's indices, then ``tile_mlp``'s regions), so that the CPU can
+    route without the library.  Neither n nor ``c_out`` enters it."""
     rows32 = (tile * k + 31) & ~31
     pool = 8 * _ld(k * c2)  # the other block's pool rows for the heads
     mlp = (max(rows32 * max(_ld(cf), _ld(c2)), pool)
            + max(rows32 * _ld(c1), pool) + _round4(rows32 * k)
            + 16 * _ld(cf))
-    floats = _round4(tile * k) + max(min(tile, WARPS) * (n + 3), mlp)
+    floats = _round4(tile * k) + mlp
     nbytes = RING_BYTES + 4 * floats
     return nbytes if nbytes <= MAX_SMEM else 0
 
 
-def block_fits(n: int, k: int, cf: int, c1: int, c2: int,
-               c_out: int) -> bool:
-    """Whether the kernel takes n points at these widths (n <= 5,195 at
-    ``GeneratorConfig()`` width, k = 16, cf = 134)."""
-    return k <= MAX_K and block_smem(n, k, cf, c1, c2, c_out,
+def block_fits(k: int, cf: int, c1: int, c2: int, c_out: int) -> bool:
+    """Whether the kernel takes k neighbours at these widths, for any n
+    (at ``GeneratorConfig()`` width, k = 16, cf = 134: 222,512 bytes of
+    shared memory a block)."""
+    return k <= MAX_K and block_smem(k, cf, c1, c2, c_out,
                                      tile_queries(k)) > 0
 
 
@@ -115,11 +113,13 @@ def _check(xyz, feats, p):
 
 def refine_block_cuda(xyz: torch.Tensor, feats: torch.Tensor,
                       p: LocalParams, with_idx: bool = False):
-    """Launch the kernel.  Same contract as :func:`refine_block_torch`;
-    with ``with_idx`` also returns the kernel's (b, n, k) int32 selection.
-    Raises ``ValueError`` where a block's shared memory cannot hold, beside
-    the weights' ring, 8 distance rows of n + 3 floats (n ≤ 5,195 at
-    ``GeneratorConfig()`` width, k = 16)."""
+    """Launch the kernels: :func:`~dispu_tpu_torch.kernels.knn.knn_cuda`
+    of the points among themselves (knn.cu's tiled stream, any n; its
+    launch counted as a ``knn`` one), then ``refine_block.cu`` from those
+    indices.  Same contract as :func:`refine_block_torch`; with
+    ``with_idx`` also returns the (b, n, k) int32 selection.  Raises
+    ``ValueError`` where a block's shared memory cannot hold the weights'
+    ring and a tile at these widths."""
     from dispu_tpu_torch.kernels import _build
 
     _check(xyz, feats, p)
@@ -135,29 +135,25 @@ def refine_block_cuda(xyz: torch.Tensor, feats: torch.Tensor,
     args = cuda_args(p, dev)
     lib = _build.load("refine_block")
     tile = tile_queries(k)
-    lib.dispu_refine_block_smem.argtypes = [_I] * 7
+    lib.dispu_refine_block_smem.argtypes = [_I] * 6
     lib.dispu_refine_block_smem.restype = ctypes.c_size_t
-    if lib.dispu_refine_block_smem(n, k, cf, c1, c2, c_out, tile) == 0:
+    if lib.dispu_refine_block_smem(k, cf, c1, c2, c_out, tile) == 0:
         raise ValueError(
-            f"refine_block kernel: {tile} distance rows of n + 3 = "
-            f"{n + 3} floats, or a tile of {tile} queries at widths "
-            f"({cf}, {c1}, {c2}, {c_out}), beside the weights' ring exceed "
+            f"refine_block kernel: a tile of {tile} queries at widths "
+            f"({cf}, {c1}, {c2}, {c_out}) beside the weights' ring exceeds "
             "one block's 232,448 bytes of shared memory")
     packed = packed_scratch(lib, "dispu_refine_block", k, cf, c1, c2, c_out,
                             dev)
-    bias = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    _, idx = knn_cuda(k, xyz_c, xyz_c)
     out = torch.empty((b, n, c_out), dtype=torch.float32, device=dev)
-    idx = (torch.empty((b, n, k), dtype=torch.int32, device=dev)
-           if with_idx else None)
     fn = lib.dispu_refine_block
-    fn.argtypes = [_P] * 16 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 15 + [_I] * 8 + [_P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(xyz_c.data_ptr(), bias.data_ptr(), feats_c.data_ptr(),
+        status = fn(xyz_c.data_ptr(), idx.data_ptr(), feats_c.data_ptr(),
                     *(a.data_ptr() for a in args), packed.data_ptr(),
-                    idx.data_ptr() if with_idx else None, out.data_ptr(),
-                    b, n, k, cf, c1, c2, c_out, tile, stream)
+                    out.data_ptr(), b, n, k, cf, c1, c2, c_out, tile, stream)
     _build.check(status, "refine_block kernel launch")
     LAUNCHES["refine_block"] += 1
     return (out, idx) if with_idx else out

@@ -19,12 +19,14 @@
 
 At inference, ``local_impl`` 'fused' runs steps 2 and 3 on the grouped
 tensor in one kernel (``kernels/refine_local.py``), and 'megafused' steps
-1 to 3 in one kernel with no grouped tensor (``kernels/refine_block.py``),
-inside the JAX package's gates; elsewhere, training included, the composed
-path runs.  On the card 'megafused' past its kernel's shared memory (n >
-5,195 at the default width) computes the same function by the 'fused'
-route (n % 128 == 0) or the composed one: the exact kNN, the features
-rounded to bf16 in the grouping, then the local branch.
+1 to 3 with no grouped tensor (``kernels/refine_block.py``: on the card
+the exact kNN's kernel, then one kernel for the rest), inside the JAX
+package's gates; elsewhere, training included, the composed
+path runs.  'megafused''s kernel takes any n; on the card, at widths
+whose tile does not fit its shared memory, 'megafused' computes the same
+function by the 'fused' route (n % 128 == 0) or the composed one: the
+exact kNN, the features rounded to bf16 in the grouping, then the local
+branch.
 """
 
 from __future__ import annotations
@@ -128,14 +130,14 @@ class PointShuffle2(nn.Module):
         convs and f32; 'megafused' also the local branch, k ≤ 16, the kNN
         grouping and no ``refine_point``, 'fused' n % 128 == 0.
         Otherwise 'xla', the composed path.  Where 'megafused' would
-        launch ``refine_block.cu`` past its shared memory
-        (:func:`~dispu_tpu_torch.kernels.refine_block.block_fits`),
-        'fused' where n % 128 == 0, else 'xla'."""
+        launch ``refine_block.cu`` at widths past its shared memory
+        (:func:`~dispu_tpu_torch.kernels.refine_block.block_fits`; any n
+        fits), 'fused' where n % 128 == 0, else 'xla'."""
         return self._routes(feature)[0]
 
     def _routes(self, feature: torch.Tensor):
         """(:meth:`local_route`, the grouping's (gather_impl,
-        knn_variant)).  'megafused' past its kernel's limit groups as
+        knn_variant)).  'megafused' past its kernel's widths groups as
         ``refine_block`` does: the exact kNN, xyz exact, the features
         rounded to bf16 ('onehot', or 'fused_turbo' with the fused
         grouping kernel)."""
@@ -148,7 +150,7 @@ class PointShuffle2(nn.Module):
                 and self.use_knn and not self.refine_point
                 and self.nsample <= 16):
             on_card = feature.is_cuda and self.impl != "torch"
-            if not on_card or block_fits(n, self.nsample, 6 + c, *self.mlp):
+            if not on_card or block_fits(self.nsample, 6 + c, *self.mlp):
                 return "megafused", grouping_impls
             bf16 = ("fused_turbo" if self.gather_impl.startswith("fused")
                     else "onehot")

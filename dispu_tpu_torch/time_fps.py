@@ -65,16 +65,23 @@ only within one such call.
   request's.  Equal digests at every shape say the two trees' kernels
   return the same bits.
 - ``--kernel refine_local`` / ``--kernel refine_block``: that kernel at
-  both shapes of ``measure.REFINE_CASES`` (the refiner's pass 1 and pass
-  2 at ``GeneratorConfig()`` width; parameters from
+  every shape of ``measure.REFINE_CASES`` (the refiner's pass 1 and
+  pass 2, and pass 2 at ``patch_num_point`` 512, at ``GeneratorConfig()``
+  width; parameters from
   ``measure.refine_params`` with seed 12, then grouped rows, or points
   and features, from the same generator), ``ms`` by CUDA events around
   ``--reps`` back-to-back calls after one warm-up, ``chain_ms`` the same
   for the cuBLAS chain ``measure.refine_chain`` (for ``refine_block``
   after ``cdist`` + ``topk`` + the gather), and ``err``, max |kernel −
-  plain version| over max(max |plain|, 1); no digest, since the trees
-  sum in different orders by design.  The top-level ``ms`` is a 16×
-  request's launches (``per_16x``).
+  plain version| over max(max |plain|, 1); no digest of the output,
+  since the trees sum in different orders by design, but for
+  ``refine_block`` one of its selection (``idx_digest``) and the
+  profiler's device ms by kernel name (``kernels``: ``knn.cu``'s
+  selection and the block, where they are two launches).  The top-level
+  ``ms`` is a 16× request's launches (``per_16x``).  A shape the tree's
+  kernel refuses (``ValueError``: ``refine_block`` past 5,195 points
+  where its selection keeps distance rows in shared memory) is written
+  ``refused``.
 - ``--kernel query_ball``: ``query_ball_cuda`` at every shape of
   ``measure.BALL_CASES`` (inputs from ``measure.ball_inputs`` with seed
   4, the radius a Python float) and at three edges (nsample 1, nsample
@@ -109,7 +116,9 @@ only within one such call.
   the same for the turbo configuration of ``python -m dispu_tpu_torch.cli
   --phase test --turbo true`` at ratio R, under ``turbo_ms``,
   ``turbo_ms_each`` and ``turbo_digest``, and for ``refine_local_impl``
-  'fused' and 'megafused' under ``fused_`` and ``megafused_``.
+  'fused' and 'megafused' under ``fused_`` and ``megafused_``.  With
+  ``--patch P`` the exact and 'megafused' requests alone, at
+  ``patch_num_point`` P.
 """
 
 from __future__ import annotations
@@ -125,6 +134,7 @@ CHILD = r"""
 import hashlib, importlib, json, sys, time, torch
 b, n, npoint, reps = map(int, sys.argv[1:5])
 mode = sys.argv[5]
+patch = int(sys.argv[7])
 
 
 def digest(*arrays):
@@ -172,6 +182,12 @@ if mode.startswith("request"):
         if exact:
             setups = [("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
                 final_ratio=ratio)))] + setups
+    elif patch:
+        pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
+        inf = InferenceConfig(final_ratio=ratio, patch_num_point=patch)
+        setups = [("", PatchUpsampler(seed=0, inf_cfg=inf)), (
+            "megafused_", PatchUpsampler(seed=0, gen_cfg=GeneratorConfig(
+                refine_local_impl="megafused"), inf_cfg=inf))]
     else:
         pc = np.loadtxt("demo/gt/fandisk.xyz", dtype=np.float32)[:, :3]
         setups = [("", PatchUpsampler(seed=0, inf_cfg=InferenceConfig(
@@ -430,6 +446,7 @@ elif mode in ("refine_local", "refine_block"):
     chain = measure.refine_chain(p)
     shapes, total = {}, 0.0
     for case in cases:
+        extra = {}
         if mode == "refine_local":
             g = torch.randn(case.b, case.n, case.k, 6 + case.c,
                             generator=gen).cuda()
@@ -442,22 +459,30 @@ elif mode in ("refine_local", "refine_block"):
         else:
             xyz = torch.randn(case.b, case.n, 3, generator=gen).cuda()
             feats = torch.randn(case.b, case.n, case.c, generator=gen).cuda()
-            out, idx = refine_block.refine_block_cuda(xyz, feats, p,
-                                                      with_idx=True)
             def call():
                 return refine_block.refine_block_cuda(xyz, feats, p)
             def plain():
+                _, idx = refine_block.refine_block_cuda(xyz, feats, p,
+                                                        with_idx=True)
+                extra["idx_digest"] = digest(idx.cpu().numpy())
                 return refine_block.refine_block_torch(xyz, feats, p,
                                                        idx=idx)
             def lib():
                 sel = torch.topk(torch.cdist(xyz, xyz) ** 2, case.k, dim=-1,
                                  largest=False)[1]
                 return chain(refine_block.grouped_rows(xyz, feats, sel))
+        try:
+            got = call()
+        except ValueError as refused:  # a tree whose kernel takes fewer n
+            shapes[case.label] = {"refused": str(refused)}
+            continue
         want = plain()
         scale = max(float(want.abs().max()), 1.0)
-        err = float((call() - want).abs().max()) / scale
+        err = float((got - want).abs().max()) / scale
+        if mode == "refine_block":  # the selection's launch and the block's
+            extra["kernels"] = measure.device_ms_by_kernel(call, reps)
         shapes[case.label] = {"ms": event_ms(call), "chain_ms": event_ms(lib),
-                              "err": err}
+                              "err": err, **extra}
         total += case.per_16x * shapes[case.label]["ms"]
     print(json.dumps({"ms": total, "shapes": shapes}))
 else:
@@ -498,6 +523,9 @@ def main() -> int:
                              "this many points instead of demo/gt/fandisk.xyz")
     parser.add_argument("--exact", action="store_true",
                         help="with --points: time the exact request too")
+    parser.add_argument("--patch", type=int, default=0,
+                        help="with --request: the exact and 'megafused' "
+                             "requests alone at this patch_num_point")
     parser.add_argument("--steps", action="store_true",
                         help="time CD train steps instead of a kernel")
     args = parser.parse_args()
@@ -515,7 +543,8 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
     print(card, flush=True)
     if args.request is not None:
-        shape = {"ratio": args.request, "points": args.points or 2048}
+        shape = {"ratio": args.request, "points": args.points or 2048,
+                 **({"patch": args.patch} if args.patch else {})}
     elif args.steps:
         shape = {"steps": args.reps}
     elif args.kernel in ("fps_bucketed", "gather_rows", "scatter_rows",
@@ -531,7 +560,8 @@ def main() -> int:
         run = subprocess.run(
             [sys.executable, "-c", CHILD, str(args.b), str(args.n),
              str(args.npoint), str(args.reps), mode,
-             str(pathlib.Path(__file__).parent / "kernels" / "measure.py")],
+             str(pathlib.Path(__file__).parent / "kernels" / "measure.py"),
+             str(args.patch)],
             cwd=tree, env=env, capture_output=True, text=True)
         if run.returncode != 0:
             print(run.stdout + run.stderr, file=sys.stderr)

@@ -1,18 +1,24 @@
 """Time edited copies of the fused refiner kernels side by side on the card.
 
-    python3 -m dispu_tpu_torch.time_refine_forms [--reps 10] [VARIANTS.json]
+    python3 -m dispu_tpu_torch.time_refine_forms [--reps 10]
+        [--only NAME ...] [--kernels refine_local,refine_block]
+        [VARIANTS.json]
 
 A variant is a copy of the package with literal text replacements in
 ``kernels/csrc``: each edit is ``[old, new]`` in ``refine_common.cuh`` or
-``[file, old, new]``; VARIANTS.json holds ``{name: [edit, ...]}`` and the
-built-in ones are :data:`VARIANTS` (the unedited sources run as
-``shipped``).  Every copy is built at once (``nvcc`` through the copy's
-own ``kernels/_build.py``) in a temporary directory and timed in a
-process of its own: ``refine_local_cuda`` and ``refine_block_cuda`` at
-both shapes of ``measure.REFINE_CASES`` (parameters from
-``measure.refine_params`` with seed 12, then random grouped rows, points
-and features), by CUDA events around ``--reps`` back-to-back calls after
-one warm-up, with max |kernel − plain version| over max(|plain|, 1).  The
+``[file, old, new]``;
+VARIANTS.json holds ``{name: [edit, ...]}`` and the built-in ones are
+:data:`VARIANTS` (the unedited sources run as ``shipped``; ``--only``
+picks some by name).  Every copy is built at once (``nvcc`` through the
+copy's own ``kernels/_build.py``) in a temporary directory and timed in a
+process of its own: ``refine_local_cuda`` and ``refine_block_cuda`` (or
+the ``--kernels`` named) at every shape of ``measure.REFINE_CASES``
+(parameters from ``measure.refine_params`` with seed 12, then random
+grouped rows, points and features), by CUDA events around ``--reps``
+back-to-back calls after one warm-up, with max |kernel − plain version|
+over max(|plain|, 1); beside ``refine_block`` (whose call is
+``knn_cuda``'s launch of its selection and the block's), ``knn_cuda``'s
+own ms at the shape.  The
 variants that cut a part out are bounds: their outputs are wrong by
 design.  Prints the card's name and power limit, then one JSON line a
 variant: each kernel and shape's ms and error, the clusters the card
@@ -62,10 +68,11 @@ VARIANTS = {
 CHILD = r"""
 import ctypes, json, sys, torch
 from dispu_tpu_torch.inference import pin_f32
-from dispu_tpu_torch.kernels import _build, measure, refine_block
+from dispu_tpu_torch.kernels import _build, knn, measure, refine_block
 from dispu_tpu_torch.kernels import refine_local
 pin_f32()
 reps = int(sys.argv[1])
+kernels = sys.argv[2].split(",")
 gen = torch.Generator().manual_seed(12)
 cases = measure.REFINE_CASES
 p = refine_local.LocalParams(*(t.cuda() for t in
@@ -92,18 +99,25 @@ def err(got, want):
 
 out = {}
 for case in cases:
-    g = torch.randn(case.b, case.n, case.k, 6 + case.c, generator=gen).cuda()
+    g = torch.randn(case.b, case.n, case.k, 6 + case.c, generator=gen)
     xyz = torch.randn(case.b, case.n, 3, generator=gen).cuda()
     feats = torch.randn(case.b, case.n, case.c, generator=gen).cuda()
-    got, idx = refine_block.refine_block_cuda(xyz, feats, p, with_idx=True)
-    out["refine_block " + case.label] = {
-        "ms": event_ms(lambda: refine_block.refine_block_cuda(xyz, feats, p)),
-        "err": err(got, refine_block.refine_block_torch(xyz, feats, p,
-                                                        idx=idx))}
-    out["refine_local " + case.label] = {
-        "ms": event_ms(lambda: refine_local.refine_local_cuda(g, p)),
-        "err": err(refine_local.refine_local_cuda(g, p),
-                   refine_local.refine_local_torch(g, p))}
+    if "refine_block" in kernels:
+        got, idx = refine_block.refine_block_cuda(xyz, feats, p,
+                                                  with_idx=True)
+        out["refine_block " + case.label] = {
+            "ms": event_ms(lambda: refine_block.refine_block_cuda(xyz, feats,
+                                                                  p)),
+            "err": err(got, refine_block.refine_block_torch(xyz, feats, p,
+                                                            idx=idx)),
+            "knn_ms": event_ms(lambda: knn.knn_cuda(case.k, xyz, xyz))}
+    if "refine_local" in kernels:
+        g = g.cuda()
+        out["refine_local " + case.label] = {
+            "ms": event_ms(lambda: refine_local.refine_local_cuda(g, p)),
+            "err": err(refine_local.refine_local_cuda(g, p),
+                       refine_local.refine_local_torch(g, p))}
+        del g
 case = cases[0]
 lib = _build.load("refine_local")
 lib.dispu_refine_local_smem.argtypes = [ctypes.c_int] * 6
@@ -113,7 +127,7 @@ lib.dispu_refine_local_clusters.argtypes = [ctypes.c_size_t]
 builds = {}
 for name in ("refine_local", "refine_block"):
     builds[name] = [line.strip() for line in _build.build_log(name)
-                    .splitlines() if "spill" in line or "Used" in line][:2]
+                    .splitlines() if "spill" in line or "Used" in line]
 print(json.dumps({"smem": smem,
                   "clusters": lib.dispu_refine_local_clusters(smem),
                   "shapes": out, "builds": builds}))
@@ -142,9 +156,15 @@ def main() -> int:
     parser.add_argument("variants", nargs="?", default=None,
                         help="a JSON file of variants (default: built-in)")
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--only", nargs="+", default=None, metavar="NAME",
+                        help="these variants alone")
+    parser.add_argument("--kernels", default="refine_local,refine_block",
+                        help="the kernels timed, comma-separated")
     args = parser.parse_args()
     variants = (json.loads(pathlib.Path(args.variants).read_text())
                 if args.variants else VARIANTS)
+    if args.only:
+        variants = {name: variants[name] for name in args.only}
     root = pathlib.Path(__file__).resolve().parents[1]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -167,9 +187,10 @@ def main() -> int:
                 return proc.returncode
         for name, tree in trees.items():
             run = subprocess.run(
-                [sys.executable, "-c", CHILD, str(args.reps)], cwd=tree,
+                [sys.executable, "-c", CHILD, str(args.reps), args.kernels],
+                cwd=tree,
                 env=dict(os.environ, PYTHONPATH=str(tree)),
-                capture_output=True, text=True, timeout=300)
+                capture_output=True, text=True, timeout=600)
             if run.returncode != 0:
                 print(run.stdout + run.stderr, file=sys.stderr)
                 return run.returncode

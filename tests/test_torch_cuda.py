@@ -100,7 +100,8 @@ def _assert_knn_contract(k, pts, qs, bias, ik=None, dk=None):
     """The kernel against the plain version (``check_knn``'s contract):
     distances to 1e-5 relative and each chosen index's plain distance that
     of the plain index at its rank to 1e-6, both with the expansion's
-    scale |q|² + |p|² as the floor; no index twice in a row."""
+    scale |q|² + |p|² as the floor; no index twice in a row.  Given
+    ``ik`` without ``dk``, the indices alone."""
     if ik is None:
         dk, ik = knn_cuda(k, pts, qs, bias)
     dp, ip = knn_torch(k, pts, qs, bias)
@@ -113,7 +114,8 @@ def _assert_knn_contract(k, pts, qs, bias, ik=None, dk=None):
     swap = torch.abs(torch.gather(full, 2, ik.long()) - dp) / (dp.abs()
                                                                + scale)
     assert float(swap.max()) <= 1e-6
-    assert float((torch.abs(dk - dp) / (dp.abs() + scale)).max()) <= 1e-5
+    if dk is not None:
+        assert float((torch.abs(dk - dp) / (dp.abs() + scale)).max()) <= 1e-5
     uniq = torch.sort(ik, dim=-1).values
     assert bool(torch.all(uniq[..., 1:] != uniq[..., :-1]))
     return dk, ik
@@ -1511,40 +1513,142 @@ def test_refine_kernels_repeat_bit_equal(dev, kernel):
 
 
 def test_refine_kernels_refuse_beyond_their_limits(dev):
-    from dispu_tpu_torch.kernels.refine_block import refine_block_cuda
+    """refine_local refuses n % 128; refine_block takes any n since its
+    selection is knn.cu's launch (5,196 points, one past what its distance
+    rows held, 8,192, a patch-512 16× request's pass 2, and 60,000, past
+    any row of shared memory): its indices the plain selection's but for
+    near-tie swaps, its output the plain version's at them.  It refuses a width whose tile and pools do
+    not fit beside the weights' ring."""
+    from dispu_tpu_torch.kernels.refine_block import (block_fits,
+                                                      refine_block_cuda,
+                                                      refine_block_torch)
     from dispu_tpu_torch.kernels.refine_local import refine_local
 
     p = _local_params(0, dev, 16, 134, (128, 128, 256))
     with pytest.raises(ValueError, match="multiple of"):
         refine_local(_randn(0, 1, 200, 16, 134).to(dev), p)
-    # beside the weights' ring, 8 distance rows of n + 3 floats do not fit
-    # 232,448 bytes past 5,195
+    for n in (5196, 8192, 60000):
+        xyz, feats = _randn(1, 1, n, 3).to(dev), _randn(2, 1, n, 128).to(dev)
+        got, idx = refine_block_cuda(xyz, feats, p, with_idx=True)
+        _assert_plain_selection(16, xyz, idx)
+        want = refine_block_torch(xyz, feats, p, idx=idx)
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((got - want).abs().max()) <= 1e-5 * scale, n
+    # c2 = 256: the tile's h1 and the pools pass 232,448 bytes
+    wide = _local_params(0, dev, 16, 134, (128, 256, 256))
+    assert not block_fits(16, 134, 128, 256, 256)
     with pytest.raises(ValueError, match="shared memory"):
-        refine_block_cuda(_randn(1, 1, 5196, 3).to(dev),
-                          _randn(2, 1, 5196, 128).to(dev), p)
-    refine_block_cuda(_randn(1, 1, 5195, 3).to(dev),
-                      _randn(2, 1, 5195, 128).to(dev), p)
+        refine_block_cuda(_randn(1, 1, 256, 3).to(dev),
+                          _randn(2, 1, 256, 128).to(dev), wide)
 
 
 def test_refine_block_predicate_is_the_kernels_formula(dev):
     """``block_smem`` in Python against the library's
-    ``dispu_refine_block_smem`` over n, k and the widths."""
+    ``dispu_refine_block_smem`` over k and the widths (n has left the
+    formula: the kernel launches at 16 to 60,000 points at the default
+    width), the widths past a block's shared memory included."""
     import ctypes
 
     from dispu_tpu_torch.kernels import _build
-    from dispu_tpu_torch.kernels.refine_block import block_smem
+    from dispu_tpu_torch.kernels.refine_block import block_fits, block_smem
 
     fn = _build.load("refine_block").dispu_refine_block_smem
-    fn.argtypes = [ctypes.c_int] * 7
+    fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_size_t
-    for n in (16, 1000, 5195, 5196, 5203, 5204, 9000):
-        for k, cf, c1, c2, co, t in ((16, 134, 128, 128, 256, 8),
-                                     (8, 134, 128, 128, 256, 8),
-                                     (4, 9, 8, 8, 8, 8),
-                                     (16, 38, 32, 48, 64, 8),
-                                     (64, 134, 128, 128, 256, 2)):
-            assert fn(n, k, cf, c1, c2, co, t) == block_smem(n, k, cf, c1,
-                                                             c2, co, t)
+    for k, cf, c1, c2, co, t in ((16, 134, 128, 128, 256, 8),
+                                 (8, 134, 128, 128, 256, 8),
+                                 (4, 9, 8, 8, 8, 8),
+                                 (16, 38, 32, 48, 64, 8),
+                                 (64, 134, 128, 128, 256, 2),
+                                 (16, 134, 128, 256, 256, 8),
+                                 (16, 134, 512, 128, 256, 8),
+                                 (1, 7, 1, 1, 1, 8)):
+        assert fn(k, cf, c1, c2, co, t) == block_smem(k, cf, c1, c2, co, t)
+    assert fn(16, 134, 128, 128, 256, 8) == 222512
+    assert fn(16, 134, 128, 256, 256, 8) == 0
+    assert block_fits(16, 134, 128, 128, 256)
+    p = _local_params(1, dev, 16, 134, (128, 128, 256))
+    for n in (16, 5195, 5196, 60000):
+        xyz = _randn(n, 1, n, 3).to(dev)
+        out, _ = refine_block_cuda_checked(xyz, _randn(4, 1, n, 128).to(dev),
+                                           p)
+        assert out.shape == (1, n, 256) and bool(torch.isfinite(out).all())
+
+
+def refine_block_cuda_checked(xyz, feats, p):
+    """``refine_block_cuda``'s (output, indices), the indices held to the
+    plain selection's (``_assert_plain_selection``)."""
+    from dispu_tpu_torch.kernels.refine_block import refine_block_cuda
+
+    out, idx = refine_block_cuda(xyz, feats, p, with_idx=True)
+    _assert_plain_selection(p.ww.shape[-1], xyz, idx)
+    return out, idx
+
+
+def _assert_plain_selection(k, xyz, idx):
+    """``idx``, a self-kNN of ``xyz``, against ``knn_torch`` under
+    ``check_knn``'s near-tie contract on at most 2,048 evenly spaced query
+    rows a cloud (the plain version's rows of n distances fit at 60,000
+    points)."""
+    rows = slice(None, None, -(-xyz.shape[1] // 2048))
+    _assert_knn_contract(k, xyz, xyz[:, rows].contiguous(), None,
+                         ik=idx[:, rows])
+
+
+def _selection_edge(case, dev):
+    """(xyz, k) of one edge of the selection."""
+    if case == "ties":  # a lattice (exact distances) with repeated points
+        xyz = _lattice_cloud(5, 2, 3000, 3, span=6)
+        xyz[:, 2000:] = xyz[:, :1000]
+        return xyz.to(dev), 16
+    if case == "inf":  # overflowed points: fewer finite distances than k
+        xyz = _randn(7, 2, 40, 3)
+        xyz[:, 10:] *= 1e20
+        return xyz.to(dev), 16
+    if case == "n=k":
+        return _randn(8, 3, 16, 3).to(dev), 16
+    # n past whole tiles of 128 and the block's 8 queries, k 12
+    return _randn(9, 2, 2 * 1024 + 3 * 128 + 37, 3).to(dev), 12
+
+
+@pytest.mark.parametrize("case", ["ties", "inf", "n=k", "ragged"])
+def test_refine_block_selection_edges(dev, case):
+    """refine_block at its selection's edges, its indices the plain
+    selection's: exact ties and repeated points on a lattice (the plain
+    stable sort's bits, the lower index first), +inf distances from
+    overflowed inputs (the finite queries' 10 finite neighbours, then
+    INT_MAX slots), n = k = 16, and n off whole tiles and off the block's
+    8 queries, at k 12 (near-tie contract); the output within 1e-5 of the
+    plain version fed those indices (an INT_MAX slot as the kernel groups
+    it: [-q | 0 | 0])."""
+    from dispu_tpu_torch.kernels.refine_block import (grouped_rows,
+                                                      refine_block_cuda)
+    from dispu_tpu_torch.kernels.refine_local import refine_local_torch
+
+    xyz, k = _selection_edge(case, dev)
+    b, n, _ = xyz.shape
+    p = _local_params(3, dev, k, 6 + 24, (32, 32, 64))
+    feats = _randn(10, b, n, 24).to(dev)
+    out, idx = refine_block_cuda(xyz, feats, p, with_idx=True)
+    miss = idx == 2 ** 31 - 1
+    if case == "inf":
+        assert bool(miss[:, :10, 10:].all()) and bool(
+            (idx[:, :10, :10] < 10).all())
+        _assert_knn_contract(10, xyz[:, :10], xyz[:, :10], None,
+                             ik=idx[:, :10, :10])
+    else:
+        assert not bool(miss.any())
+        _assert_plain_selection(k, xyz, idx)
+    if case == "ties":
+        assert torch.equal(idx, knn_torch(k, xyz, xyz)[1])
+    g = grouped_rows(xyz, feats, torch.where(miss, 0, idx))
+    empty = torch.cat([-xyz[:, :, None, :].expand(-1, -1, k, -1),
+                       torch.zeros_like(g[..., 3:])], dim=-1)
+    g = torch.where(miss[..., None], empty, g)
+    rows = slice(0, 10) if case == "inf" else slice(None)  # finite queries
+    want = refine_local_torch(g[:, rows], p)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((out[:, rows] - want).abs().max()) <= 1e-5 * scale
 
 
 def test_upsample_of_60000_points(dev):
@@ -1563,9 +1667,10 @@ def test_upsample_of_60000_points(dev):
 
 def test_megafused_serves_past_its_kernels_limit(dev):
     """'megafused' at patch_num_point 512 and 16×: pass 2's refiner (8,192
-    points) is past refine_block.cu's shared memory and takes the 'fused'
-    route with the exact kNN and bf16 features; held to 'megafused''s 16×
-    contract against the composed fast_gather path through the kernels."""
+    points, past the 5,195 that refine_block.cu's distance rows held
+    before its selection became knn.cu's launch) runs in refine_block too;
+    held to 'megafused''s 16× contract against the composed fast_gather
+    path through the kernels."""
     inf = InferenceConfig(patch_num_point=512, final_ratio=16)
     pc = _randn(15, 2048, 3).numpy()
     up = PatchUpsampler(gen_cfg=GeneratorConfig(
@@ -1573,8 +1678,9 @@ def test_megafused_serves_past_its_kernels_limit(dev):
     kernels.reset_launch_counts()
     out = up.upsample(pc)
     counts = kernels.launch_counts()
-    # 12 seeds, one chunk: pass 1 refine_block, pass 2 knn + refine_local
-    assert counts["refine_block"] == 1 and counts["refine_local"] == 1
+    # 12 seeds, one chunk: refine_block at pass 1 and at pass 2, each
+    # after knn.cu's selection
+    assert counts["refine_block"] == 2 and counts["refine_local"] == 0
     assert out.shape == (32768, 3) and np.isfinite(out).all()
     ref = PatchUpsampler(gen_cfg=GeneratorConfig(fast_gather=True),
                          inf_cfg=inf).upsample(pc)
@@ -1583,9 +1689,10 @@ def test_megafused_serves_past_its_kernels_limit(dev):
 
 @pytest.mark.parametrize("setting,counts", [
     # 14 seeds → 2 chunks of 8 (refiner n = 512): 'fused' adds one
-    # refine_local a chunk to the refiner's kNN; 'megafused' replaces it
+    # refine_local a chunk to the refiner's kNN, 'megafused' one
+    # refine_block after the same exact kNN (its selection)
     ("fused", {"knn": 11, "refine_local": 2}),
-    ("megafused", {"knn": 9, "refine_block": 2}),
+    ("megafused", {"knn": 11, "refine_block": 2}),
 ])
 def test_upsampler_goes_through_the_refine_kernels(dev, setting, counts):
     inf = InferenceConfig(patch_num_point=128, patch_batch=8)

@@ -36,6 +36,8 @@ torch.set_num_threads(1)
 #: the refiner's grouped width and mlp at ``GeneratorConfig()``: 128
 #: features, [p - q | p | f]
 CF, MLP = 6 + 128, (128, 128, 256)
+#: c2 = 256: the tile's h1 and the pools pass a block's shared memory
+WIDE = (128, 256, 256)
 
 
 # ------------------------------------------------- the scatter's two routes
@@ -239,22 +241,27 @@ def test_split_form_on_cpu_tensors_is_refused():
 # ------------------------------------------- 'megafused' past its kernel
 
 def test_block_predicate_at_the_kernels_limit():
-    """The Python formula of ``dispu_refine_block_smem``: 5,195 points
-    fit beside the weights' ring at the default width, 5,196 do not."""
+    """The Python formula of ``dispu_refine_block_smem``: n has left it
+    (the selection is knn.cu's launch), so 5,195, 5,196, 8,192 and 60,000
+    points all take the kernel at the default width; a width whose tile
+    and pools pass 232,448 bytes does not, nor k = 17."""
     assert tile_queries(16) == 8
-    assert block_fits(5195, 16, CF, *MLP)
-    assert not block_fits(5196, 16, CF, *MLP)
-    assert block_smem(5195, 16, CF, *MLP, 8) == 232432
-    assert block_smem(5196, 16, CF, *MLP, 8) == 0
-    assert not block_fits(64, 17, CF, *MLP)  # refine_block_pallas: k <= 16
-    # the distance rows set the limit: fewer neighbours leave a little more
-    assert block_fits(5203, 8, CF, *MLP)
-    assert not block_fits(5204, 8, CF, *MLP)
+    assert block_smem(16, CF, *MLP, 8) == 222512
+    assert block_fits(16, CF, *MLP)
+    for n in (5195, 5196, 8192, 60000):
+        assert _layer().local_route(_on_card(n)) == "megafused"
+    assert not block_fits(17, CF, *MLP)  # refine_block_pallas: k <= 16
+    assert block_smem(16, CF, *WIDE, 8) == 0
+    assert not block_fits(16, CF, *WIDE)
+    # fewer neighbours shrink tile_mlp's regions, not phase A's fixed one
+    assert block_smem(8, CF, *MLP, 8) == 146480
+    assert block_fits(8, CF, *MLP)
 
 
-def _layer(gather_impl="onehot_hp", impl="auto", local_impl="megafused"):
+def _layer(gather_impl="onehot_hp", impl="auto", local_impl="megafused",
+           mlp=MLP):
     torch.manual_seed(0)
-    return PointShuffle2(128, nsample=16, mlp=MLP, gather_impl=gather_impl,
+    return PointShuffle2(128, nsample=16, mlp=mlp, gather_impl=gather_impl,
                          impl=impl, local_impl=local_impl).eval()
 
 
@@ -264,16 +271,19 @@ def _on_card(n, c=128):
                                  is_cuda=True)
 
 
-@pytest.mark.parametrize("n,gather_impl,route,grouping", [
-    (5195, "onehot_hp", "megafused", ("onehot_hp", "auto")),
-    (5196, "onehot_hp", "xla", ("onehot", "auto")),
-    (8192, "onehot_hp", "fused", ("onehot", "auto")),
-    (8192, "fused", "fused", ("fused_turbo", "auto")),
-    (8192, "onehot", "fused", ("onehot", "auto")),
+@pytest.mark.parametrize("n,gather_impl,mlp,route,grouping", [
+    (5196, "onehot_hp", MLP, "megafused", ("onehot_hp", "auto")),
+    (8192, "onehot_hp", MLP, "megafused", ("onehot_hp", "auto")),
+    (5196, "onehot_hp", WIDE, "xla", ("onehot", "auto")),
+    (8192, "fused", WIDE, "fused", ("fused_turbo", "auto")),
+    (8192, "onehot", WIDE, "fused", ("onehot", "auto")),
 ])
-def test_megafused_route_past_the_kernels_limit(n, gather_impl, route,
+def test_megafused_route_past_the_kernels_limit(n, gather_impl, mlp, route,
                                                 grouping):
-    layer = _layer(gather_impl)
+    """'megafused' on the card at any n at the default width; past the
+    kernel's shared memory in width alone, 'fused' (n % 128 == 0) or
+    'xla', grouping as the kernel does."""
+    layer = _layer(gather_impl, mlp=mlp)
     assert layer._routes(_on_card(n)) == (route, grouping)
     assert layer.local_route(_on_card(n)) == route
 

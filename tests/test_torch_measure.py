@@ -377,15 +377,28 @@ def test_refine_cases_are_the_requests_refiner_calls(setting):
     cfg, inf = GeneratorConfig(), InferenceConfig()
     first = _record_refines(setting, cfg.num_points)
     second = _record_refines(setting, cfg.num_points * cfg.up_ratio)
-
-    def key(case):
-        return (case.n, case.k, 6 + case.c, case.mlp)
-
-    assert dict(first) == {key(c): c.per_request for c in REFINE_CASES
-                           if c.per_request}
-    assert dict(first + second) == {key(c): c.per_16x for c in REFINE_CASES
-                                    if c.per_16x}
+    assert inf.patch_num_point == cfg.num_points
+    assert dict(first) == {_refine_key(c): c.per_request
+                           for c in REFINE_CASES if c.per_request}
+    assert dict(first + second) == {_refine_key(c): c.per_16x
+                                    for c in REFINE_CASES if c.per_16x}
     assert all(case.b == inf.patch_batch for case in REFINE_CASES)
+
+
+def _refine_key(case):
+    return (case.n, case.k, 6 + case.c, case.mlp)
+
+
+@pytest.mark.parametrize("setting", ["fused", "megafused"])
+def test_refine_patch_512_case_is_that_requests_second_pass(setting):
+    """The case at ``patch_num_point`` 512 is the call a 16× request's
+    second pass makes there (2,048-point patches, the refiner at 8,192):
+    one, with either setting, over a chunk of ``patch_batch`` patches."""
+    cfg = GeneratorConfig()
+    (case,) = [c for c in REFINE_CASES if c.patch != cfg.num_points]
+    assert case.patch == 512 and not case.per_request and not case.per_16x
+    second = _record_refines(setting, case.patch * cfg.up_ratio)
+    assert dict(second) == {_refine_key(case): 1}
 
 
 def test_refine_params_are_seeded_at_the_cases_widths():
