@@ -1,0 +1,12 @@
+"""Model FLOPs of the window's steps (forward and backward, counted over
+the reference) over the window's time and the peaks of their classes, in
+%."""
+
+from port_bench.lib.roofline import model_least
+
+
+def read(run):
+    rec = run.record
+    if rec["done"] <= 0 or not run.flops:
+        return None
+    return 100.0 * rec["done"] * model_least(run.flops) / rec["window_s"]
