@@ -121,6 +121,12 @@ class TrainConfig:
     ``scan_steps`` say how the JAX package dispatches steps to its device;
     they are accepted here and change nothing: the port always runs one
     step at a time with the whole patch set resident on the step's device.
+
+    ``profile``: a ``torch.profiler`` trace of the first epoch
+    (``utils.logging.maybe_profile``); its Chrome trace carries the
+    program's stage spans (``utils.tracing``: ``train.step``,
+    ``train.draw``, ``train.forward`` ... ``train.update``) beside the
+    operators and kernels.
     """
 
     batch_size: int = 28

@@ -10,7 +10,10 @@ un-normalize the patches → merge FPS down to n·final_ratio points a cloud
 the clouds.  :meth:`PatchUpsampler.pipeline` is that whole function of
 the clouds' tensor; ``upsample_many`` runs it on B same-size clouds at
 once, ``upsample`` is its one-cloud case, and ``serving.export_upsampler``
-traces it.  The turbo serving flags of
+traces it.  The stages are spans of ``utils.tracing`` (``serve.request``,
+the copies in and out included; ``serve.prepare``; ``serve.generate``
+with a ``serve.pass`` for each pass of each chunk; ``serve.merge``),
+which record only while a profiler or ``tracing.recording()`` does.  The turbo serving flags of
 ``dispu.py --turbo`` are a ``GeneratorConfig`` and an ``InferenceConfig``
 (``cli.build_config``).
 
@@ -44,6 +47,7 @@ from dispu_tpu_torch.ops.sampling import (farthest_point_sample,
                                           farthest_point_sample_bucketed)
 from dispu_tpu_torch.parallel.mesh import (all_gather_rows, data_rank,
                                            data_size)
+from dispu_tpu_torch.utils.tracing import span
 
 
 def resolve_device(device) -> torch.device:
@@ -114,10 +118,13 @@ class PatchUpsampler:
         patches of cloud v are rows v·s to v·s + s − 1."""
         b = pcs_n.shape[0]
         p = self.inf_cfg.patch_num_point
-        seeds_idx = farthest_point_sample(seed_num, pcs_n, impl=self.impl)
-        _, idx = knn(p, pcs_n, _take(pcs_n, seeds_idx), impl=self.impl)
-        patches = _take(pcs_n, idx.reshape(b, -1)).reshape(b * seed_num, p, 3)
-        patches, centroid, furthest = normalize_point_cloud(patches)
+        with span("serve.prepare"):
+            seeds_idx = farthest_point_sample(seed_num, pcs_n,
+                                              impl=self.impl)
+            _, idx = knn(p, pcs_n, _take(pcs_n, seeds_idx), impl=self.impl)
+            patches = _take(pcs_n, idx.reshape(b, -1)).reshape(
+                b * seed_num, p, 3)
+            patches, centroid, furthest = normalize_point_cloud(patches)
         return patches, centroid, furthest, seeds_idx
 
     def chunks(self, patches: torch.Tensor):
@@ -141,25 +148,27 @@ class PatchUpsampler:
         rank as a 0-d int64 tensor (an exported program's input, where a
         Python int would be a constant of the trace), the mesh's by
         default; its rows are taken by ``index_select``."""
-        chunks = self.chunks(patches)
-        if self.mesh is not None:
-            if rank is None:
-                rank = torch.tensor(data_rank(self.mesh),
-                                    device=patches.device)
-            # __init__ rounds patch_batch up to a multiple of the axis
-            per = self.patch_batch // data_size(self.mesh)
-            rows = torch.arange(per, device=patches.device) + rank * per
-            chunks = [c.index_select(0, rows) for c in chunks]
-        preds = []
-        for pred in chunks:
-            for _ in range(self.num_passes):
-                pred = self.model(pred)[1]
-            preds.append(pred)
-        if self.mesh is None:
-            return torch.cat(preds, dim=0)[: patches.shape[0]]
-        # (W, chunks, rows, ...) → chunk by chunk, each in rank order
-        every = all_gather_rows(torch.stack(preds), self.mesh)
-        return every.transpose(0, 1).flatten(0, 2)[: patches.shape[0]]
+        with span("serve.generate"):
+            chunks = self.chunks(patches)
+            if self.mesh is not None:
+                if rank is None:
+                    rank = torch.tensor(data_rank(self.mesh),
+                                        device=patches.device)
+                # __init__ rounds patch_batch up to a multiple of the axis
+                per = self.patch_batch // data_size(self.mesh)
+                rows = torch.arange(per, device=patches.device) + rank * per
+                chunks = [c.index_select(0, rows) for c in chunks]
+            preds = []
+            for pred in chunks:
+                for _ in range(self.num_passes):
+                    with span("serve.pass"):
+                        pred = self.model(pred)[1]
+                preds.append(pred)
+            if self.mesh is None:
+                return torch.cat(preds, dim=0)[: patches.shape[0]]
+            # (W, chunks, rows, ...) → chunk by chunk, each in rank order
+            every = all_gather_rows(torch.stack(preds), self.mesh)
+            return every.transpose(0, 1).flatten(0, 2)[: patches.shape[0]]
 
     def merge(self, points: torch.Tensor, out_num: int) -> torch.Tensor:
         """Merge FPS of B clouds' candidates, one FPS call for all B (the
@@ -170,16 +179,18 @@ class PatchUpsampler:
         ranked by argsort over 10-bit Morton codes or, with
         ``merge_fps_rank='radix'``, by the counting rank over 4-bit ones."""
         inf = self.inf_cfg
-        if inf.merge_fps == "bucketed" and out_num >= inf.merge_fps_buckets:
-            rank = inf.merge_fps_rank  # 'radix' ranks 4-bit codes, as JAX
-            idx = farthest_point_sample_bucketed(
-                out_num, points, n_buckets=inf.merge_fps_buckets,
-                impl=self.impl, rank_impl=rank,
-                bits=4 if rank == "radix" else 10)
-        else:
-            impl = "batch" if self.impl == "auto" else self.impl
-            idx = farthest_point_sample(out_num, points, impl=impl)
-        return _take(points, idx)
+        with span("serve.merge"):
+            if (inf.merge_fps == "bucketed"
+                    and out_num >= inf.merge_fps_buckets):
+                rank = inf.merge_fps_rank  # 'radix' ranks 4-bit codes
+                idx = farthest_point_sample_bucketed(
+                    out_num, points, n_buckets=inf.merge_fps_buckets,
+                    impl=self.impl, rank_impl=rank,
+                    bits=4 if rank == "radix" else 10)
+            else:
+                impl = "batch" if self.impl == "auto" else self.impl
+                idx = farthest_point_sample(out_num, points, impl=impl)
+            return _take(points, idx)
 
     def pipeline(self, pcs: torch.Tensor,
                  rank: torch.Tensor | None = None) -> torch.Tensor:
@@ -207,8 +218,9 @@ class PatchUpsampler:
         with the other clouds' and the padding differs, which moves the
         f32 round-off of each chunk's products."""
         pcs = np.asarray(pcs, np.float32)[:, :, :3]
-        return self.pipeline(torch.from_numpy(pcs).to(self.device)
-                             ).cpu().numpy()
+        with span("serve.request"):
+            return self.pipeline(torch.from_numpy(pcs).to(self.device)
+                                 ).cpu().numpy()
 
     def upsample(self, pc) -> np.ndarray:
         """(n, 3) cloud → (n·final_ratio, 3) upsampled cloud (numpy)."""

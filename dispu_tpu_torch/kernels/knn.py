@@ -36,6 +36,7 @@ import torch
 from dispu_tpu_torch.kernels import (LAUNCHES, custom_op, forward_of,
                                      use_kernel)
 from dispu_tpu_torch.ops.geometry import pairwise_sq_dist
+from dispu_tpu_torch.utils.tracing import add_syncs
 
 #: the largest k of the tiled form, which takes any n
 MAX_STREAM_K = 32
@@ -323,6 +324,13 @@ def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
                              use_kernel(impl, points), False)
 
 
+#: the host's waits in ``torch.unique(dim=0)`` on a CUDA tensor that torch's
+#: sync debug mode does not see: its Thrust algorithms each synchronize
+#: the stream (6 ``cudaStreamSynchronize`` calls a call with torch 2.11
+#: and CUDA 12.8 on an H100, by the profiler); the tracer counts them here
+UNIQUE_DIM_SYNCS = 6
+
+
 def duplicate_rows_torch(points: torch.Tensor) -> torch.Tensor:
     """(..., n, c) → (..., n) bool: True where an identical row exists at a
     smaller index of the same cloud (rows of finite values; -0.0 equals
@@ -338,6 +346,8 @@ def duplicate_rows_torch(points: torch.Tensor) -> torch.Tensor:
     cloud = torch.div(index, n, rounding_mode="floor").to(points.dtype)
     _, group = torch.unique(torch.cat([cloud[:, None], flat], dim=1), dim=0,
                             return_inverse=True)
+    if points.is_cuda:
+        add_syncs(UNIQUE_DIM_SYNCS)
     first = torch.full_like(index, flat.shape[0]).scatter_reduce_(
         0, group, index, "amin")
     return (first[group] != index).reshape(points.shape[:-1])

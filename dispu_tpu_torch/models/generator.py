@@ -6,7 +6,9 @@
   spatial refiner: PointShuffle2 → CoordinateRegressor(offset);
     fine = coarse + offset.
 Submodule names are the flax scope names, so a flax tree converts by path
-(``convert.from_flax_variables``).
+(``convert.from_flax_variables``).  The forward's spans (``utils.tracing``):
+``gen.extract`` (the coarse extractor), ``gen.expand`` (the up steps and
+the coarse regressor), ``gen.refine`` (the refiner).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from dispu_tpu_torch.nn.edgeconv import FeatureExtractorGCN
 from dispu_tpu_torch.nn.layers import init_weights, set_compute_dtype
 from dispu_tpu_torch.nn.refine import PointShuffle2
 from dispu_tpu_torch.nn.upsample import CoordinateRegressor, DuplicateUp
+from dispu_tpu_torch.utils.tracing import span
 
 
 def _gather_impl(cfg: GeneratorConfig, fast: bool) -> str:
@@ -96,19 +99,23 @@ class DisPUGenerator(nn.Module):
 
     def forward(self, inputs: torch.Tensor):
         cfg = self.cfg
-        feat = self.feature_extraction_coarse(inputs)
-        for i in range(cfg.num_up_steps):
-            feat = getattr(self, f"upshuffle_{i}")(feat)
-        # xyz flows in the inputs' dtype (f32) at any compute dtype, as in
-        # the JAX package
-        coarse = self.coarse_coordinate_regressor(feat).to(inputs.dtype)
+        with span("gen.extract"):
+            feat = self.feature_extraction_coarse(inputs)
+        with span("gen.expand"):
+            for i in range(cfg.num_up_steps):
+                feat = getattr(self, f"upshuffle_{i}")(feat)
+            # xyz flows in the inputs' dtype (f32) at any compute dtype, as
+            # in the JAX package
+            coarse = self.coarse_coordinate_regressor(feat).to(inputs.dtype)
         if not cfg.refine:
             return coarse, coarse
-        fine_feat = feat
-        if cfg.fine_extractor:
-            extra = self.feature_extraction_fine(coarse)
-            fine_feat = torch.cat([extra, fine_feat], dim=-1)
-        new_coarse, fine_feat = self.PointShuffle(coarse, fine_feat)
-        offset = self.fine_coordinate_regressor(fine_feat).to(inputs.dtype)
-        fine = new_coarse + offset if cfg.is_off else offset
+        with span("gen.refine"):
+            fine_feat = feat
+            if cfg.fine_extractor:
+                extra = self.feature_extraction_fine(coarse)
+                fine_feat = torch.cat([extra, fine_feat], dim=-1)
+            new_coarse, fine_feat = self.PointShuffle(coarse, fine_feat)
+            offset = self.fine_coordinate_regressor(fine_feat).to(
+                inputs.dtype)
+            fine = new_coarse + offset if cfg.is_off else offset
         return coarse, fine

@@ -167,10 +167,11 @@ def snapshot(model, mu, nu) -> dict:
 
 @contextlib.contextmanager
 def _recorded_draws(draws: list):
-    """Record the train steps' input draws and augmented batches."""
-    from dispu_tpu_torch.train import gan_steps, steps
+    """Record the train steps' input draws and augmented batches (both
+    steps draw through ``train.steps.draw_inputs``)."""
+    from dispu_tpu_torch.train import steps
 
-    modules = (steps, gan_steps)
+    modules = (steps,)
     saved = [(m, m.sample_training_inputs, m.augment_batch) for m in modules]
 
     def recording(fn, name):

@@ -50,18 +50,18 @@ import torch
 
 from dispu_tpu_torch import losses as L
 from dispu_tpu_torch.config import ExperimentConfig, check_train_supported
-from dispu_tpu_torch.data.augment import augment_batch, sample_training_inputs
 from dispu_tpu_torch.inference import pin_f32, resolve_device
 from dispu_tpu_torch.models.discriminator import (
     PatchDiscriminator, paired_neighborhoods,
     paired_neighborhoods_with_pred_indices, regather_pred, split_real_fake)
 from dispu_tpu_torch.nn.layers import computing_at, synced_batch_stats
-from dispu_tpu_torch.parallel.mesh import (all_reduce_mean_, local_rows,
-                                           shard_batch)
+from dispu_tpu_torch.parallel.mesh import all_reduce_mean_, local_rows
 from dispu_tpu_torch.train.state import (GeneratorState, adam_step,
                                          adam_update, create_generator_state)
-from dispu_tpu_torch.train.steps import (deterministic, generator_forward,
-                                         global_metrics, reduce_grads_)
+from dispu_tpu_torch.train.steps import (deterministic, draw_inputs,
+                                         generator_forward, global_metrics,
+                                         reduce_grads_, signature_of)
+from dispu_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -141,7 +141,6 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
     check_train_supported(cfg)
     dev = resolve_device(device)
     pin_f32()
-    n_in = cfg.generator.num_points
     dcfg, clip = cfg.discriminator, cfg.train.d_clip
     gen_update = cfg.train.gen_update
 
@@ -180,24 +179,19 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
             return d_loss, aux, at.to(torch.float32) / n_d
 
     def step_core(state: GANState, gt, inputs, radius, generator):
-        if cfg.data.augment:
-            inputs, gt_aug = augment_batch(
-                inputs, gt, generator, jitter_sigma=cfg.data.jitter_sigma,
-                jitter_max=cfg.data.jitter_max,
-                scale_low=cfg.data.scale_low,
-                scale_high=cfg.data.scale_high)
-        else:
-            gt_aug = gt
         if mesh is not None:
-            inputs, gt_aug, radius = shard_batch(mesh, inputs, gt_aug, radius)
+            local_rows(mesh, gt.shape[0])  # refuse before any draw
         gen = state.gen
-        weight_fine = L.weight_fine_schedule(
-            gen.epoch, cfg.loss.weight_fine_boundaries,
-            cfg.loss.weight_fine_values)
-        lr_g = L.lr_schedule(
-            gen.epoch, base_lr=cfg.train.base_lr_g,
-            decay_step_epochs=cfg.train.decay_step_epochs,
-            decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
+        with span("train.draw"):
+            inputs, gt_aug, radius = draw_inputs(cfg, mesh, gt, inputs,
+                                                 radius, generator)
+            weight_fine = L.weight_fine_schedule(
+                gen.epoch, cfg.loss.weight_fine_boundaries,
+                cfg.loss.weight_fine_values)
+            lr_g = L.lr_schedule(
+                gen.epoch, base_lr=cfg.train.base_lr_g,
+                decay_step_epochs=cfg.train.decay_step_epochs,
+                decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
         lr_d = cfg.train.base_lr_d  # constant, as the JAX package's
         model = gen.model.train()
         with deterministic(dev), synced_batch_stats(model, mesh), \
@@ -205,20 +199,24 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
             model.zero_grad(set_to_none=True)
             # the one generator forward (recomputed in the generator's
             # backward with remat, still inside these blocks)
-            coarse, fine = generator_forward(model, inputs, cfg.train.remat)
+            with span("train.forward"):
+                coarse, fine = generator_forward(model, inputs,
+                                                 cfg.train.remat)
             fine0 = fine.detach()
-            with torch.no_grad():
-                d_groups, pred_idx = paired_neighborhoods_with_pred_indices(
-                    dcfg, gt_aug, fine0, impl)
-                d_fake, d_fake_groups = fine0, d_groups
-                if fake_pool is not None:
-                    pooled = fake_pool.query(fine0.cpu().numpy())
-                    d_fake = torch.from_numpy(
-                        np.asarray(pooled, np.float32)).to(dev)
-                    d_fake_groups = paired_neighborhoods(dcfg, gt_aug, d_fake,
-                                                         impl)
-            d_loss, aux, d_clip_frac = critic_update(
-                state, lr_d, d_fake, gt_aug, d_fake_groups)
+            with span("train.critic"):
+                with torch.no_grad():
+                    d_groups, pred_idx = \
+                        paired_neighborhoods_with_pred_indices(
+                            dcfg, gt_aug, fine0, impl)
+                    d_fake, d_fake_groups = fine0, d_groups
+                    if fake_pool is not None:
+                        pooled = fake_pool.query(fine0.cpu().numpy())
+                        d_fake = torch.from_numpy(
+                            np.asarray(pooled, np.float32)).to(dev)
+                        d_fake_groups = paired_neighborhoods(
+                            dcfg, gt_aug, d_fake, impl)
+                d_loss, aux, d_clip_frac = critic_update(
+                    state, lr_d, d_fake, gt_aug, d_fake_groups)
             d_real, d_fake_mean, d_var, d_mean = (t.detach() for t in aux)
 
             # the generator against the updated critic, frozen
@@ -226,22 +224,25 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
             for p in frozen:
                 p.requires_grad_(False)
             try:
-                pu_total, metrics = L.pu_losses(coarse, fine, gt_aug, radius,
-                                                weight_fine, cfg.loss,
-                                                impl=impl)
-                values = state.disc(fine, gt_aug, groups=regather_pred(
-                    d_groups, pred_idx, fine))
-                g_gan = L.generator_loss(split_real_fake(values)[1])
-                total = pu_total + g_gan
-                total.backward()
+                with span("train.losses"):
+                    pu_total, metrics = L.pu_losses(
+                        coarse, fine, gt_aug, radius, weight_fine, cfg.loss,
+                        impl=impl)
+                    values = state.disc(fine, gt_aug, groups=regather_pred(
+                        d_groups, pred_idx, fine))
+                    g_gan = L.generator_loss(split_real_fake(values)[1])
+                    total = pu_total + g_gan
+                with span("train.backward"):
+                    total.backward()
             finally:
                 for p in frozen:
                     p.requires_grad_(True)
-            with torch.no_grad():
+            with span("train.losses"), torch.no_grad():
                 uniform = 10.0 * L.uniform(fine0, impl=impl)
-            if mesh is not None:
-                reduce_grads_(model, mesh)
-            adam_update(gen, lr_g, cfg.train)
+            with span("train.update"):
+                if mesh is not None:
+                    reduce_grads_(model, mesh)
+                adam_update(gen, lr_g, cfg.train)
         gen.step += 1
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
@@ -257,17 +258,4 @@ def make_gan_train_step(cfg: ExperimentConfig, device="cuda",
             metrics, d_gap=metrics["d_real_mean"] - metrics["d_fake_mean"],
             d_var=d_var, d_clip_frac=d_clip_frac)
 
-    if cfg.data.random_input:
-        def step(state: GANState, gt, radius, generator):
-            if mesh is not None:
-                local_rows(mesh, gt.shape[0])  # refuse before any draw
-            inputs = sample_training_inputs(
-                gt, n_in, generator, cluster_prob=cfg.data.cluster_prob,
-                cluster_size=cfg.data.cluster_size)
-            return step_core(state, gt, inputs, radius, generator)
-    else:
-        def step(state: GANState, gt, inputs, radius, generator):
-            if mesh is not None:
-                local_rows(mesh, gt.shape[0])
-            return step_core(state, gt, inputs, radius, generator)
-    return step
+    return signature_of(cfg, step_core)

@@ -5,7 +5,12 @@ step's device, the epoch schedules, the generator forward in training mode
 (batch-norm batch statistics, running statistics updated), ``pu_losses``,
 the backward through the kernels' autograd rules, and the Adam update,
 in place (with ``remat`` the forward is recomputed in the backward,
-:func:`generator_forward`).  It returns the JAX package's metrics dict,
+:func:`generator_forward`).  Its spans (``utils.tracing``): ``train.step``
+around ``train.draw`` (the draw, augmentation and schedules),
+``train.forward``, ``train.losses``, ``train.backward`` and
+``train.update`` (under a mesh the gradients' all-reduce, then Adam); the
+GAN step adds ``train.critic`` and a second ``train.losses``, for the
+logged ``uniform`` after the backward.  It returns the JAX package's metrics dict,
 as 0-d tensors on the device (and ``lr``, ``weight_fine`` as floats), so
 a caller fetches them only when it prints.
 
@@ -50,6 +55,7 @@ from dispu_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce_max_,
                                            all_reduce_mean_, local_rows,
                                            shard_batch)
 from dispu_tpu_torch.train.state import GeneratorState, adam_update
+from dispu_tpu_torch.utils.tracing import span
 
 #: metrics that are a maximum over the batch; every other tensor metric is
 #: a mean over it (floats, such as ``lr``, are the same in every process)
@@ -152,37 +158,38 @@ def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
     check_train_supported(cfg)
     dev = resolve_device(device)
     pin_f32()
-    n_in = cfg.generator.num_points
 
     def step_core(state: GeneratorState, gt, inputs, radius, generator):
-        if cfg.data.augment:
-            inputs, gt_aug = augment_batch(
-                inputs, gt, generator, jitter_sigma=cfg.data.jitter_sigma,
-                jitter_max=cfg.data.jitter_max,
-                scale_low=cfg.data.scale_low,
-                scale_high=cfg.data.scale_high)
-        else:
-            gt_aug = gt
+        """The step; ``inputs`` None draws them from ``gt``."""
         if mesh is not None:
-            inputs, gt_aug, radius = shard_batch(mesh, inputs, gt_aug, radius)
-        weight_fine = L.weight_fine_schedule(
-            state.epoch, cfg.loss.weight_fine_boundaries,
-            cfg.loss.weight_fine_values)
-        lr = L.lr_schedule(
-            state.epoch, base_lr=cfg.train.base_lr_g,
-            decay_step_epochs=cfg.train.decay_step_epochs,
-            decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
+            local_rows(mesh, gt.shape[0])  # refuse before any draw
+        with span("train.draw"):
+            inputs, gt_aug, radius = draw_inputs(cfg, mesh, gt, inputs,
+                                                 radius, generator)
+            weight_fine = L.weight_fine_schedule(
+                state.epoch, cfg.loss.weight_fine_boundaries,
+                cfg.loss.weight_fine_values)
+            lr = L.lr_schedule(
+                state.epoch, base_lr=cfg.train.base_lr_g,
+                decay_step_epochs=cfg.train.decay_step_epochs,
+                decay_rate=cfg.train.lr_decay_rate, clip=cfg.train.lr_clip)
         model = state.model.train()
         with deterministic(dev), synced_batch_stats(model, mesh), \
                 computing_at(model, cfg.train.compute_dtype):
             model.zero_grad(set_to_none=True)
-            coarse, fine = generator_forward(model, inputs, cfg.train.remat)
-            total, metrics = L.pu_losses(coarse, fine, gt_aug, radius,
-                                         weight_fine, cfg.loss, impl=impl)
-            total.backward()
-            if mesh is not None:
-                reduce_grads_(model, mesh)
-            adam_update(state, lr, cfg.train)
+            with span("train.forward"):
+                coarse, fine = generator_forward(model, inputs,
+                                                 cfg.train.remat)
+            with span("train.losses"):
+                total, metrics = L.pu_losses(coarse, fine, gt_aug, radius,
+                                             weight_fine, cfg.loss,
+                                             impl=impl)
+            with span("train.backward"):
+                total.backward()
+            with span("train.update"):
+                if mesh is not None:
+                    reduce_grads_(model, mesh)
+                adam_update(state, lr, cfg.train)
         state.step += 1
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
@@ -191,19 +198,41 @@ def make_train_step(cfg: ExperimentConfig, device="cuda", impl: str = "auto",
             metrics = global_metrics(metrics, mesh)
         return state, metrics
 
+    return signature_of(cfg, step_core)
+
+
+def draw_inputs(cfg: ExperimentConfig, mesh, gt, inputs, radius, generator):
+    """A step's inputs: ``inputs`` None draws them from the dense ``gt``
+    (``random_input``); then the augmentation, and under a ``mesh`` this
+    process's rows.  Returns (inputs, gt as augmented, radius)."""
+    if inputs is None:
+        inputs = sample_training_inputs(
+            gt, cfg.generator.num_points, generator,
+            cluster_prob=cfg.data.cluster_prob,
+            cluster_size=cfg.data.cluster_size)
+    if cfg.data.augment:
+        inputs, gt = augment_batch(
+            inputs, gt, generator, jitter_sigma=cfg.data.jitter_sigma,
+            jitter_max=cfg.data.jitter_max, scale_low=cfg.data.scale_low,
+            scale_high=cfg.data.scale_high)
+    if mesh is not None:
+        inputs, gt, radius = shard_batch(mesh, inputs, gt, radius)
+    return inputs, gt, radius
+
+
+def signature_of(cfg: ExperimentConfig, step_core):
+    """The step that the input mode asks for, around ``step_core(state,
+    gt, inputs, radius, generator)`` inside the span ``train.step``:
+    ``step(state, gt, radius, generator)`` with ``random_input`` (inputs
+    None: drawn), else ``step(state, gt, inputs, radius, generator)``."""
     if cfg.data.random_input:
-        def step(state: GeneratorState, gt, radius, generator):
-            if mesh is not None:
-                local_rows(mesh, gt.shape[0])  # refuse before any draw
-            inputs = sample_training_inputs(
-                gt, n_in, generator, cluster_prob=cfg.data.cluster_prob,
-                cluster_size=cfg.data.cluster_size)
-            return step_core(state, gt, inputs, radius, generator)
+        def step(state, gt, radius, generator):
+            with span("train.step"):
+                return step_core(state, gt, None, radius, generator)
     else:
-        def step(state: GeneratorState, gt, inputs, radius, generator):
-            if mesh is not None:
-                local_rows(mesh, gt.shape[0])
-            return step_core(state, gt, inputs, radius, generator)
+        def step(state, gt, inputs, radius, generator):
+            with span("train.step"):
+                return step_core(state, gt, inputs, radius, generator)
     return step
 
 

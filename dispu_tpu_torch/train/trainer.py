@@ -23,7 +23,8 @@ fine and ground-truth clouds stacked into one grayscale image, written to
 ``utils.visu.write_png``) and, where TensorBoard imports, as the
 ``Upsampling`` image.  ``profile``: a ``torch.profiler`` trace of the
 first epoch run, ``<log_dir>/profile/trace.json``
-(``utils.logging.maybe_profile``).
+(``utils.logging.maybe_profile``), with the steps' stage spans
+(``utils.tracing``).
 """
 
 from __future__ import annotations

@@ -99,7 +99,11 @@ def maybe_profile(log_dir: Optional[str], enable: bool = False,
     block (CPU activity, and CUDA activity for a CUDA ``device``: each
     kernel by its ``__global__`` name) written as a Chrome trace to
     ``<log_dir>/profile/trace.json`` when the block ends; yields the
-    profiler, or None when there is nothing to trace."""
+    profiler, or None when there is nothing to trace.  The trace carries
+    the program's stage spans (``utils.tracing``, which record while a
+    profiler does) as ``cpu_op`` events: a profiled epoch's steps split
+    into ``train.draw``, ``train.forward``, ``train.losses``,
+    ``train.backward`` and ``train.update``."""
     if not (enable and log_dir):
         yield None
         return

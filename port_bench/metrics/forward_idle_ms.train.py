@@ -1,0 +1,12 @@
+"""Device-idle ms a step while the host is in the program's spans
+``train.draw``, ``train.forward`` and ``train.losses`` (the input draw,
+the generator forward, the losses), over the profiled steps
+(``lib/spans.py``)."""
+
+from port_bench.lib import spans
+
+
+def read(run):
+    s = spans.of(run)
+    return None if s is None else s.stage_idle_ms(
+        "train.draw", "train.forward", "train.losses")
